@@ -1,0 +1,261 @@
+"""Continuous-batching inference engine (port of
+``omnia_tpu/engine/engine.py::InferenceEngine`` for a session-less,
+contiguous-KV, dense configuration).
+
+- **Slot batching.** Decode runs over a fixed batch of ``num_slots``
+  sequences; requests claim and free slots as they arrive and finish.
+  Inactive slots still compute (a fixed batch), and admission reclaims
+  them.
+- **Prefill, then decode.** A fresh prompt prefills in its bucket and is
+  written into its slot's rows; decode never sees prompt shapes.
+- **Everything stays on the device.** Sampled tokens feed the next step
+  as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
+  cross to the host, for streaming and stop logic.
+- **Per-slot sampler state** makes a seeded request reproducible whatever
+  shares the batch (``ops/sampling.py``).
+
+Layout mirrors the JAX package: programs in ``programs.py``, the
+dispatch policy in ``scheduler.py``, placement in ``placement.py``, the
+thread lifecycle in ``lifecycle.py``; this module owns construction,
+submission and warmup.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from omnia_tpu_torch import kernels, resolve_device
+from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
+from omnia_tpu_torch.engine.placement import _PlacementMixin
+from omnia_tpu_torch.engine.programs import build_programs
+from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
+from omnia_tpu_torch.engine.types import (
+    MAX_DEVICE_STOP_IDS,
+    EngineConfig,
+    FinishReason,
+    Request,
+    RequestHandle,
+    SamplingParams,
+    StreamEvent,
+    resolve_dtype,
+)
+from omnia_tpu_torch.models import ModelConfig, llama
+from omnia_tpu_torch.ops.sampling import make_slot_key_data
+
+# Knobs this port does not implement yet: (field, ROADMAP item). Set
+# away from its default, each one is refused at construction.
+_UNPORTED_KNOBS = (
+    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"),
+    ("quant", "A10"), ("kv_quant", "A8"), ("kv_pages", "A9"),
+    ("prefix_cache_slots", "A11"), ("grammar", "A11"), ("spec_decode", "A11"),
+    ("prefill_chunk_tokens", "A11"), ("decode_ring", "A11"),
+    ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
+)
+
+
+def _refuse_unported(ecfg: EngineConfig) -> None:
+    default = EngineConfig()
+    for field, item in _UNPORTED_KNOBS:
+        value = getattr(ecfg, field)
+        if value != getattr(default, field):
+            raise ValueError(
+                f"EngineConfig.{field}={value!r} is not ported to "
+                f"omnia_tpu_torch yet (ROADMAP {item})"
+            )
+
+
+class _Slot:
+    __slots__ = ("request", "handle", "length", "generated", "max_total",
+                 "stop_ids", "emitted")
+
+    def __init__(self):
+        self.request: Optional[Request] = None
+        self.handle: Optional[RequestHandle] = None
+        self.length = 0          # tokens currently in the slot's KV rows
+        self.generated = 0
+        self.max_total = 0       # generation cap (request max_tokens)
+        self.stop_ids: frozenset[int] = frozenset()
+        self.emitted: list[int] = []
+
+    def clear(self):
+        self.request = None
+        self.handle = None
+        self.length = 0
+        self.generated = 0
+        self.emitted = []
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None
+
+
+class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
+    """Slot-based continuous-batching engine over one model."""
+
+    def __init__(self, model_cfg: ModelConfig,
+                 engine_cfg: EngineConfig = EngineConfig(),
+                 params=None, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.cfg = engine_cfg
+        _refuse_unported(engine_cfg)
+        if engine_cfg.max_seq > model_cfg.max_seq_len:
+            raise ValueError("engine max_seq exceeds model max_seq_len")
+        if model_cfg.is_moe:
+            raise ValueError(f"{model_cfg.name}: MoE is not ported yet (ROADMAP A12)")
+        self._dtype = resolve_dtype(engine_cfg.dtype)
+        self._seed = seed
+        self.clock = time.monotonic
+
+        progs = build_programs(model_cfg, engine_cfg)
+        self._prefill_insert_fn = progs.prefill_insert
+        self._decode_fns = progs.decode_fns
+
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = llama.init_params(model_cfg, gen, self.device, dtype=self._dtype)
+        self.params = params
+        self._init_device_state()
+
+        B = engine_cfg.num_slots
+        self._slots = [_Slot() for _ in range(B)]
+        self._lock = threading.Lock()
+        self._waiting: list[tuple[Request, RequestHandle]] = []  # guarded-by: _lock
+        self._placing = 0  # guarded-by: _lock
+        self._draining = False  # guarded-by: _lock
+        self._req_counter = itertools.count()
+        self._inflight: collections.deque = collections.deque()
+        self._thread: Optional[threading.Thread] = None
+        self._stop_event = threading.Event()
+        # The JAX engine's metric names, for what this engine does.
+        self.metrics = {
+            "requests_submitted": 0,
+            "requests_finished": 0,
+            "tokens_generated": 0,
+            "prefill_steps": 0,
+            "decode_steps": 0,
+            "prefill_tokens": 0,
+            "decode_dispatch_s": 0.0,
+            "decode_sync_s": 0.0,
+            "prefill_dispatch_s": 0.0,
+            "requests_shed": 0,
+            "deadline_exceeded": 0,
+            "recoveries": 0,
+            "decode_stall_steps": 0,
+        }
+
+    def _alloc_kv_state(self):
+        return llama.init_kv_cache(
+            self.model_cfg, self.cfg.num_slots, self.cfg.max_seq, self.device,
+            dtype=self._dtype,
+        )
+
+    def _init_device_state(self):
+        """(Re)allocate the KV caches and per-slot device state."""
+        B, dev = self.cfg.num_slots, self.device
+        self._ck = self._cv = None  # free the old caches before allocating
+        self._ck, self._cv = self._alloc_kv_state()
+        self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._positions = torch.zeros(B, dtype=torch.int32, device=dev)  # next write row
+        self._temp = torch.zeros(B, dtype=torch.float32, device=dev)
+        self._top_p = torch.ones(B, dtype=torch.float32, device=dev)
+        self._top_k = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._active = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._stop_ids = torch.full((B, MAX_DEVICE_STOP_IDS), -1,
+                                    dtype=torch.int32, device=dev)
+        self._key_data = torch.stack(
+            [make_slot_key_data(self._seed + 1 + i, dev) for i in range(B)]
+        )
+
+    # ------------------------------------------------------------------
+    # Submission API
+    # ------------------------------------------------------------------
+
+    def submit(self, prompt_tokens: list[int],
+               params: SamplingParams = SamplingParams(),
+               session_id: Optional[str] = None, grammar=None,
+               deadline_s: Optional[float] = None,
+               trace_ctx: Optional[str] = None) -> RequestHandle:
+        """Queue a generation request. Sessions, grammars and prompts
+        longer than the largest prefill bucket are refused with a
+        ValueError: their placement paths are not ported yet."""
+        if session_id is not None:
+            raise ValueError(
+                "session_id: sessionful serving is not ported yet (ROADMAP A6)"
+            )
+        if grammar is not None:
+            raise ValueError("grammar: not ported yet (ROADMAP A11)")
+        rid = f"req-{next(self._req_counter)}"
+        handle = RequestHandle(rid)
+        request = Request(rid, list(prompt_tokens), params, trace_ctx=trace_ctx)
+        if deadline_s is not None:
+            request.deadline_at = self.clock() + deadline_s
+        error = None
+        if not prompt_tokens:
+            error = "empty prompt"
+        elif params.max_tokens < 1:
+            error = f"max_tokens must be >= 1, got {params.max_tokens}"
+        elif not self.cfg.usable_buckets():
+            error = "no usable prefill buckets (all exceed max_seq)"
+        elif not all(0 <= t < self.model_cfg.vocab_size for t in prompt_tokens):
+            # An id past the embedding table would fault the device.
+            error = f"prompt token ids must lie in [0, {self.model_cfg.vocab_size})"
+        elif len(prompt_tokens) > self.cfg.max_seq - 2:
+            error = (f"prompt of {len(prompt_tokens)} tokens exceeds KV "
+                     f"capacity (max_seq {self.cfg.max_seq} - 2)")
+        if error is not None:
+            handle._push(StreamEvent(rid, finish_reason=FinishReason.ERROR, error=error))
+            return handle
+        if len(prompt_tokens) > max(self.cfg.usable_buckets()):
+            raise ValueError(
+                f"prompt of {len(prompt_tokens)} tokens exceeds the largest "
+                "prefill bucket; chunked extend is not ported yet (ROADMAP A6)"
+            )
+        with self._lock:
+            if self._draining:
+                shed_why = "engine draining (stop(drain=True))"
+            elif 0 < self.cfg.max_queue <= len(self._waiting):
+                shed_why = f"queue full (max_queue={self.cfg.max_queue})"
+            else:
+                self._waiting.append((request, handle))
+                self.metrics["requests_submitted"] += 1
+                return handle
+            self.metrics["requests_shed"] += 1
+        handle._push(StreamEvent(rid, finish_reason=FinishReason.OVERLOADED,
+                                 error=shed_why))
+        return handle
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._waiting)
+
+    def active_slots(self) -> int:
+        return sum(1 for s in self._slots if s.active)
+
+    def decode_slots_active(self) -> int:
+        """Occupied decode slots (equal to active_slots here)."""
+        return self.active_slots()
+
+    def warmup(self):
+        """Build the kernels and run every prefill bucket and decode chunk
+        size once, so no request pays a first-call cost; then restore the
+        device state and metrics warmup touched."""
+        if self.device.type == "cuda":
+            kernels.load("decode_attention")
+        metrics_before = dict(self.metrics)
+        sp = SamplingParams(temperature=0.0)
+        for bucket in self.cfg.usable_buckets():
+            self._fresh_prefill(0, [0] * bucket, sp)
+        for chunk in self._decode_fns:
+            self._run_decode_step(chunk)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._init_device_state()
+        self.metrics.update(metrics_before)

@@ -1,0 +1,100 @@
+"""Engine thread lifecycle (port of ``omnia_tpu/engine/lifecycle.py``):
+the step loop, graceful drain, and the recovery that turns a failed step
+into failed handles plus fresh device state instead of a dead engine."""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+from omnia_tpu_torch.engine.types import FinishReason, StreamEvent
+
+logger = logging.getLogger(__name__)
+
+
+class _LifecycleMixin:
+    """Thread-loop / drain / recovery methods of :class:`InferenceEngine`."""
+
+    def start(self):
+        if self._thread is not None:
+            return
+        with self._lock:
+            self._draining = False
+        self._stop_event.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="omnia-torch-engine", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self, drain: bool = False, drain_timeout_s: float = 30.0):
+        """Stop the loop. drain=True first stops admission (submit sheds
+        OVERLOADED) and lets queued and active requests finish, bounded
+        by drain_timeout_s; leftovers then get their terminal event."""
+        if drain:
+            with self._lock:
+                self._draining = True
+            deadline = time.monotonic() + drain_timeout_s
+            while time.monotonic() < deadline and self._drain_work_left():
+                if self._thread is None:
+                    if not self.step():
+                        time.sleep(0.001)
+                else:
+                    time.sleep(0.002)
+        wedged = False
+        if self._thread is not None:
+            self._stop_event.set()
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                logger.error("engine loop did not stop within 30s; still alive")
+                wedged = True
+            else:
+                self._thread = None
+        if drain:
+            with self._lock:
+                leftover, self._waiting = self._waiting, []
+            for req, handle in leftover:
+                handle._push(StreamEvent(
+                    req.request_id, finish_reason=FinishReason.OVERLOADED,
+                    error="engine draining: drain window elapsed while queued",
+                    num_prompt_tokens=len(req.prompt_tokens),
+                ))
+                self.metrics["requests_finished"] += 1
+            if not wedged and any(s.active for s in self._slots):
+                self._fail_all("engine stopped: drain window elapsed mid-request")
+
+    def _drain_work_left(self) -> bool:
+        with self._lock:
+            if self._waiting or self._placing > 0:
+                return True
+        return self.active_slots() > 0
+
+    def _loop(self):
+        while not self._stop_event.is_set():
+            try:
+                if not self.step():
+                    time.sleep(0.001)
+            except Exception:
+                logger.exception("engine step failed")
+                self._recover("engine step failed")
+                time.sleep(0.1)
+
+    def _recover(self, msg: str):
+        """Fail in-flight requests and reallocate device state: a step
+        that raised mid-chunk leaves the caches and slot state half
+        written."""
+        self._fail_all(msg)
+        self._inflight.clear()
+        self._init_device_state()
+        self.metrics["recoveries"] += 1
+
+    def _fail_all(self, msg: str):
+        for slot in self._slots:
+            if slot.active:
+                slot.handle._push(StreamEvent(
+                    slot.request.request_id, finish_reason=FinishReason.ERROR,
+                    error=msg, num_prompt_tokens=len(slot.request.prompt_tokens),
+                    num_generated_tokens=slot.generated,
+                ))
+                self.metrics["requests_finished"] += 1
+                slot.clear()

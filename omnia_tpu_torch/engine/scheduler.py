@@ -1,0 +1,275 @@
+"""Decode scheduler (port of the prefill-first policy of
+``omnia_tpu/engine/scheduler.py``, as a session-less default config
+runs it).
+
+One placement per step, then decode for all active slots. Up to
+``decode_pipeline`` chunks stay in flight: chunk N+1 is enqueued before
+chunk N's tokens are read. PyTorch launches are asynchronous, so the
+analog of reading a JAX future is a copy of the chunk's ``[K, B]`` tokens
+into pinned host memory, enqueued right after the chunk, and a CUDA
+event to wait on when the tokens are needed; the wait never covers
+chunks enqueued later. While requests queue, the pipeline drains and
+single steps are taken so a waiting prefill never sits out a full chunk.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from omnia_tpu_torch.engine.types import FinishReason, StreamEvent
+
+
+class _InflightChunk:
+    """A dispatched decode chunk whose tokens have not been read yet."""
+
+    __slots__ = ("toks", "host", "event", "active", "dispatch_s")
+
+    def __init__(self, toks: torch.Tensor, active: list, dispatch_s: float):
+        self.toks = toks
+        self.active = active
+        self.dispatch_s = dispatch_s
+        self.host: Optional[torch.Tensor] = None
+        self.event = None
+        if toks.is_cuda:
+            self.host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            self.host.copy_(toks, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def read(self) -> np.ndarray:
+        if self.event is None:
+            return self.toks.numpy()
+        self.event.synchronize()
+        return self.host.numpy()
+
+
+class _SchedulerMixin:
+    """Step-loop and pipeline methods of :class:`InferenceEngine`."""
+
+    def step(self) -> bool:
+        """One scheduling step. Returns True if any work was done."""
+        self._reap_cancelled()
+        self._reap_deadlines()
+        did = False
+        with self._lock:
+            queued = bool(self._waiting)
+        if queued and self._inflight:
+            # Surface in-flight finishes now so their slots free up.
+            self._flush_pipeline()
+            did = True
+        pending, slot_idx = self._claim_pending()
+        if pending is not None:
+            self._place_pending(slot_idx, *pending)
+            did = True
+        if any(s.active for s in self._slots):
+            with self._lock:
+                queued = bool(self._waiting)
+            if self._inflight and not self._dispatch_ahead_useful():
+                self._process_oldest_chunk()
+            else:
+                self._dispatch_decode(single=queued)
+                depth = 1 if queued else max(1, self.cfg.decode_pipeline)
+                while len(self._inflight) >= depth:
+                    self._process_oldest_chunk()
+            did = True
+        elif self._inflight:
+            self._process_oldest_chunk()
+            did = True
+        return did
+
+    def _claim_pending(self):
+        """Claim the oldest waiting request if a slot is free: it leaves
+        the queue and ``_placing`` counts it until placement ends."""
+        with self._lock:
+            if not self._waiting:
+                return None, None
+            slot_idx = self._slot_for()
+            if slot_idx is None:
+                return None, None
+            pending = self._waiting.pop(0)
+            self._placing += 1
+        return pending, slot_idx
+
+    def _slot_for(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if not s.active:
+                return i
+        return None
+
+    def _place_pending(self, slot_idx, request, handle):
+        try:
+            self._place_request(slot_idx, request, handle)
+        except Exception:
+            self._fail_placement(slot_idx, request, handle, "prefill failed")
+            raise
+        finally:
+            with self._lock:
+                self._placing -= 1
+
+    def _fail_placement(self, slot_idx, request, handle, msg: str):
+        handle._push(StreamEvent(
+            request.request_id, finish_reason=FinishReason.ERROR, error=msg,
+            num_prompt_tokens=len(request.prompt_tokens),
+        ))
+        self.metrics["requests_finished"] += 1
+        self._slots[slot_idx].clear()
+
+    def _dispatch_ahead_useful(self) -> bool:
+        """True if some active slot's budget extends past the steps
+        already in flight (stop ids are unpredictable, so optimistic)."""
+        return self._remaining_work() > 0
+
+    def _reap_cancelled(self):
+        for i, slot in enumerate(self._slots):
+            if slot.active and slot.handle.cancelled:
+                self._finish_slot(i, FinishReason.CANCELLED)
+        with self._lock:
+            still = []
+            for req, handle in self._waiting:
+                if handle.cancelled:
+                    handle._push(StreamEvent(
+                        req.request_id, finish_reason=FinishReason.CANCELLED))
+                    self.metrics["requests_finished"] += 1
+                else:
+                    still.append((req, handle))
+            self._waiting = still
+
+    def _reap_deadlines(self):
+        """Queued requests past their deadline shed with DEADLINE; active
+        ones finish early with their partial output (chunk granularity)."""
+        now = self.clock()
+        for i, slot in enumerate(self._slots):
+            if (slot.active and slot.request.deadline_at is not None
+                    and now >= slot.request.deadline_at):
+                self.metrics["deadline_exceeded"] += 1
+                self._finish_slot(i, FinishReason.DEADLINE)
+        with self._lock:
+            still = []
+            for req, handle in self._waiting:
+                if req.deadline_at is not None and now >= req.deadline_at:
+                    handle._push(StreamEvent(
+                        req.request_id, finish_reason=FinishReason.DEADLINE,
+                        num_prompt_tokens=len(req.prompt_tokens)))
+                    self.metrics["deadline_exceeded"] += 1
+                    self.metrics["requests_finished"] += 1
+                else:
+                    still.append((req, handle))
+            self._waiting = still
+
+    def _run_decode_step(self, chunk: int) -> torch.Tensor:
+        """Enqueue one decode chunk; device state advances to its outputs
+        at once and the tokens [K, B] are returned unread."""
+        t_dispatch = time.monotonic()
+        (
+            self._ck, self._cv, self._tokens, self._positions, self._active,
+            self._budget, self._key_data, toks,
+        ) = self._decode_fns[chunk](
+            self.params, self._ck, self._cv, self._tokens, self._positions,
+            self._active, self._budget, self._stop_ids, self._key_data,
+            self._temp, self._top_p, self._top_k,
+        )
+        self.metrics["decode_dispatch_s"] += time.monotonic() - t_dispatch
+        self.metrics["decode_steps"] += int(toks.shape[0])
+        return toks
+
+    def _remaining_work(self) -> int:
+        """Max over active slots of tokens still to emit beyond the steps
+        already in flight."""
+        inflight_steps: dict[int, int] = {}
+        for ch in self._inflight:
+            k = int(ch.toks.shape[0])
+            for i, _rid in ch.active:
+                inflight_steps[i] = inflight_steps.get(i, 0) + k
+        need = 0
+        for i, s in enumerate(self._slots):
+            if not s.active:
+                continue
+            rem = min(
+                s.max_total - s.generated, self.cfg.max_seq - 2 - s.length,
+            ) - inflight_steps.get(i, 0)
+            need = max(need, rem)
+        return need
+
+    def _pick_chunk(self) -> int:
+        """The full chunk while work exceeds it, else the smallest variant
+        covering the remainder (overshot steps are masked on the device)."""
+        need = max(self._remaining_work(), 1)
+        best = max(self._decode_fns)
+        for k in sorted(self._decode_fns):
+            if k >= need:
+                best = k
+                break
+        return best
+
+    def _dispatch_decode(self, single: bool = False):
+        active = [
+            (i, s.request.request_id) for i, s in enumerate(self._slots) if s.active
+        ]
+        chunk = 1 if single else self._pick_chunk()
+        t_dispatch = time.monotonic()
+        toks = self._run_decode_step(chunk)
+        self._inflight.append(
+            _InflightChunk(toks, active, time.monotonic() - t_dispatch)
+        )
+
+    def _process_oldest_chunk(self):
+        ch = self._inflight.popleft()
+        t_sync = time.monotonic()
+        host_tokens = ch.read()  # [K, B]
+        self.metrics["decode_sync_s"] += time.monotonic() - t_sync
+        for k in range(host_tokens.shape[0]):
+            stepped = False
+            for i, rid in ch.active:
+                slot = self._slots[i]
+                if not slot.active or slot.request.request_id != rid:
+                    # Finished earlier in this chunk, or re-placed since.
+                    continue
+                stepped = True
+                slot.length += 1
+                self._emit_token(i, int(host_tokens[k, i]))
+            if not stepped:
+                break
+
+    def _flush_pipeline(self):
+        while self._inflight:
+            self._process_oldest_chunk()
+
+    def _emit_token(self, slot_idx: int, token: int):
+        slot = self._slots[slot_idx]
+        if not slot.active:
+            return
+        if token in slot.stop_ids:
+            self._finish_slot(slot_idx, FinishReason.STOP)
+            return
+        slot.generated += 1
+        slot.emitted.append(token)
+        slot.handle._push(StreamEvent(slot.request.request_id, token_id=token))
+        self.metrics["tokens_generated"] += 1
+        # The cache bound stops a step early so the next decode write
+        # stays legal (row max_seq - 1 is the last one).
+        if slot.generated >= slot.max_total or slot.length >= self.cfg.max_seq - 2:
+            self._finish_slot(slot_idx, FinishReason.LENGTH)
+
+    def _finish_slot(self, slot_idx: int, reason: FinishReason):
+        slot = self._slots[slot_idx]
+        rid = slot.request.request_id
+        handle = slot.handle
+        n_prompt = len(slot.request.prompt_tokens)
+        generated = slot.generated
+        slot.clear()
+        # Quiesce: decode keeps running over the slot (static batch) but
+        # with active False it only rewrites row 0, which the next
+        # placement's prefill overwrites.
+        self._positions[slot_idx] = 0
+        self._tokens[slot_idx] = 0
+        self._temp[slot_idx] = 0.0
+        self._active[slot_idx] = False
+        handle._push(StreamEvent(
+            rid, finish_reason=reason, num_prompt_tokens=n_prompt,
+            num_generated_tokens=generated,
+        ))
+        self.metrics["requests_finished"] += 1

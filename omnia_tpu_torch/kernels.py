@@ -1,0 +1,111 @@
+"""Builds and loads the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``_build/`` (git-ignored), named by a hash of the source and the flags,
+with ptxas's report in a ``.log`` beside it, and loaded with ``ctypes``.
+Nothing is built when this module is imported; a missing ``nvcc`` or a
+failed build raises with the compiler's output, and nothing falls back
+to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or it refused a source."""
+
+
+def find_nvcc() -> Optional[str]:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    return None
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            f"cannot build kernel {name!r}: nvcc not found on PATH, "
+            "CUDA_HOME or /usr/local/cuda"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed for {name!r} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    # ptxas's report (registers, shared memory, spills) stays beside it.
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def sources() -> list[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel source, one nvcc each, all started together.
+    Returns the seconds each build took; raises if any build failed."""
+    def timed(name):
+        t0 = time.monotonic()
+        build(name)
+        return time.monotonic() - t0
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(timed, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        return lib

@@ -1,0 +1,36 @@
+"""Conversion of a JAX param pytree into the port's params.
+
+The port keeps the JAX layout (stacked layers, projections [in, out]),
+so conversion is a copy leaf by leaf. Leaves arrive as numpy arrays; a
+bfloat16 leaf (numpy dtype name ``"bfloat16"``, from ml_dtypes) is read
+through a ``uint16`` view of its bits, so neither jax nor ml_dtypes is
+imported here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _leaf(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        # bf16 is the top half of an f32: widen the bits exactly.
+        bits = arr.view(np.uint16).astype(np.uint32) << 16
+        t = torch.from_numpy(np.ascontiguousarray(bits).view(np.float32))
+        dtype = dtype or torch.bfloat16
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))  # jax views are read-only
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
+    """Nested dict of numpy arrays (a JAX ``llama.init_params`` tree
+    after ``jax.tree.map(np.asarray, ...)``) → the same dict of tensors on
+    ``device``, cast to ``dtype`` (default: each leaf's own dtype)."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    return _leaf(tree, device, dtype)

@@ -1,0 +1,82 @@
+"""The port stands alone: no module of omnia_tpu_torch (nor chip_smoke.py)
+imports jax or omnia_tpu, and its kernel builder raises where it cannot
+build rather than handing back a plain version."""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from omnia_tpu_torch import kernels
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "omnia_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "omnia_tpu")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'omnia_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(MODULES) >= 15
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    with pytest.raises(kernels.KernelBuildError, match="nvcc not found"):
+        kernels.build("decode_attention")
+
+
+def test_kernel_route_raises_without_nvcc(monkeypatch, tmp_path):
+    """The wrapper's kernel route loads the library first; with no nvcc
+    that raises, and a tensor on neither the CPU nor a card is refused."""
+    import torch
+
+    from omnia_tpu_torch.ops import decode_attention as tda
+
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_loaded", {})
+    with pytest.raises(kernels.KernelBuildError):
+        tda._lib()
+    q = torch.zeros(1, 2, 16, device="meta")
+    kv = torch.zeros(1, 8, 1, 16, device="meta")
+    pos = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no decode-attention kernel"):
+        tda.decode_gqa_attention(q, kv, kv, pos)

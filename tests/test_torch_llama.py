@@ -1,0 +1,99 @@
+"""The port's dense Llama held against the JAX model on the CPU: the same
+``test-tiny`` f32 params (converted with ``params_from_jax``) and the
+same tokens give logits within 1e-4 (f32; only summation order differs)
+and the same KV caches, through a prefill and three decode steps."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omnia_tpu.models import get_config as jget_config
+from omnia_tpu.models import llama as jllama
+from omnia_tpu_torch.models import get_config
+from omnia_tpu_torch.models import llama as tllama
+from omnia_tpu_torch.models.convert import params_from_jax
+
+ATOL = 1e-4
+
+
+def _np_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def _close(out: torch.Tensor, ref, atol=ATOL):
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_forward_matches_jax(tie):
+    jcfg = dataclasses.replace(jget_config("test-tiny"), tie_embeddings=tie)
+    tcfg = dataclasses.replace(get_config("test-tiny"), tie_embeddings=tie)
+    jparams = jllama.init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
+    tparams = params_from_jax(_np_tree(jparams), "cpu")
+    assert ("lm_head" in tparams) is (not tie)
+
+    rng = np.random.default_rng(0)
+    B, T, S = 2, 8, 32
+    tokens = rng.integers(0, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+
+    jl, jk, jv = jllama.forward_prefill(jparams, jcfg, jnp.asarray(tokens), jnp.asarray(pos))
+    tl, tk, tv = tllama.forward_prefill(tparams, tcfg, torch.from_numpy(tokens),
+                                        torch.from_numpy(pos))
+    _close(tl, jl)
+    _close(tk, jk)
+    _close(tv, jv)
+
+    jck, jcv = jllama.init_kv_cache(jcfg, B, S, dtype=jnp.float32)
+    tck, tcv = tllama.init_kv_cache(tcfg, B, S, "cpu", dtype=torch.float32)
+    start = np.zeros(B, np.int32)
+    jl, jck, jcv = jllama.forward(jparams, jcfg, jnp.asarray(tokens), jnp.asarray(pos),
+                                  jck, jcv, jnp.asarray(start))
+    tl, tck, tcv = tllama.forward(tparams, tcfg, torch.from_numpy(tokens),
+                                  torch.from_numpy(pos), tck, tcv,
+                                  torch.from_numpy(start))
+    _close(tl, jl)
+    _close(tck, jck)
+    _close(tcv, jcv)
+
+    # Three decode steps at per-slot positions, fed JAX's greedy tokens.
+    cur = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+    positions = np.array([T, T], np.int32)
+    for _ in range(3):
+        jl, jck, jcv = jllama.forward(
+            jparams, jcfg, jnp.asarray(cur[:, None]), jnp.asarray(positions[:, None]),
+            jck, jcv, jnp.asarray(positions))
+        tl, tck, tcv = tllama.forward(
+            tparams, tcfg, torch.from_numpy(cur[:, None]),
+            torch.from_numpy(positions[:, None]), tck, tcv,
+            torch.from_numpy(positions))
+        _close(tl, jl)
+        _close(tck, jck)
+        _close(tcv, jcv)
+        cur = np.asarray(jnp.argmax(jl[:, 0], axis=-1)).astype(np.int32)
+        positions = positions + 1
+
+
+def test_params_from_jax_bf16_is_exact():
+    cfg = jget_config("test-tiny")
+    jparams = jllama.init_params(cfg, jax.random.key(1), dtype=jnp.bfloat16)
+    tree = _np_tree(jparams)
+    tparams = params_from_jax(tree, "cpu")
+    wq_np = tree["layers"]["attn"]["wq"]
+    wq = tparams["layers"]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(wq.float().numpy(), wq_np.astype(np.float32))
+    assert params_from_jax(tree, "cpu", torch.float32)["embed"].dtype == torch.float32
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError, match="A12"):
+        tllama.init_params(get_config("test-tiny-moe"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        tllama.init_kv_cache(get_config("test-tiny"), 1, 8, "cpu", kv_quant="int8")
