@@ -8,16 +8,25 @@ Phases, each failing loudly (exit code != 0, no result line):
    name and power limit. Exits 2 when torch.cuda.is_available() is false.
 2. Kernel build: every source under omnia_tpu_torch/csrc, one nvcc each,
    all started together.
-3. Kernel vs plain: the decode-attention kernel (K1) against its plain
-   PyTorch version at the llama3-8b and llama3-1b decode shapes, in bf16
-   and f32, with the cache rows past each position poisoned with NaN;
-   kernel, plain and library-call times beside the bandwidth bound.
+3. Kernel vs plain: the four decode-attention kernels (K1 contiguous, K2
+   int8, K3 paged, K4 paged int8) against their plain PyTorch versions
+   at the llama3-8b and llama3-1b decode shapes, q in bf16 and f32, with
+   every cache row past a position, every free page and the trash page
+   poisoned (NaN, or 127 in int8 rows); K3 must equal K1 and K4 equal
+   K2 bit for bit over the same rows. Kernel, plain and (K1) library-call
+   times beside the bandwidth bound.
 4. Reference: on a small model the card's forward (kernel route) and the
-   CPU's (plain route) give the same logits from the same weights.
-5. Main path: the port's InferenceEngine at full llama3-8b width and
-   depth (bf16, random seeded weights, default EngineConfig) serves 12
-   requests through submit(); the kernel's launch count over that run
-   must equal num_layers x the decode steps run.
+   CPU's (plain route) give the same logits from the same weights, over
+   a contiguous cache and over an int8 paged one.
+5. Engines at full llama3-8b width and depth (bf16, random seeded
+   weights shared by all four): the default config (K1) and the slice's
+   main path, int8 + paged (K4), serve a 12-request burst through
+   submit(); int8 (K2) and paged (K3) serve a shorter one. Every kernel
+   launch count is set to 0 just before each run and read just after:
+   the run's own kernel must have launched num_layers x decode steps
+   times and no other. Paged engines end with every page free. Then the
+   same greedy requests, stepped inline, give the same tokens on the
+   paged engine as on the contiguous one at each KV precision.
 
 Prints a ``kernels`` JSON line, then the card's name and power limit,
 then as its last line {"ok": true, "device": {...}}.
@@ -25,6 +34,7 @@ then as its last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -40,13 +50,34 @@ import torch.nn.functional as F
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.engine import EngineConfig, FinishReason, InferenceEngine, SamplingParams
 from omnia_tpu_torch.models import get_config, llama
-from omnia_tpu_torch.ops import decode_attention as k1
+from omnia_tpu_torch.models.kv_quant import quantize_rows
+from omnia_tpu_torch.models.paged_kv import PagedKV
+from omnia_tpu_torch.ops import decode_attention as da
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 POSITIONS = [0, 1, 255, 256, 511, 700, 1022, 1023]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 TIMED_LAUNCHES = 50
+PAGE_S = 64
+SRC = "omnia_tpu/ops/decode_attention.py"
+# label → (kernel edition, name, the TPU kernel it replaces)
+KERNELS = {
+    "K1": ("decode_attention", "decode_gqa_attention", f"{SRC}:35"),
+    "K2": ("decode_attention_int8", "decode_gqa_attention[int8]", f"{SRC}:49"),
+    "K3": ("decode_attention_paged", "decode_gqa_attention_paged", f"{SRC}:116"),
+    "K4": ("decode_attention_paged_int8", "decode_gqa_attention_paged[int8]", f"{SRC}:175"),
+}
+# Engine runs: label → (EngineConfig fields, requests of the burst). K4 is
+# the slice's main path; 129 pages = 128 usable, the contiguous capacity
+# of 8 slots x 1024 rows, so no request of the burst can be refused.
+PAGED = dict(kv_pages=129, kv_page_tokens=PAGE_S)
+ENGINES = {
+    "K1": (dict(), 12),
+    "K3": (PAGED, 6),
+    "K2": (dict(kv_quant="int8"), 6),
+    "K4": (dict(kv_quant="int8", **PAGED), 12),
+}
 
 
 def fail(msg: str) -> None:
@@ -109,7 +140,29 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def kernel_case(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
+def paginate(arrs, pos: torch.Tensor, gen: torch.Generator):
+    """Contiguous [B, S, ...] arrays → scrambled page pools and a table.
+    Pool page 0 is the trash page and pages 1, 2 stay free; table entries
+    past each position's page point at trash. Every page no live table
+    entry references is poisoned (NaN; 127 in int8 rows)."""
+    B, S = arrs[0].shape[:2]
+    NP = S // PAGE_S
+    ids = (torch.randperm(B * NP, generator=gen, device="cuda") + 3).view(B, NP)
+    live = torch.arange(NP, device="cuda")[None, :] <= (pos.long() // PAGE_S)[:, None]
+    pools = []
+    for a in arrs:
+        bad = 127 if a.dtype == torch.int8 else float("nan")
+        pool = torch.full((B * NP + 3, PAGE_S) + tuple(a.shape[2:]), bad,
+                          dtype=a.dtype, device="cuda")
+        pool[ids[live]] = a.reshape((B, NP, PAGE_S) + tuple(a.shape[2:]))[live]
+        pools.append(pool)
+    table = torch.where(live, ids, 0).to(torch.int32).contiguous()
+    return pools, table
+
+
+def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
+    """K1–K4 at one model's decode shape and q dtype: error against the
+    plain version on poisoned inputs, times and bounds."""
     cfg = get_config(model)
     B, S, H, Hkv, D = len(POSITIONS), 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -117,55 +170,93 @@ def kernel_case(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
     k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=dtype)
     v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=dtype)
     pos = torch.tensor(POSITIONS, dtype=torch.int32, device="cuda")
-    k_nan, v_nan = k.clone(), v.clone()
-    for b, p in enumerate(POSITIONS):
-        k_nan[b, p + 1:] = float("nan")
-        v_nan[b, p + 1:] = float("nan")
+    past = torch.arange(S, device="cuda")[None, :] > pos.long()[:, None]   # [B, S]
+    k_nan = k.masked_fill(past[:, :, None, None], float("nan"))
+    v_nan = v.masked_fill(past[:, :, None, None], float("nan"))
+    qk, qv = quantize_rows(k), quantize_rows(v)
+    kq = qk.q.masked_fill(past[:, :, None, None], 127)
+    vq = qv.q.masked_fill(past[:, :, None, None], -127)
+    ks = qk.s.masked_fill(past[:, :, None], float("nan"))
+    vs = qv.s.masked_fill(past[:, :, None], float("nan"))
+    (pk, pv), table = paginate([k_nan, v_nan], pos, gen)
+    (pkq, pvq, pks, pvs), table8 = paginate([kq, vq, ks, vs], pos, gen)
 
-    out = k1.decode_gqa_attention(q, k_nan, v_nan, pos)
-    torch.cuda.synchronize()
-    ref = k1.decode_gqa_attention_ref(q, k_nan, v_nan, pos)
-    if not torch.isfinite(out).all():
-        fail(f"K1 {model} {dtype}: non-finite output (rows past a position were read)")
-    err = (out.float() - ref.float()).abs().max().item()
-    if err > TOL[dtype]:
-        fail(f"K1 {model} {dtype}: max abs error {err} > {TOL[dtype]}")
-
-    kernel_ms = time_ms(lambda: k1.decode_gqa_attention(q, k_nan, v_nan, pos), flush)
-    plain_ms = time_ms(lambda: k1.decode_gqa_attention_ref(q, k_nan, v_nan, pos), flush)
-    # Yardstick only: one library call of the same function (the port
-    # never calls it). NaN rows would poison its pv product, so it gets
-    # the clean cache.
-    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())[:, None, None, :]
-    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    calls = {
+        "K1": (lambda: da.decode_gqa_attention(q, k_nan, v_nan, pos),
+               lambda: da.decode_gqa_attention_ref(q, k_nan, v_nan, pos)),
+        "K2": (lambda: da.decode_gqa_attention(q, kq, vq, pos, k_scale=ks, v_scale=vs),
+               lambda: da.decode_gqa_attention_quant_ref(q, kq, vq, ks, vs, pos)),
+        "K3": (lambda: da.decode_gqa_attention_paged(q, pk, pv, table, pos),
+               lambda: da.decode_gqa_attention_paged_ref(q, pk, pv, table, pos)),
+        "K4": (lambda: da.decode_gqa_attention_paged(q, pkq, pvq, table8, pos,
+                                                     k_scale=pks, v_scale=pvs),
+               lambda: da.decode_gqa_attention_paged_ref(q, pkq, pvq, table8, pos,
+                                                         k_scale=pks, v_scale=pvs)),
+    }
+    outs, cases = {}, {}
+    rows = sum(p + 1 for p in POSITIONS)
+    pages_read = sum(p // PAGE_S + 1 for p in POSITIONS)
+    item = q.element_size()
+    for label, (kernel, plain) in calls.items():
+        out = outs[label] = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        if not torch.isfinite(out).all():
+            fail(f"{label} {model} {dtype}: non-finite output (a poisoned row or page was read)")
+        err = (out.float() - ref.float()).abs().max().item()
+        if err > TOL[dtype]:
+            fail(f"{label} {model} {dtype}: max abs error {err} > {TOL[dtype]}")
+        quant = label in ("K2", "K4")
+        row_bytes = (D + 4) if quant else D * item          # one K or V row (+ scale)
+        bytes_moved = (2 * q.numel() * item + pos.numel() * 4 + rows * Hkv * row_bytes * 2
+                       + (pages_read * 4 if label in ("K3", "K4") else 0))
+        ops = rows * H * D * 4          # q.k and p.v, multiply-add each
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS[dtype] * 1e3
+        cases[label] = dict(
+            model=model, dtype=str(dtype).removeprefix("torch."),
+            shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S), max_abs_err=err,
+            ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush), library_ms=None,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    # The paged editions read the same rows through the table with the
+    # same arithmetic: bit-identical to the contiguous ones.
+    for paged, contiguous in (("K3", "K1"), ("K4", "K2")):
+        if not torch.equal(outs[paged], outs[contiguous]):
+            diff = (outs[paged].float() - outs[contiguous].float()).abs().max().item()
+            fail(f"{paged} {model} {dtype}: differs from {contiguous} by {diff}")
+    # Yardstick only: one library call of K1's function (the port never
+    # calls it). NaN rows would poison its pv product: it gets clean rows.
+    mask = ~past[:, None, None, :]
+    qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     try:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True), flush)
+        cases["K1"]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, enable_gqa=True), flush)
     except TypeError as e:  # a torch without enable_gqa has no one-call form
         print(f"library call unavailable: {e}", flush=True)
-        library_ms = None
-
-    item = q.element_size()
-    rows = sum(p + 1 for p in POSITIONS)
-    bytes_moved = 2 * q.numel() * item + pos.numel() * 4 + rows * Hkv * D * 2 * item
-    ops = rows * H * D * 4          # q.k and p.v, multiply-add each
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS[dtype] * 1e3
-    case = dict(model=model, dtype=str(dtype).removeprefix("torch."),
-                shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S), max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    print("K1 case " + json.dumps(case), flush=True)
-    return case
+    for label, case in cases.items():
+        print(f"{label} case " + json.dumps(case), flush=True)
+    return cases
 
 
 # -- phase 4 ---------------------------------------------------------------
 
+def _kv_caches(cfg, B, S, dev, kv_quant, paged):
+    if not paged:
+        return llama.init_kv_cache(cfg, B, S, dev, dtype=torch.float32, kv_quant=kv_quant)
+    # A scrambled page per table position after the trash page.
+    table = (torch.randperm(B * S // 16, generator=torch.Generator().manual_seed(3))
+             + 1).view(B, S // 16).to(torch.int32).to(dev)
+    ck, cv = llama.init_kv_cache(cfg, 1 + B * S // 16, 16, dev, dtype=torch.float32,
+                                 kv_quant=kv_quant)
+    return PagedKV(ck, table), PagedKV(cv, table)
+
+
 def reference_check() -> None:
-    """Small model, f32: the card's forward (kernel at T == 1) against the
+    """Small model, f32: the card's forward (kernels at T == 1) against the
     CPU's (plain path) on identical weights, a prefill then 3 decode
-    steps at ragged positions; logits within 1e-4 (summation order only)."""
+    steps at ragged positions, over a contiguous cache (K1) and an int8
+    paged one (K4); logits within 1e-4 (summation order only)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("test-tiny")
     cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu",
@@ -175,25 +266,27 @@ def reference_check() -> None:
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, B)))
     starts = torch.tensor([T, T + 5, T + 9], dtype=torch.int32)
-    logits = {}
-    for dev in ("cpu", "cuda"):
-        params = _to(cpu_params, dev)
-        ck, cv = llama.init_kv_cache(cfg, B, S, dev, dtype=torch.float32)
-        pos = torch.arange(T, dtype=torch.int32).expand(B, T).to(dev)
-        lg, ck, cv = llama.forward(params, cfg, prompt.to(dev), pos, ck, cv,
-                                   torch.zeros(B, dtype=torch.int32, device=dev))
-        out = [lg[:, -1].cpu()]
-        for i in range(3):
-            p = (starts + i).to(dev)
-            lg, ck, cv = llama.forward(params, cfg, steps[i][:, None].to(dev),
-                                       p[:, None], ck, cv, p)
-            out.append(lg[:, 0].cpu())
-        logits[dev] = torch.stack(out)
-    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
-    if not torch.isfinite(logits["cuda"]).all() or err > 1e-4:
-        fail(f"card forward disagrees with the CPU reference: max abs err {err}")
-    print(f"reference check: test-tiny f32 card vs CPU logits max abs err {err}",
-          flush=True)
+    for kv_quant, paged in ((None, False), ("int8", True)):
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            params = _to(cpu_params, dev)
+            ck, cv = _kv_caches(cfg, B, S, dev, kv_quant, paged)
+            pos = torch.arange(T, dtype=torch.int32).expand(B, T).to(dev)
+            lg, ck, cv = llama.forward(params, cfg, prompt.to(dev), pos, ck, cv,
+                                       torch.zeros(B, dtype=torch.int32, device=dev))
+            out = [lg[:, -1].cpu()]
+            for i in range(3):
+                p = (starts + i).to(dev)
+                lg, ck, cv = llama.forward(params, cfg, steps[i][:, None].to(dev),
+                                           p[:, None], ck, cv, p)
+                out.append(lg[:, 0].cpu())
+            logits[dev] = torch.stack(out)
+        err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+        what = f"kv_quant={kv_quant} paged={paged}"
+        if not torch.isfinite(logits["cuda"]).all() or err > 1e-4:
+            fail(f"card forward ({what}) disagrees with the CPU reference: max abs err {err}")
+        print(f"reference check: test-tiny f32 {what} card vs CPU logits max abs err {err}",
+              flush=True)
 
 
 def _to(tree, device):
@@ -202,43 +295,46 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# -- phase 5 ---------------------------------------------------------------
+
 def wall_decode_ms(metrics: dict, steps: int) -> float:
     """Host wall per decode step: enqueueing plus waiting on tokens. With
     the device ahead of the host, dispatch dominates; behind, sync does."""
     return (metrics["decode_dispatch_s"] + metrics["decode_sync_s"]) / max(steps, 1) * 1e3
 
 
-def serve(card: str) -> dict:
-    cfg = get_config("llama3-8b")
-    ecfg = EngineConfig()
-    t0 = time.monotonic()
-    engine = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    t0 = time.monotonic()
-    engine.warmup()
-    warmup_s = time.monotonic() - t0
-    print(f"engine llama3-8b bf16 L={cfg.num_layers}: init {init_s:.1f}s "
-          f"warmup {warmup_s:.1f}s", flush=True)
-
+def burst(vocab: int, n: int) -> list:
+    """The 12-request burst (its first n requests): prompts of 17–900
+    tokens, half greedy, half sampled, 32–64 new tokens each; one greedy
+    prompt goes in at the start, mid-run and last."""
     rng = np.random.default_rng(42)
     lengths = [17, 900, 64, 333, 128, 511, 45, 700, 250, 31, 600, 100]
     greedy = SamplingParams(temperature=0.0, max_tokens=48)
     sampled = dict(temperature=0.7, top_p=0.9, top_k=40)
     reqs = []
-    for i, n in enumerate(lengths):
-        prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+    for i, n_tok in enumerate(lengths):
+        prompt = [int(t) for t in rng.integers(0, vocab, n_tok)]
         max_tokens = 32 + (i * 7) % 33
         sp = (SamplingParams(temperature=0.0, max_tokens=max_tokens) if i % 2 == 0
               else SamplingParams(max_tokens=max_tokens, seed=100 + i, **sampled))
         reqs.append((prompt, sp))
-    # One greedy prompt submitted three times: at the start, mid-run and last.
     for i in (0, 5, len(reqs) - 1):
         reqs[i] = (reqs[0][0], greedy)
+    if n < len(reqs):
+        reqs = reqs[:n - 1] + [reqs[-1]]   # keep the repeat of request 0
+    return reqs
 
+
+def serve(label: str, engine, card: str, n_requests: int) -> int:
+    """The engine serves a burst through submit() from its own thread;
+    launch counts are set to 0 just before and read just after."""
+    cfg = engine.model_cfg
+    reqs = burst(cfg.vocab_size, n_requests)
     engine.start()
-    k1.decode_gqa_attention.launches = 0     # counts start here
+    for name in da.LAUNCHES:
+        da.LAUNCHES[name] = 0               # counts start here
     steps0 = engine.metrics["decode_steps"]
+    torch.cuda.reset_peak_memory_stats()
     t_start = time.monotonic()
     results = [None] * len(reqs)
 
@@ -263,47 +359,69 @@ def serve(card: str) -> dict:
     wall = time.monotonic() - t_start
     engine.stop()
     torch.cuda.synchronize()
-    launches = k1.decode_gqa_attention.launches
+    launches = dict(da.LAUNCHES)
     decode_steps = engine.metrics["decode_steps"] - steps0
 
     for i, r in enumerate(results):
         if r is None:
-            fail(f"request {i} never finished")
+            fail(f"{label}: request {i} never finished")
         toks, ev, _, _ = r
         if ev.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP) or ev.error:
-            fail(f"request {i} ended {ev.finish_reason} error={ev.error}")
+            fail(f"{label}: request {i} ended {ev.finish_reason} error={ev.error}")
         if ev.num_generated_tokens != len(toks):
-            fail(f"request {i}: {ev.num_generated_tokens} counted, {len(toks)} streamed")
+            fail(f"{label}: request {i}: {ev.num_generated_tokens} counted, {len(toks)} streamed")
         if not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {i}: token id out of range")
-    if not (results[0][0] == results[5][0] == results[-1][0]):
-        fail("the repeated greedy prompt gave different tokens")
+            fail(f"{label}: request {i}: token id out of range")
+    if not results[0][0] == results[-1][0]:
+        fail(f"{label}: the repeated greedy prompt gave different tokens")
+    edition = KERNELS[label][0]
     expected = cfg.num_layers * decode_steps
-    if launches != expected or launches == 0:
-        fail(f"K1 launched {launches} times on the main path, expected "
+    if launches[edition] != expected or expected == 0:
+        fail(f"{label} launched {launches[edition]} times on its engine run, expected "
              f"{cfg.num_layers} x {decode_steps} decode steps = {expected}")
+    others = {n: c for n, c in launches.items() if n != edition and c}
+    if others:
+        fail(f"{label} engine run launched other kernels: {others}")
+    m = engine.metrics
+    if engine.cfg.kv_pages and m["kv_pages_free"] != m["kv_pages_total"]:
+        fail(f"{label}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free after the run")
 
     ttft = [r[3][0] - r[2] for r in results]
     per_req = [(len(r[3]) - 1) / (r[3][-1] - r[3][0]) for r in results if len(r[3]) > 1]
     generated = sum(len(r[0]) for r in results)
     summary = dict(
-        card=card, requests=len(results), generated_tokens=generated,
-        decode_steps=decode_steps, k1_launches=launches,
+        card=card, kernel=label, kv_quant=engine.cfg.kv_quant,
+        kv_pages=engine.cfg.kv_pages, kv_page_tokens=engine.cfg.kv_page_tokens,
+        requests=len(results), generated_tokens=generated,
+        decode_steps=decode_steps, launches=launches[edition],
         ttft_p50_s=statistics.median(ttft), wall_s=wall,
         tokens_per_s=generated / wall,
         per_request_decode_tokens_per_s_p50=statistics.median(per_req),
-        decode_step_ms=wall_decode_ms(engine.metrics, decode_steps),
-        decode_dispatch_s=engine.metrics["decode_dispatch_s"],
-        decode_sync_s=engine.metrics["decode_sync_s"],
-        prefill_dispatch_s=engine.metrics["prefill_dispatch_s"],
+        decode_step_ms=wall_decode_ms(m, decode_steps),
+        decode_dispatch_s=m["decode_dispatch_s"], decode_sync_s=m["decode_sync_s"],
+        prefill_dispatch_s=m["prefill_dispatch_s"],
+        kv_quant_device_bytes=m["kv_quant_device_bytes"],
+        kv_quant_bytes_per_token=m["kv_quant_bytes_per_token"],
+        kv_pages_total=m["kv_pages_total"], kv_pages_free=m["kv_pages_free"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        init_s=init_s, warmup_s=warmup_s,
     )
-    print("engine " + json.dumps(summary), flush=True)
-    return dict(launches=launches, engine=engine)
+    print(f"engine {label} " + json.dumps(summary), flush=True)
+    return launches[edition]
 
 
-def decode_profile(engine, card: str) -> None:
+def greedy_inline(engine) -> list:
+    """Eight greedy requests submitted in one order and stepped inline:
+    the tokens each got."""
+    rng = np.random.default_rng(5)
+    handles = [engine.submit([int(t) for t in rng.integers(0, engine.model_cfg.vocab_size, n)],
+                             SamplingParams(temperature=0.0, max_tokens=16))
+               for n in (17, 64, 130, 300, 511, 700, 45, 900)]
+    while engine.step():
+        pass
+    return [h.collect_tokens(timeout=60)[0] for h in handles]
+
+
+def decode_profile(label: str, engine, card: str) -> None:
     """A traced window of synchronous decode (8 greedy requests, stepped
     inline after serving): the device's busy share of the wall and the
     kernels that take its time. Reads "not measured" where the profiler
@@ -330,7 +448,7 @@ def decode_profile(engine, card: str) -> None:
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    print("decode profile " + json.dumps(dict(
+    print(f"decode profile {label} " + json.dumps(dict(
         card=card, wall_ms=wall_ms,
         decode_steps=engine.metrics["decode_steps"] - steps0,
         device_kernels=sum(e.count for e in kern),
@@ -338,6 +456,38 @@ def decode_profile(engine, card: str) -> None:
         device_busy_share=busy_ms / wall_ms if kern else "not measured",
         top_kernels=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
     )), flush=True)
+
+
+def engines(card: str) -> dict:
+    """Phase 5: the four engine runs and the greedy equalities; returns
+    each kernel's launch count from its own run."""
+    cfg = get_config("llama3-8b")
+    params, launches, greedy = None, {}, {}
+    for label, (fields, n_requests) in ENGINES.items():
+        t0 = time.monotonic()
+        engine = InferenceEngine(cfg, EngineConfig(**fields), params=params, seed=0,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        params = engine.params
+        t0 = time.monotonic()
+        engine.warmup()
+        print(f"engine {label} llama3-8b bf16 L={cfg.num_layers} {fields}: init "
+              f"{init_s:.1f}s warmup {time.monotonic() - t0:.1f}s", flush=True)
+        launches[label] = serve(label, engine, card, n_requests)
+        if label in ("K1", "K4"):
+            decode_profile(label, engine, card)
+        greedy[label] = greedy_inline(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    for paged, contiguous in (("K3", "K1"), ("K4", "K2")):
+        if greedy[paged] != greedy[contiguous]:
+            fail(f"greedy tokens of the {paged} (paged) engine differ from the "
+                 f"{contiguous} (contiguous) engine's")
+    print("greedy equality: paged == contiguous at bf16 (K3 vs K1) and int8 (K4 vs K2), "
+          f"{sum(map(len, greedy['K1']))} and {sum(map(len, greedy['K2']))} tokens", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -355,27 +505,25 @@ def main() -> None:
         print(f"ptxas {src}: {ptxas_summary(src)}", flush=True)
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    cases = [kernel_case(m, dt, flush) for m in ("llama3-8b", "llama3-1b")
+    cases = [kernel_cases(m, dt, flush) for m in ("llama3-8b", "llama3-1b")
              for dt in (torch.bfloat16, torch.float32)]
     del flush
     reference_check()
 
-    main_path = serve(card)
-    decode_profile(main_path["engine"], card)
+    launches = engines(card)
 
-    main_case = cases[0]   # llama3-8b bf16: the engine's shape
-    entry = dict(
-        name="decode_gqa_attention", route="cuda",
-        source="omnia_tpu_torch/csrc/decode_attention.cu",
-        replaces="omnia_tpu/ops/decode_attention.py:35",
-        launches=main_path["launches"],
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"],
-        max_err=max(c["max_abs_err"] for c in cases), kernel_ms=main_case["ms"],
-    )
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    main_case = cases[0]   # llama3-8b bf16: the engines' shape
+    entries = []
+    for label, (edition, kname, replaces) in KERNELS.items():
+        c = main_case[label]
+        entries.append(dict(
+            name=kname, route="cuda", source=f"omnia_tpu_torch/csrc/{edition}.cu",
+            replaces=replaces, launches=launches[label],
+            max_abs_err=max(cs[label]["max_abs_err"] for cs in cases),
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+        ))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,0 +1,13 @@
+// K3: GQA decode attention over a paged float KV cache (pool [P, PAGE_S,
+// Hkv, D] addressed through a page table [B, NP]), for Hopper (sm_90a).
+//
+// Replaces: omnia_tpu/ops/decode_attention.py, _decode_kernel_paged with
+// quantized=False, reached through decode_gqa_attention_paged.
+// The kernels, what bounds them and what their design does about it are
+// in decode_attention.cuh; this file instantiates one edition of them.
+
+#include "decode_attention.cuh"
+
+extern "C" int omnia_decode_gqa_attention_paged(OMNIA_DECODE_ARGS) {
+  return omnia_decode::entry<false, true>(OMNIA_DECODE_CALL);
+}

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine (port of
 ``omnia_tpu/engine/engine.py::InferenceEngine`` for a session-less,
-contiguous-KV, dense configuration).
+dense configuration; the KV cache is contiguous or paged, in the model's
+dtype or int8).
 
 - **Slot batching.** Decode runs over a fixed batch of ``num_slots``
   sequences; requests claim and free slots as they arrive and finish.
@@ -16,8 +17,8 @@ contiguous-KV, dense configuration).
 
 Layout mirrors the JAX package: programs in ``programs.py``, the
 dispatch policy in ``scheduler.py``, placement in ``placement.py``, the
-thread lifecycle in ``lifecycle.py``; this module owns construction,
-submission and warmup.
+thread lifecycle in ``lifecycle.py``, the page pool's books in
+``paged.py``; this module owns construction, submission and warmup.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from omnia_tpu_torch import kernels, resolve_device
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
+from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
 from omnia_tpu_torch.engine.placement import _PlacementMixin
 from omnia_tpu_torch.engine.programs import build_programs
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
@@ -46,13 +48,15 @@ from omnia_tpu_torch.engine.types import (
     resolve_dtype,
 )
 from omnia_tpu_torch.models import ModelConfig, llama
+from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
+from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
 
 # Knobs this port does not implement yet: (field, ROADMAP item). Set
 # away from its default, each one is refused at construction.
 _UNPORTED_KNOBS = (
     ("dp", "A13"), ("tp", "A13"), ("sp", "A13"),
-    ("quant", "A10"), ("kv_quant", "A8"), ("kv_pages", "A9"),
+    ("quant", "A10"),
     ("prefix_cache_slots", "A11"), ("grammar", "A11"), ("spec_decode", "A11"),
     ("prefill_chunk_tokens", "A11"), ("decode_ring", "A11"),
     ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
@@ -95,7 +99,8 @@ class _Slot:
         return self.request is not None
 
 
-class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
+class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
+                      _LifecycleMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
@@ -110,6 +115,8 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
         if model_cfg.is_moe:
             raise ValueError(f"{model_cfg.name}: MoE is not ported yet (ROADMAP A12)")
         self._dtype = resolve_dtype(engine_cfg.dtype)
+        self._kv_quant = validate_kv_quant(engine_cfg.kv_quant)
+        validate_paged_config(engine_cfg)
         self._seed = seed
         self.clock = time.monotonic
 
@@ -121,7 +128,6 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(model_cfg, gen, self.device, dtype=self._dtype)
         self.params = params
-        self._init_device_state()
 
         B = engine_cfg.num_slots
         self._slots = [_Slot() for _ in range(B)]
@@ -148,19 +154,34 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
             "deadline_exceeded": 0,
             "recoveries": 0,
             "decode_stall_steps": 0,
+            # int8 KV cache: bytes one cached token costs (k + v over all
+            # layers, scales included) and the caches' real allocation.
+            "kv_quant_enabled": 1 if self._kv_quant else 0,
+            "kv_quant_bytes_per_token": self.kv_bytes_per_token(),
+            "kv_quant_device_bytes": 0,
+            # Paged KV cache: usable pages total / free, the slack inside
+            # slot-held pages, and copy-on-write copies (none without a
+            # prefix cache). Zero while kv_pages == 0.
+            "kv_pages_total": 0,
+            "kv_pages_free": 0,
+            "kv_page_fragmentation": 0.0,
+            "kv_page_cow_copies": 0,
         }
-
-    def _alloc_kv_state(self):
-        return llama.init_kv_cache(
-            self.model_cfg, self.cfg.num_slots, self.cfg.max_seq, self.device,
-            dtype=self._dtype,
-        )
+        self._init_device_state()
 
     def _init_device_state(self):
-        """(Re)allocate the KV caches and per-slot device state."""
+        """(Re)allocate the KV caches (and the page books) and per-slot
+        device state."""
         B, dev = self.cfg.num_slots, self.device
         self._ck = self._cv = None  # free the old caches before allocating
-        self._ck, self._cv = self._alloc_kv_state()
+        if self.cfg.kv_pages > 0:
+            self._init_paged_state()
+        else:
+            self._ck, self._cv = llama.init_kv_cache(
+                self.model_cfg, B, self.cfg.max_seq, dev, dtype=self._dtype,
+                kv_quant=self._kv_quant,
+            )
+        self.metrics["kv_quant_device_bytes"] = cache_bytes(self._ck, self._cv)
         self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
         self._positions = torch.zeros(B, dtype=torch.int32, device=dev)  # next write row
         self._temp = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -173,6 +194,14 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
         self._key_data = torch.stack(
             [make_slot_key_data(self._seed + 1 + i, dev) for i in range(B)]
         )
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one cached token costs (k + v over all layers, f32
+        row scales included under kv_quant)."""
+        mc = self.model_cfg
+        itemsize = 1 if self._kv_quant else self._dtype.itemsize
+        scale_bytes = 4 if self._kv_quant else 0
+        return mc.num_layers * mc.num_kv_heads * (mc.head_dim * itemsize + scale_bytes) * 2
 
     # ------------------------------------------------------------------
     # Submission API
@@ -248,7 +277,7 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _LifecycleMixin):
         size once, so no request pays a first-call cost; then restore the
         device state and metrics warmup touched."""
         if self.device.type == "cuda":
-            kernels.load("decode_attention")
+            kernels.load(edition(self._kv_quant is not None, self.cfg.kv_pages > 0))
         metrics_before = dict(self.metrics)
         sp = SamplingParams(temperature=0.0)
         for bucket in self.cfg.usable_buckets():

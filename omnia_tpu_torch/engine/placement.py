@@ -41,7 +41,14 @@ class _PlacementMixin:
         # Every prefill dispatched while a decode slot is live stalls the
         # decode batch for its duration.
         stalled = any(s.active for s in self._slots)
+        # Paged pool: a cold start owns no history; return any stale
+        # pages before the bucket write allocates fresh ones.
+        self._free_slot_pages(slot_idx)
         first_tok = self._fresh_prefill(slot_idx, prompt, sp)
+        # Paged pool: the bucket-padded prefill covered rows past the
+        # prompt; return that slack now. The next decode write gets its
+        # page in the pre-dispatch preallocation.
+        self._trim_slot_pages(slot_idx, n)
         if stalled:
             self.metrics["decode_stall_steps"] += 1
         self.metrics["prefill_dispatch_s"] += time.monotonic() - t_prefill
@@ -80,6 +87,9 @@ class _PlacementMixin:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = prompt
         pos = np.arange(bucket, dtype=np.int32)[None, :]
+        # Paged pool: the prefill writes the whole bucket, so exclusive
+        # pages must cover it before dispatch (PoolExhausted otherwise).
+        self._prepare_slot_write(slot_idx, 0, bucket)
         first_tok, new_kd = self._prefill_insert_fn(
             self.params, self._ck, self._cv,
             torch.from_numpy(toks).to(self.device),

@@ -4,7 +4,10 @@ plain chunked-decode programs of ``omnia_tpu/engine/programs.py``).
 - ``prefill_insert``: a fresh bucketed prefill whose KV chunk is written
   WHOLE into the slot's rows 0..bucket-1 (pad rows sit past every real
   query position, so the causal mask hides them until decode overwrites
-  them), then the first token sampled from the last real position.
+  them), then the first token sampled from the last real position. An
+  int8 cache quantizes the chunk as it is written; a paged cache writes
+  it through the slot's table row, which placement has made cover the
+  bucket.
 - ``decode_fns[k]``: ``k`` decode steps enqueued back to back. JAX's
   ``lax.scan`` becomes a Python loop over device tensors: no host sync
   inside a chunk, and stop-token / budget finishes are masked on the
@@ -24,6 +27,8 @@ import torch
 
 from omnia_tpu_torch.engine.types import EngineConfig
 from omnia_tpu_torch.models import ModelConfig, llama
+from omnia_tpu_torch.models.kv_quant import cache_put
+from omnia_tpu_torch.models.paged_kv import put_chunk
 from omnia_tpu_torch.ops.sampling import sample_tokens_per_slot
 
 
@@ -35,15 +40,21 @@ class EnginePrograms:
 
 def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
     max_seq = ecfg.max_seq
+    paged = ecfg.kv_pages > 0
+
+    def _put(c, chunk, slot):
+        """Write a slot-row chunk [L, 1, T, H, D] at rows [0, T)."""
+        if paged:
+            return put_chunk(c, chunk, slot, 0)
+        return cache_put(c, chunk, (0, slot, 0))
 
     def prefill_insert(params, ck, cv, tokens, positions, slot: int,
                        last_idx: int, key_data, temp, top_p, top_k):
         """tokens, positions [1, bucket]; key_data [2]; temp, top_p,
         top_k [1] → (first token 0-d int32, new key_data [2])."""
         logits, k_chunk, v_chunk = llama.forward_prefill(params, cfg, tokens, positions)
-        T = tokens.shape[1]
-        ck[:, slot, :T] = k_chunk[:, 0].to(ck.dtype)
-        cv[:, slot, :T] = v_chunk[:, 0].to(cv.dtype)
+        _put(ck, k_chunk, slot)
+        _put(cv, v_chunk, slot)
         last = logits[:, last_idx]
         tok, new_kd = sample_tokens_per_slot(last, key_data[None], temp, top_p, top_k)
         return tok[0], new_kd[0]

@@ -210,6 +210,10 @@ class _SchedulerMixin:
             (i, s.request.request_id) for i, s in enumerate(self._slots) if s.active
         ]
         chunk = 1 if single else self._pick_chunk()
+        # Paged pool: extend every active slot's pages past its write
+        # frontier before the chunk is enqueued (engine/paged.py); a
+        # decode write must never land through a trash table entry.
+        self._prealloc_decode_pages(chunk)
         t_dispatch = time.monotonic()
         toks = self._run_decode_step(chunk)
         self._inflight.append(
@@ -261,9 +265,15 @@ class _SchedulerMixin:
         n_prompt = len(slot.request.prompt_tokens)
         generated = slot.generated
         slot.clear()
+        # Paged pool: all the slot's pages go back to the free list and
+        # its table row to trash. Chunks still in flight were enqueued
+        # before this table write and write the slot's frozen row through
+        # the old row; a page handed out now is written only by work
+        # enqueued after them (engine/paged.py).
+        self._trim_slot_pages(slot_idx, 0)
         # Quiesce: decode keeps running over the slot (static batch) but
         # with active False it only rewrites row 0, which the next
-        # placement's prefill overwrites.
+        # placement's prefill overwrites (through trash when paged).
         self._positions[slot_idx] = 0
         self._tokens[slot_idx] = 0
         self._temp[slot_idx] = 0.0

@@ -132,7 +132,10 @@ class EngineConfig:
     """Serving-engine shape/placement configuration: the fields and
     defaults of ``omnia_tpu.engine.types.EngineConfig``, documented
     there. num_slots fixes the decode batch, prefill_buckets the prefill
-    lengths, max_seq the KV cache rows per slot."""
+    lengths, max_seq the KV cache rows per slot; kv_quant="int8" stores
+    the KV cache as int8 rows with f32 row scales, and kv_pages > 0
+    replaces the slot-contiguous cache by a pool of kv_pages pages of
+    kv_page_tokens rows (page 0 reserved) behind per-slot page tables."""
 
     num_slots: int = 8
     max_seq: int = 1024
@@ -181,6 +184,10 @@ class EngineConfig:
                 f"decode_chunk_variants {bad} outside [1, decode_chunk]"
             )
         return tuple(sorted(sizes, reverse=True))
+
+    def num_page_positions(self) -> int:
+        """Page-table width: table positions per slot (max_seq / page)."""
+        return self.max_seq // max(self.kv_page_tokens, 1)
 
     def usable_buckets(self) -> tuple[int, ...]:
         """Prefill buckets that fit the KV cache (a bucket's chunk is

@@ -2,7 +2,8 @@
 
 Each source under ``csrc/`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (git-ignored), named by a hash of the source and the flags,
+``_build/`` (git-ignored), named by a hash of the source, the headers
+beside it (``*.cuh``) and the flags,
 with ptxas's report in a ``.log`` beside it, and loaded with ``ctypes``.
 Nothing is built when this module is imported; a missing ``nvcc`` or a
 failed build raises with the compiler's output, and nothing falls back
@@ -50,9 +51,12 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to: keyed by source, headers and flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

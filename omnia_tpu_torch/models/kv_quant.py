@@ -1,0 +1,145 @@
+"""int8 KV cache (port of ``omnia_tpu/models/kv_quant.py``).
+
+Rows are stored int8 with one float32 scale per (row, KV head): the
+scale is ``max(absmax over D, 1e-8) / 127`` and the row rounds half to
+even, clamped to ±127, so the port's int8 rows and scales are
+bit-identical to the JAX package's (and to the numpy twins below).
+
+A quantized cache is a :class:`QuantKV` (``q`` int8 ``[..., H, D]``,
+``s`` f32 ``[..., H]``); the helpers take either a plain tensor or a
+``QuantKV`` and dispatch with ``isinstance``. Attention applies the
+scales to the score and probability matrices and never dequantizes the
+cache as a whole (``ops/attention.py``, ``ops/decode_attention.py``).
+Unlike the JAX package, writes are in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+KV_QUANT_MODES = ("int8",)
+
+# Symmetric int8; the floor on the scale makes all-zero rows quantize to
+# exact zeros instead of NaN.
+_QMAX = 127.0
+_EPS = 1e-8
+
+
+def validate_kv_quant(mode: Optional[str]) -> Optional[str]:
+    """None passes; anything but a known mode is refused."""
+    if mode is None:
+        return None
+    if mode not in KV_QUANT_MODES:
+        raise ValueError(
+            f"unknown kv_quant mode {mode!r}; have {sorted(KV_QUANT_MODES)}"
+        )
+    return mode
+
+
+class QuantKV:
+    """One quantized KV tensor: int8 rows + per-(…, head) f32 scales."""
+
+    __slots__ = ("q", "s")
+
+    def __init__(self, q: Any, s: Any) -> None:
+        self.q = q
+        self.s = s
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.q.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.q.nbytes + self.s.nbytes)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"QuantKV(q={tuple(self.q.shape)}{self.q.dtype}, s={tuple(self.s.shape)})"
+
+
+def is_quant_kv(x: Any) -> bool:
+    return isinstance(x, QuantKV)
+
+
+# ---------------------------------------------------------------------------
+# Quantize / dequantize
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows(x: torch.Tensor) -> QuantKV:
+    """x float [..., H, D] → QuantKV; the JAX package's ops in its order."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1), _EPS) / _QMAX
+    q = torch.clamp(torch.round(xf / s[..., None]), -_QMAX, _QMAX).to(torch.int8)
+    return QuantKV(q, s)
+
+
+def dequantize_rows(kv: QuantKV, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """QuantKV → float rows (tests and host use; serving never does this)."""
+    return (kv.q.float() * kv.s[..., None]).to(dtype)
+
+
+def quantize_rows_np(x: np.ndarray) -> QuantKV:
+    """Host (numpy) twin of :func:`quantize_rows`, bit for bit."""
+    xf = np.asarray(x, np.float32)
+    s = (np.maximum(np.max(np.abs(xf), axis=-1), _EPS) / _QMAX).astype(np.float32)
+    q = np.clip(np.rint(xf / s[..., None]), -_QMAX, _QMAX).astype(np.int8)
+    return QuantKV(q, s)
+
+
+def dequantize_rows_np(kv: QuantKV) -> np.ndarray:
+    return np.asarray(kv.q, np.float32) * np.asarray(kv.s, np.float32)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Cache-agnostic helpers (plain tensor OR QuantKV)
+# ---------------------------------------------------------------------------
+
+
+def kv_map(fn: Callable[..., Any], *caches: Any) -> Any:
+    """Apply an op to both leaves of a QuantKV, or to the tensor itself.
+    The op may touch only the leading axes (those before the head axis),
+    which q and s share."""
+    if is_quant_kv(caches[0]):
+        return QuantKV(fn(*(c.q for c in caches)), fn(*(c.s for c in caches)))
+    return fn(*caches)
+
+
+def _put(arr: torch.Tensor, chunk: torch.Tensor, starts: Sequence[int]) -> None:
+    # dynamic_update_slice semantics: each start is clamped so the chunk fits.
+    idx = []
+    for axis, start in enumerate(starts):
+        n = chunk.shape[axis]
+        lo = min(max(int(start), 0), arr.shape[axis] - n)
+        idx.append(slice(lo, lo + n))
+    arr[tuple(idx)] = chunk.to(arr.dtype)
+
+
+def cache_put(cache: Any, chunk: Any, starts: Sequence[int]) -> Any:
+    """Write a chunk of rows into a cache in place at ``starts`` over the
+    leading axes; returns the cache. A float chunk written into a
+    QuantKV cache is quantized here; a QuantKV chunk moves verbatim."""
+    if is_quant_kv(cache):
+        if not is_quant_kv(chunk):
+            chunk = quantize_rows(chunk)
+        _put(cache.q, chunk.q, starts)
+        _put(cache.s, chunk.s, starts)
+        return cache
+    if is_quant_kv(chunk):
+        raise TypeError("quantized chunk written into an unquantized cache")
+    _put(cache, chunk, starts)
+    return cache
+
+
+def cache_bytes(*caches: Any) -> int:
+    """Total bytes of the given caches (0 for None): tensors, QuantKV
+    (scales included) or PagedKV (page table included), so capacity is
+    measured against the real allocation."""
+    return sum(int(c.nbytes) for c in caches if c is not None)

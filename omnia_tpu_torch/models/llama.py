@@ -5,13 +5,15 @@
   on a leading [L] axis and projections stored [in, out], so converting
   a JAX tree (``models/convert.py``) is a plain copy.
 - **One forward for prefill and decode.** The KV cache is slot-contiguous
-  ``[L, B, S, Hkv, D]`` (row s = position s); each step writes its rows
-  in place at per-slot ``write_start`` and causality is ``key_index <=
-  query_position`` (``ops/attention.py``).
+  ``[L, B, S, Hkv, D]`` (row s = position s), int8 (``QuantKV``, rows
+  quantized on write) or paged (``PagedKV``: a page pool ``[L, P,
+  PAGE_S, Hkv, D]`` and one page table shared by its layers); each step
+  writes its rows in place at per-slot ``write_start`` and causality is
+  ``key_index <= query_position`` (``ops/attention.py``).
 - Compute dtype is the params' dtype; logits and softmax statistics f32.
 
-MoE, int8 weights and paged or int8 KV caches are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+MoE and int8 weights are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from omnia_tpu_torch.models.config import ModelConfig
+from omnia_tpu_torch.models.kv_quant import (
+    QuantKV,
+    is_quant_kv,
+    kv_map,
+    quantize_rows,
+    validate_kv_quant,
+)
+from omnia_tpu_torch.models.paged_kv import PagedKV, flat_rows, is_paged, scatter_rows
 from omnia_tpu_torch.ops.attention import gqa_attention
 from omnia_tpu_torch.ops.norms import rms_norm
 from omnia_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -82,10 +92,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, device,
                   dtype: torch.dtype = torch.bfloat16, kv_quant=None):
-    """Zeroed (k, v) caches [L, B, S, Hkv, D]."""
-    if kv_quant is not None:
-        raise NotImplementedError("int8 KV cache is not ported yet (ROADMAP A8)")
+    """Zeroed (k, v) caches: [L, B, S, Hkv, D] tensors, or QuantKV pairs
+    (int8 rows + [L, B, S, Hkv] f32 scales) when kv_quant is set. A page
+    pool is the same allocation with B pages of S rows."""
     shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    if validate_kv_quant(kv_quant):
+        def one():
+            return QuantKV(torch.zeros(shape, device=device, dtype=torch.int8),
+                           torch.zeros(shape[:-1], device=device, dtype=torch.float32))
+
+        return one(), one()
     return (torch.zeros(shape, device=device, dtype=dtype),
             torch.zeros(shape, device=device, dtype=dtype))
 
@@ -109,16 +125,33 @@ def _dense_mlp(h, p):
     return _dot(F.silu(gate) * up, p["wd"])
 
 
-def _write_kv(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
-    """cache [B, S, Hkv, D] ← new [B, T, Hkv, D] at per-slot rows
-    start [B], in place. Like ``dynamic_update_slice`` the start is
-    clamped so the T rows fit the cache."""
-    B, T = new.shape[:2]
-    S = cache.shape[1]
+def _write_index(cache, start: torch.Tensor, T: int):
+    """Where a forward's [B, T] rows land in an engine-level cache: the
+    same for every layer and for k and v, so computed once per forward.
+    Contiguous: (batch, rows) into [B, S], the start clamped so the T
+    rows fit, like ``dynamic_update_slice``. Paged: rows of the
+    flattened pool (``paged_kv.flat_rows``)."""
+    if is_paged(cache):
+        return flat_rows(cache.table, cache.page_tokens, start, T)
+    S = cache.shape[2]
     start = start.to(torch.long).clamp(0, S - T)
-    rows = start[:, None] + torch.arange(T, device=cache.device)[None, :]
-    batch = torch.arange(B, device=cache.device)[:, None]
-    cache[batch, rows] = new.to(cache.dtype)
+    rows = start[:, None] + torch.arange(T, device=start.device)[None, :]
+    batch = torch.arange(start.shape[0], device=start.device)[:, None]
+    return batch, rows
+
+
+def _write_kv(cache, new: torch.Tensor, index) -> None:
+    """One layer's cache [B, S, Hkv, D] ← new [B, T, Hkv, D] at
+    ``index`` (``_write_index``), in place. A QuantKV cache quantizes the
+    new rows here; a PagedKV cache writes them through its table."""
+    if is_paged(cache):
+        scatter_rows(cache.pool, index, new)
+    elif is_quant_kv(cache):
+        qn = quantize_rows(new)
+        cache.q[index] = qn.q
+        cache.s[index] = qn.s
+    else:
+        cache[index] = new.to(cache.dtype)
 
 
 def _layer_params(params: dict, i: int) -> dict:
@@ -131,7 +164,7 @@ def _layer_params(params: dict, i: int) -> dict:
     }
 
 
-def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_start):
+def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index):
     """One layer. With ck/cv None the attention is over the chunk's own
     keys (fresh prefill) and the chunk's (k, v) is returned; otherwise
     the rows are written into ck/cv in place and attention reads them."""
@@ -145,8 +178,8 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_start):
     if ck is None:
         ck_eff, cv_eff = k, v
     else:
-        _write_kv(ck, k, write_start)
-        _write_kv(cv, v, write_start)
+        _write_kv(ck, k, write_index)
+        _write_kv(cv, v, write_index)
         ck_eff, cv_eff = ck, cv
     attn = gqa_attention(q, ck_eff, cv_eff, q_positions)
     x = x + _dot(attn.reshape(B, T, -1), p["attn"]["wo"])
@@ -185,25 +218,30 @@ def forward_prefill(params, cfg: ModelConfig, tokens, q_positions):
     return _logits(params, cfg, x), torch.stack(ks), torch.stack(vs)
 
 
-def forward(params, cfg: ModelConfig, tokens, q_positions,
-            cache_k: torch.Tensor, cache_v: torch.Tensor,
+def _layer_cache(cache, i: int):
+    """Layer i of an engine-level cache (views: writes land in place)."""
+    if is_paged(cache):
+        # One page holds a row of every layer: the table is shared.
+        return PagedKV(kv_map(lambda a: a[i], cache.pool), cache.table)
+    return kv_map(lambda a: a[i], cache)
+
+
+def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
             write_start: Optional[torch.Tensor]):
     """Serving forward (prefill or decode: same code, different T).
 
-    tokens, q_positions: int [B, T]; cache_k/v: [L, B, S, Hkv, D];
-    write_start: int [B] row where this chunk's KV lands. The caches are
-    updated IN PLACE (JAX returns new arrays; here the cache is the one
-    allocation) and returned for symmetry with the JAX signature.
+    tokens, q_positions: int [B, T]; cache_k/v: [L, B, S, Hkv, D]
+    tensors, QuantKV or PagedKV; write_start: int [B] row where this
+    chunk's KV lands. The caches are updated IN PLACE (JAX returns new
+    arrays; here the cache is the one allocation) and returned for
+    symmetry with the JAX signature.
     Returns (logits [B, T, V] f32, cache_k, cache_v)."""
     _refuse_moe(cfg)
-    if not (isinstance(cache_k, torch.Tensor) and isinstance(cache_v, torch.Tensor)):
-        raise NotImplementedError(
-            "paged / int8 KV caches are not ported yet (ROADMAP A8, A9)"
-        )
     x = params["embed"][tokens]
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
+    index = _write_index(cache_k, write_start, tokens.shape[1])
     for i in range(cfg.num_layers):
-        x, _, _ = _layer(x, _layer_params(params, i), cfg, cos, sin,
-                         q_positions, cache_k[i], cache_v[i], write_start)
+        x, _, _ = _layer(x, _layer_params(params, i), cfg, cos, sin, q_positions,
+                         _layer_cache(cache_k, i), _layer_cache(cache_v, i), index)
     return _logits(params, cfg, x), cache_k, cache_v

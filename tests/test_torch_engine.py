@@ -1,7 +1,8 @@
 """The port's InferenceEngine held against the JAX InferenceEngine on the
 CPU: the same converted ``test-tiny`` f32 params, the same EngineConfig
 field values and the same greedy requests (more than slots, so admission
-happens mid-decode) give identical tokens, finish reasons and counts."""
+happens mid-decode) give identical tokens, finish reasons and counts —
+with the contiguous KV cache, the int8 one, the paged one and both."""
 
 from __future__ import annotations
 
@@ -16,15 +17,24 @@ import torch
 from omnia_tpu.engine import EngineConfig as JEngineConfig
 from omnia_tpu.engine import InferenceEngine as JEngine
 from omnia_tpu.engine import SamplingParams as JSamplingParams
+from omnia_tpu.engine.paged import validate_paged_config as jvalidate_paged
 from omnia_tpu.models import get_config as jget_config
 from omnia_tpu.models import llama as jllama
-from omnia_tpu_torch.engine import EngineConfig, InferenceEngine, SamplingParams
+from omnia_tpu_torch.engine import EngineConfig, FinishReason, InferenceEngine, SamplingParams
+from omnia_tpu_torch.engine.paged import validate_paged_config
 from omnia_tpu_torch.models import get_config
 from omnia_tpu_torch.models.convert import params_from_jax
 
 ENGINE_FIELDS = dict(num_slots=2, max_seq=64, prefill_buckets=(8, 16, 32),
                      decode_chunk=4, dtype="float32")
 PROMPT0 = [3, 1, 4, 1, 5, 9, 2]
+# KV-cache configurations, each run against the JAX engine at the same
+# field values. 20 pages of 16 rows hold both slots' full 64 rows.
+KV_CONFIGS = {
+    "int8": dict(kv_quant="int8"),
+    "paged": dict(kv_pages=20, kv_page_tokens=16),
+    "int8_paged": dict(kv_quant="int8", kv_pages=20, kv_page_tokens=16),
+}
 
 
 def _requests(stop_id):
@@ -56,9 +66,14 @@ def _drive(engine, submissions, sp_cls):
 
 
 @pytest.fixture(scope="module")
-def both_runs():
+def jparams():
+    return jllama.init_params(jget_config("test-tiny"), jax.random.key(3),
+                              dtype=jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def both_runs(jparams):
     jcfg = jget_config("test-tiny")
-    jparams = jllama.init_params(jcfg, jax.random.key(3), dtype=jnp.float32)
     jeng = JEngine(jcfg, JEngineConfig(**ENGINE_FIELDS), params=jparams, seed=0)
     free_run = _drive(jeng, [(PROMPT0, dict(max_tokens=10))], JSamplingParams)[0][0]
     stop_id = free_run[3]
@@ -105,8 +120,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
         InferenceEngine(get_config("test-tiny"), EngineConfig(**ENGINE_FIELDS))
 
 
-@pytest.mark.parametrize("knob", [dict(kv_quant="int8"), dict(kv_pages=8),
-                                  dict(grammar=True), dict(tp=2),
+@pytest.mark.parametrize("knob", [dict(grammar=True), dict(tp=2),
                                   dict(spec_decode=2), dict(decode_ring=2)])
 def test_unported_knob_raises(knob):
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -126,3 +140,126 @@ def test_unported_submits_raise(both_runs):
 def test_out_of_vocab_prompt_is_an_error(both_runs):
     ev = both_runs["engine"].submit([1, 256], SamplingParams()).get_event(timeout=1)
     assert ev.finish_reason.value == "error" and "token ids" in ev.error
+
+
+# -- int8 and paged KV caches -------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def kv_runs(jparams, both_runs):
+    """name → (JAX streams, port streams, port engine), run on demand."""
+    subs = _requests(both_runs["stop_id"])
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    cache = {}
+
+    def run(name):
+        if name not in cache:
+            fields = dict(ENGINE_FIELDS, **KV_CONFIGS[name])
+            jeng = JEngine(jget_config("test-tiny"), JEngineConfig(**fields),
+                           params=jparams, seed=0)
+            teng = InferenceEngine(get_config("test-tiny"), EngineConfig(**fields),
+                                   params=tparams, seed=0, device="cpu")
+            teng.warmup()
+            cache[name] = (_drive(jeng, subs, JSamplingParams),
+                           _drive(teng, subs, SamplingParams), teng)
+        return cache[name]
+
+    return run
+
+
+@pytest.mark.parametrize("name", sorted(KV_CONFIGS))
+def test_kv_streams_identical_to_jax(kv_runs, name):
+    jax_out, torch_out, _ = kv_runs(name)
+    assert torch_out == jax_out
+    assert all(r[1] in ("stop", "length") for r in torch_out)
+
+
+@pytest.mark.parametrize("paged,contiguous", [("paged", None), ("int8_paged", "int8")])
+def test_paged_streams_identical_to_contiguous(kv_runs, both_runs, paged, contiguous):
+    want = both_runs["out"][1] if contiguous is None else kv_runs(contiguous)[1]
+    assert kv_runs(paged)[1] == want
+
+
+@pytest.mark.parametrize("name", ["paged", "int8_paged"])
+def test_pages_all_free_after_the_run(kv_runs, name):
+    eng = kv_runs(name)[2]
+    m = eng.metrics
+    assert m["kv_pages_total"] == 19 and m["kv_pages_free"] == m["kv_pages_total"]
+    assert m["kv_page_fragmentation"] == 0.0 and m["kv_page_cow_copies"] == 0
+    assert eng._pages.slot_pages == [[], []]
+    assert eng._ck.table.eq(0).all()  # every table row back at trash
+
+
+def test_int8_metrics_count_the_allocation(kv_runs, both_runs):
+    m8, m = kv_runs("int8")[2].metrics, both_runs["engine"].metrics
+    cfg = get_config("test-tiny")
+    assert m8["kv_quant_enabled"] == 1 and m["kv_quant_enabled"] == 0
+    per_row = cfg.num_layers * cfg.num_kv_heads * 2
+    assert m8["kv_quant_bytes_per_token"] == per_row * (cfg.head_dim + 4)
+    assert m["kv_quant_bytes_per_token"] == per_row * cfg.head_dim * 4
+    rows = ENGINE_FIELDS["num_slots"] * ENGINE_FIELDS["max_seq"]
+    assert m8["kv_quant_device_bytes"] == rows * m8["kv_quant_bytes_per_token"]
+    assert m["kv_quant_device_bytes"] == rows * m["kv_quant_bytes_per_token"]
+
+
+def _tiny_engine(**fields):
+    return InferenceEngine(get_config("test-tiny"), EngineConfig(**fields),
+                           seed=3, device="cpu")
+
+
+def test_decode_exhaustion_degrades_one_stream_not_the_batch():
+    """7 usable pages of 16 rows against 2 slots that want 96 rows each:
+    one slot finishes early with LENGTH, the other decodes on, nothing
+    ERRORs and every page comes back."""
+    eng = _tiny_engine(num_slots=2, max_seq=96, prefill_buckets=(16, 32),
+                       dtype="float32", max_sessions=0, kv_pages=8, kv_page_tokens=16)
+    sp = SamplingParams(temperature=0.0, max_tokens=80)
+    h1 = eng.submit(list(range(1, 30)), sp)
+    h2 = eng.submit(list(range(31, 60)), sp)
+    while eng.step():
+        pass
+    fins = [h.collect_tokens(timeout=60)[1] for h in (h1, h2)]
+    reasons = {f.finish_reason for f in fins}
+    assert FinishReason.ERROR not in reasons and FinishReason.LENGTH in reasons
+    assert all(f.num_generated_tokens > 0 for f in fins)
+    assert sorted(f.num_generated_tokens for f in fins)[0] < 80 - 29
+    assert eng.metrics["kv_pages_free"] == eng.metrics["kv_pages_total"] == 7
+
+
+def test_placement_exhaustion_fails_the_request_not_the_engine():
+    """1 usable page of 16 rows; a 20-token prompt's bucket of 32 rows
+    needs two. Its request gets an ERROR terminal, the step raises to the
+    loop's recovery, and the recovered engine serves again."""
+    from omnia_tpu_torch.engine.kv_pages import PoolExhausted
+
+    eng = _tiny_engine(num_slots=2, max_seq=64, prefill_buckets=(16, 32),
+                       dtype="float32", kv_pages=2, kv_page_tokens=16)
+    h = eng.submit(list(range(1, 21)), SamplingParams(temperature=0.0, max_tokens=4))
+    with pytest.raises(PoolExhausted, match="exhausted"):
+        while eng.step():
+            pass
+    _toks, fin = h.collect_tokens(timeout=10)
+    assert fin.finish_reason == FinishReason.ERROR
+    eng._recover("kv page pool exhausted")  # what the engine loop does
+    h = eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=2))
+    while eng.step():
+        pass
+    toks, fin = h.collect_tokens(timeout=10)
+    assert fin.finish_reason == FinishReason.LENGTH and len(toks) == 2
+    assert eng.metrics["recoveries"] == 1 and eng.metrics["kv_pages_free"] == 1
+
+
+@pytest.mark.parametrize("fields", [
+    dict(kv_pages=1),
+    dict(kv_pages=8, kv_page_tokens=48),
+    dict(kv_pages=8, kv_page_tokens=0),
+])
+def test_validate_paged_config_messages_match_jax(fields):
+    cfg = dict(num_slots=2, max_seq=64, prefill_buckets=(16,), dtype="float32", **fields)
+    with pytest.raises(ValueError) as je:
+        jvalidate_paged(JEngineConfig(**cfg), False)
+    with pytest.raises(ValueError) as te:
+        validate_paged_config(EngineConfig(**cfg))
+    assert str(te.value) == str(je.value)
+    with pytest.raises(ValueError, match="kv_page"):
+        _tiny_engine(**cfg)

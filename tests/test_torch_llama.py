@@ -95,5 +95,65 @@ def test_params_from_jax_bf16_is_exact():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         tllama.init_params(get_config("test-tiny-moe"), torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tllama.init_kv_cache(get_config("test-tiny"), 1, 8, "cpu", kv_quant="int8")
+    with pytest.raises(ValueError, match="unknown kv_quant"):
+        tllama.init_kv_cache(get_config("test-tiny"), 1, 8, "cpu", kv_quant="int4")
+
+
+def _leaves(c):
+    """Arrays of a cache of either package: plain, QuantKV or PagedKV."""
+    if hasattr(c, "table"):
+        return _leaves(c.pool) + [np.asarray(c.table)]
+    if hasattr(c, "s"):
+        return [np.asarray(c.q), np.asarray(c.s)]
+    return [np.asarray(c)]
+
+
+@pytest.mark.parametrize("kv_quant,paged", [("int8", False), (None, True), ("int8", True)])
+def test_forward_over_int8_and_paged_caches_matches_jax(kv_quant, paged):
+    """A prefill then three decode steps through ``forward`` over the same
+    cache layout in both packages: logits within 1e-4 and int8 rows
+    within one step (a score off by f32 rounding may round across .5)."""
+    from omnia_tpu.models.paged_kv import PagedKV as JPagedKV
+    from omnia_tpu_torch.models.paged_kv import PagedKV
+
+    jcfg, tcfg = jget_config("test-tiny"), get_config("test-tiny")
+    jparams = jllama.init_params(jcfg, jax.random.key(2), dtype=jnp.float32)
+    tparams = params_from_jax(_np_tree(jparams), "cpu")
+    B, T, S, PS = 2, 8, 32, 8
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    if paged:
+        # 10 pages: trash, then a scrambled page per table position.
+        table = (np.random.default_rng(2).permutation(B * S // PS) + 1).reshape(B, -1)
+        table = table.astype(np.int32)
+        jck, jcv = jllama.init_kv_cache(jcfg, 1 + B * S // PS, PS, dtype=jnp.float32,
+                                        kv_quant=kv_quant)
+        tck, tcv = tllama.init_kv_cache(tcfg, 1 + B * S // PS, PS, "cpu",
+                                        dtype=torch.float32, kv_quant=kv_quant)
+        jck, jcv = JPagedKV(jck, jnp.asarray(table)), JPagedKV(jcv, jnp.asarray(table))
+        tt = torch.from_numpy(table)
+        tck, tcv = PagedKV(tck, tt), PagedKV(tcv, tt)
+    else:
+        jck, jcv = jllama.init_kv_cache(jcfg, B, S, dtype=jnp.float32, kv_quant=kv_quant)
+        tck, tcv = tllama.init_kv_cache(tcfg, B, S, "cpu", dtype=torch.float32,
+                                        kv_quant=kv_quant)
+
+    def step(tok, p, start):
+        nonlocal jck, jcv
+        jl, jck, jcv = jllama.forward(jparams, jcfg, jnp.asarray(tok), jnp.asarray(p),
+                                      jck, jcv, jnp.asarray(start))
+        tl, _, _ = tllama.forward(tparams, tcfg, torch.from_numpy(tok),
+                                  torch.from_numpy(p), tck, tcv, torch.from_numpy(start))
+        _close(tl, jl)
+        for t, j in zip(_leaves(tck) + _leaves(tcv), _leaves(jck) + _leaves(jcv)):
+            atol = 1 if t.dtype == np.int8 else ATOL
+            np.testing.assert_allclose(t.astype(np.float32), j.astype(np.float32),
+                                       atol=atol, rtol=1e-4)
+        return np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+
+    cur = step(tokens, pos, np.zeros(B, np.int32))
+    positions = np.array([T, T + 3], np.int32)
+    for _ in range(3):
+        cur = step(cur[:, None], positions[:, None], positions)
+        positions = positions + 1
