@@ -7,14 +7,15 @@ Phases, each failing loudly (exit code != 0, no result line):
 1. Device line: torch / CUDA / nvcc / Triton versions and the card's
    name and power limit. Exits 2 when torch.cuda.is_available() is false.
 2. Kernel build: every source under omnia_tpu_torch/csrc, one nvcc each,
-   all started together.
+   all started together; ptxas's registers, spills and shared memory.
 3. Kernel vs plain: the four decode-attention kernels (K1 contiguous, K2
    int8, K3 paged, K4 paged int8) against their plain PyTorch versions
    at the llama3-8b and llama3-1b decode shapes, q in bf16 and f32, with
    every cache row past a position, every free page and the trash page
    poisoned (NaN, or 127 in int8 rows); K3 must equal K1 and K4 equal
    K2 bit for bit over the same rows. Kernel, plain and (K1) library-call
-   times beside the bandwidth bound.
+   times, in three rounds taken in turns, beside the bandwidth bound and
+   the kernel's share of it.
 4. Reference: on a small model the card's forward (kernel route) and the
    CPU's (plain route) give the same logits from the same weights, over
    a contiguous cache and over an int8 paged one.
@@ -24,9 +25,12 @@ Phases, each failing loudly (exit code != 0, no result line):
    submit(); int8 (K2) and paged (K3) serve a shorter one. Every kernel
    launch count is set to 0 just before each run and read just after:
    the run's own kernel must have launched num_layers x decode steps
-   times and no other. Paged engines end with every page free. Then the
-   same greedy requests, stepped inline, give the same tokens on the
-   paged engine as on the contiguous one at each KV precision.
+   times and no other. Paged engines end with every page free. A traced
+   window of K1's and K4's engines counts the device kernels of the
+   decode-attention body: one launch per layer and decode step, and no
+   combine kernel. Then the same greedy requests, stepped inline, give the
+   same tokens on the paged engine as on the contiguous one at each KV
+   precision.
 
 Prints a ``kernels`` JSON line, then the card's name and power limit,
 then as its last line {"ok": true, "device": {...}}.
@@ -34,6 +38,7 @@ then as its last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import re
@@ -59,6 +64,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 POSITIONS = [0, 1, 255, 256, 511, 700, 1022, 1023]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 TIMED_LAUNCHES = 50
+SPIN_CYCLES = 1_000_000            # ~0.5 ms of the card's clock
+ROUNDS = 3
 PAGE_S = 64
 SRC = "omnia_tpu/ops/decode_attention.py"
 # label → (kernel edition, name, the TPU kernel it replaces)
@@ -113,24 +120,37 @@ def device_line() -> str:
 
 
 def ptxas_summary(src: str) -> str:
-    """Registers and spills over every kernel in a source's ptxas report."""
+    """Registers, spills and static shared memory over every kernel in a
+    source's ptxas report, and the dynamic shared memory of one block at
+    the main path's shape (llama3-8b, bf16), which ptxas does not see."""
     log = kernels.library_path(src).with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+    static = [int(b) for b in re.findall(r"(\d+) bytes smem", log)]
+    smem = getattr(kernels.load(src), da.EDITIONS[src] + "_smem_bytes")
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    cfg = get_config("llama3-8b")
+    dynamic = smem(cfg.head_dim, cfg.num_heads // cfg.num_kv_heads, 1)
     return (f"{len(regs)} kernels, registers max {max(regs, default=0)}, "
-            f"spill stores {spills} bytes in all")
+            f"spill stores {spills} bytes in all, static shared memory max "
+            f"{max(static, default=0)} bytes; dynamic shared memory per block at "
+            f"llama3-8b bf16: {dynamic} bytes")
 
 
 # -- phase 3 ---------------------------------------------------------------
 
 def time_ms(fn, flush: torch.Tensor) -> float:
     """Median device time of one call, L2 flushed before each (the decode
-    step finds each layer's cache cold)."""
+    step finds each layer's cache cold). The card spins for SPIN_CYCLES
+    after the flush, so the host has enqueued the call before the start
+    event runs: the wrapper's Python time is not counted however slow the
+    host is."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_LAUNCHES):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -181,6 +201,19 @@ def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
     (pk, pv), table = paginate([k_nan, v_nan], pos, gen)
     (pkq, pvq, pks, pvs), table8 = paginate([kq, vq, ks, vs], pos, gen)
 
+    # Yardstick only: one library call of K1's function (the port never
+    # calls it). NaN rows would poison its pv product: it gets clean rows.
+    mask = ~past[:, None, None, :]
+    qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    try:
+        library()
+    except TypeError as e:  # a torch without enable_gqa has no one-call form
+        print(f"library call unavailable: {e}", flush=True)
+        library = None
     calls = {
         "K1": (lambda: da.decode_gqa_attention(q, k_nan, v_nan, pos),
                lambda: da.decode_gqa_attention_ref(q, k_nan, v_nan, pos)),
@@ -216,7 +249,6 @@ def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
         cases[label] = dict(
             model=model, dtype=str(dtype).removeprefix("torch."),
             shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S), max_abs_err=err,
-            ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush), library_ms=None,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     # The paged editions read the same rows through the table with the
@@ -225,16 +257,26 @@ def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
         if not torch.equal(outs[paged], outs[contiguous]):
             diff = (outs[paged].float() - outs[contiguous].float()).abs().max().item()
             fail(f"{paged} {model} {dtype}: differs from {contiguous} by {diff}")
-    # Yardstick only: one library call of K1's function (the port never
-    # calls it). NaN rows would poison its pv product: it gets clean rows.
-    mask = ~past[:, None, None, :]
-    qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    try:
-        cases["K1"]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask, enable_gqa=True), flush)
-    except TypeError as e:  # a torch without enable_gqa has no one-call form
-        print(f"library call unavailable: {e}", flush=True)
+    # Times in rounds taken in turns, so that a drift of the card's clock
+    # or of its neighbours reaches every kernel alike; each round's number
+    # is a median of TIMED_LAUNCHES calls, the case's the median of rounds.
+    rounds = {(label, what): [] for label in calls for what in ("ms", "plain_ms", "library_ms")}
+    for _ in range(ROUNDS):
+        for label, (kernel, plain) in calls.items():
+            rounds[label, "ms"].append(time_ms(kernel, flush))
+            rounds[label, "plain_ms"].append(time_ms(plain, flush))
+            if label == "K1" and library is not None:
+                rounds[label, "library_ms"].append(time_ms(library, flush))
     for label, case in cases.items():
+        for what in ("ms", "plain_ms", "library_ms"):
+            got = rounds[label, what]
+            case[what] = statistics.median(got) if got else None
+        case["ms_rounds"] = rounds[label, "ms"]
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        print(f"{label} {model} {dtype}: {case['ms']:.5f} ms (rounds "
+              f"{', '.join(f'{t:.5f}' for t in case['ms_rounds'])}), "
+              f"{case['bound_share']:.1%} of its bound {case['bound_ms']:.5f} ms; plain "
+              f"{case['plain_ms']:.5f} ms; library {case['library_ms']}", flush=True)
         print(f"{label} case " + json.dumps(case), flush=True)
     return cases
 
@@ -448,9 +490,22 @@ def decode_profile(label: str, engine, card: str) -> None:
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    decode_steps = engine.metrics["decode_steps"] - steps0
+    # The decode-attention body's kernels by name (decode_*kernel):
+    # one launch per layer and decode step, none of them a second pass.
+    attention = {}
+    for e in kern:
+        m = re.search(r"decode_[a-z_]*kernel", e.key)
+        if m:
+            attention[m.group(0)] = attention.get(m.group(0), 0) + e.count
+    expected = engine.model_cfg.num_layers * decode_steps
+    if kern and (sum(attention.values()) != expected or set(attention) != {"decode_kernel"}):
+        fail(f"{label} profile window: decode-attention kernels {attention}, expected "
+             f"decode_kernel x {expected} ({decode_steps} decode steps) and nothing else")
     print(f"decode profile {label} " + json.dumps(dict(
         card=card, wall_ms=wall_ms,
-        decode_steps=engine.metrics["decode_steps"] - steps0,
+        decode_steps=decode_steps,
+        decode_attention_kernels=attention if kern else "not measured",
         device_kernels=sum(e.count for e in kern),
         device_busy_ms=busy_ms if kern else "not measured",
         device_busy_share=busy_ms / wall_ms if kern else "not measured",

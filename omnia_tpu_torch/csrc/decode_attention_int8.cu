@@ -11,3 +11,7 @@
 extern "C" int omnia_decode_gqa_attention_int8(OMNIA_DECODE_ARGS) {
   return omnia_decode::entry<true, false>(OMNIA_DECODE_CALL);
 }
+
+extern "C" int omnia_decode_gqa_attention_int8_smem_bytes(int D, int G, int dtype) {
+  return omnia_decode::smem_bytes<true>(D, G, dtype);
+}

@@ -11,3 +11,7 @@
 extern "C" int omnia_decode_gqa_attention_paged(OMNIA_DECODE_ARGS) {
   return omnia_decode::entry<false, true>(OMNIA_DECODE_CALL);
 }
+
+extern "C" int omnia_decode_gqa_attention_paged_smem_bytes(int D, int G, int dtype) {
+  return omnia_decode::smem_bytes<false>(D, G, dtype);
+}

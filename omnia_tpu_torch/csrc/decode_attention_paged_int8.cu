@@ -13,3 +13,7 @@
 extern "C" int omnia_decode_gqa_attention_paged_int8(OMNIA_DECODE_ARGS) {
   return omnia_decode::entry<true, true>(OMNIA_DECODE_CALL);
 }
+
+extern "C" int omnia_decode_gqa_attention_paged_int8_smem_bytes(int D, int G, int dtype) {
+  return omnia_decode::smem_bytes<true>(D, G, dtype);
+}

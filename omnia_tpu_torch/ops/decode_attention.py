@@ -16,6 +16,7 @@ the paged ones read no table entry past ``positions[b] // PAGE_S``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -24,8 +25,9 @@ from omnia_tpu_torch import kernels
 from omnia_tpu_torch.models.paged_kv import PagedKV, gather_view
 
 _NEG_INF = -1e30
-# Rows per split of the contiguous editions' flash-decoding partial pass
-# (the paged editions split by page).
+# Rows per split of the contiguous editions (the paged editions split by
+# page), and the most rows one kernel block stages (kTileRows in
+# csrc/decode_attention.cuh): a longer page is several tiles.
 SPLIT_ROWS = 64
 HEAD_DIMS = (16, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)
@@ -40,6 +42,9 @@ EDITIONS = {
 }
 # Launches of each edition's kernel; a wrapper adds one where it launches.
 LAUNCHES = dict.fromkeys(EDITIONS, 0)
+# Device index → (int32 scratch buffer, counter capacity); see _scratch.
+_SCRATCH: dict[int, tuple[torch.Tensor, int]] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def edition(quantized: bool, paged: bool) -> str:
@@ -117,7 +122,7 @@ def _lib(name: str = "decode_attention"):
     fn = getattr(kernels.load(name), EDITIONS[name])
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p, or ctypes cuts them to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -170,31 +175,46 @@ def _check(q, k, v, positions, k_scale=None, v_scale=None, table=None):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _scratch(device: torch.device, n_counters: int, n_partials: int):
+    """Pointers to the combine counters ([n_counters] int32) and the
+    partials ([n_partials] f32) of one launch, in one buffer kept per
+    device: [counters | partials]. The counters are zeroed once, when the
+    buffer is made, and every launch leaves them at 0; the buffer grows
+    and never shrinks. Launches on one device share it, so they must be
+    ordered on one stream, as the engine's are."""
+    with _SCRATCH_LOCK:
+        buf, cap = _SCRATCH.get(device.index, (None, 0))
+        room = 0 if buf is None else buf.numel() - cap
+        if n_counters > cap or n_partials > room:
+            # Partials start on a 256-byte boundary (the kernel reads float4s).
+            cap, room = -(-max(cap, n_counters) // 64) * 64, max(room, n_partials)
+            buf = torch.zeros(cap + room, dtype=torch.int32, device=device)
+            _SCRATCH[device.index] = (buf, cap)
+    return buf.data_ptr(), buf.data_ptr() + 4 * cap
+
+
 def _launch(name, q, k, v, k_scale, v_scale, table, positions, S, split_rows):
-    """Run one edition's partial and combine passes; counts one launch."""
+    """Run one edition's kernel (partials and combine in one launch);
+    counts one launch."""
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention kernel for device {q.device}")
-    if k_scale is not None and (k.data_ptr() | v.data_ptr()) % 4:
-        raise ValueError("int8 rows must start on a 4-byte boundary (packed loads)")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("q, k and v must start on a 16-byte boundary "
+                         "(the kernel reads them 16 bytes at a time)")
     fn = _lib(name)
     B, H, D = q.shape
     Hkv = k.shape[2]
-    G = H // Hkv
-    num_splits = -(-S // split_rows)
+    tiles = -(-S // split_rows) * -(-split_rows // SPLIT_ROWS)
+    counters, partials = _scratch(q.device, B * Hkv, B * H * tiles * (D + 2))
     out = torch.empty_like(q)
-    part_m = torch.empty((B, Hkv, num_splits, G), device=q.device, dtype=torch.float32)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, num_splits, G, D), device=q.device,
-                           dtype=torch.float32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
-             ptr(table), positions.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-             part_l.data_ptr(), part_acc.data_ptr(), B, S, H, Hkv, D,
-             _DTYPE_CODES[q.dtype], split_rows, stream)
+             ptr(table), positions.data_ptr(), out.data_ptr(), counters, partials,
+             B, S, H, Hkv, D, _DTYPE_CODES[q.dtype], split_rows, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1

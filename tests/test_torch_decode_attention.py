@@ -79,6 +79,32 @@ def _q_pair(q, dtype):
     return jnp.asarray(q), torch.from_numpy(q)
 
 
+def test_scratch_buffer_layout_and_growth():
+    """The kernels' scratch: the combine counters at the head of one buffer
+    per device, the partials 256 bytes aligned after a counter room that
+    only grows, so a call with fewer slots never lays partials over a
+    counter; the buffer is zeroed when made, grows when either part
+    outgrows it, and never shrinks."""
+    dev = torch.device("cpu")
+    tda._SCRATCH.pop(dev.index, None)
+    try:
+        c0, p0 = tda._scratch(dev, 5, 100)
+        buf, cap = tda._SCRATCH[dev.index]
+        assert (cap, c0, p0 - c0) == (64, buf.data_ptr(), 4 * 64)
+        assert buf.numel() == 64 + 100 and not buf.any()
+        assert tda._scratch(dev, 3, 50) == (c0, p0)            # fits: same buffer
+        c1, p1 = tda._scratch(dev, 70, 100)                     # more counters
+        buf, cap = tda._SCRATCH[dev.index]
+        assert (cap, p1 - c1, buf.numel()) == (128, 4 * 128, 128 + 100)
+        assert not buf.any()
+        c2, p2 = tda._scratch(dev, 1, 1000)                     # more partials
+        buf, cap = tda._SCRATCH[dev.index]
+        assert (cap, p2 - c2, buf.numel()) == (128, 4 * 128, 128 + 1000)
+        assert tda._scratch(dev, 70, 10) == (c2, p2)            # never shrinks
+    finally:
+        tda._SCRATCH.pop(dev.index, None)
+
+
 # f32: summation order only; bf16 output: two bf16 ulps at magnitude ~1.
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -35,31 +35,31 @@ def quant(k, v):
     return qk.q, qv.q, qk.s, qv.s
 
 
-def paginate(arrs, positions, free_pages=3, seed=7):
+def paginate(arrs, positions, free_pages=3, seed=7, page_s=PAGE_S):
     """Scatter contiguous [B, S, ...] arrays into a scrambled page pool
     (the layout of tests/test_decode_attention.py::_paginate): pool page
     0 is the trash page and pages 1..free_pages-1 stay free; table
     entries past each position's page point at trash."""
     B, S = arrs[0].shape[:2]
-    npg = S // PAGE_S
+    npg = S // page_s
     perm = np.random.RandomState(seed).permutation(B * npg) + free_pages
-    pools = [np.zeros((B * npg + free_pages, PAGE_S) + a.shape[2:], a.dtype)
+    pools = [np.zeros((B * npg + free_pages, page_s) + a.shape[2:], a.dtype)
              for a in arrs]
     table = np.zeros((B, npg), np.int32)
     for b in range(B):
-        for j in range(positions[b] // PAGE_S + 1):
+        for j in range(positions[b] // page_s + 1):
             pid = int(perm[b * npg + j])
             for pool, a in zip(pools, arrs):
-                pool[pid] = a[b, j * PAGE_S:(j + 1) * PAGE_S]
+                pool[pid] = a[b, j * page_s:(j + 1) * page_s]
             table[b, j] = pid
     return pools, table
 
 
-def poison_unreferenced(pools, table, positions, nan_int8=127):
+def poison_unreferenced(pools, table, positions, nan_int8=127, page_s=PAGE_S):
     """NaN (or a huge int8) in every pool page the table does not
     reference for a live row (free pages and the trash page) and in the
     referenced rows past each position."""
-    live = {int(table[b, j]) for b, p in enumerate(positions) for j in range(p // PAGE_S + 1)}
+    live = {int(table[b, j]) for b, p in enumerate(positions) for j in range(p // page_s + 1)}
     out = []
     for pool in pools:
         bad = nan_int8 if pool.dtype == np.int8 else np.nan
@@ -68,9 +68,67 @@ def poison_unreferenced(pools, table, positions, nan_int8=127):
             if pid not in live:
                 pool[pid] = bad
         for b, p in enumerate(positions):
-            pool[table[b, p // PAGE_S], p % PAGE_S + 1:] = bad
+            pool[table[b, p // page_s], p % page_s + 1:] = bad
         out.append(pool)
     return out
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def check_editions(dtype, atol, positions, S, H, Hkv, D, page_s=PAGE_S, seed=0):
+    """K1–K4 on one set of inputs against their plain versions, with every
+    row past a position, every free page and the trash page poisoned (NaN;
+    127 in int8 rows); each call launches its kernel once. With pages of
+    SPLIT_ROWS rows the paged editions equal the contiguous ones bit for
+    bit (same tiles, same arithmetic)."""
+    dev = "cuda"
+    B = len(positions)
+    q, k, v = inputs(B=B, S=S, H=H, Hkv=Hkv, D=D, seed=seed)
+    kq, vq, ks, vs = quant(k, v)
+    past = np.arange(S)[None, :] > np.asarray(positions)[:, None]    # [B, S]
+    for a, bad in ((k, np.nan), (v, np.nan), (kq, 127), (vq, -127), (ks, np.nan),
+                   (vs, np.nan)):
+        a[past] = bad
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    tq = torch.from_numpy(q).to(dev, dtype)
+    outs = {}
+    for int8 in (False, True):
+        for paged in (False, True):
+            arrs = [kq, vq, ks, vs] if int8 else [k, v]
+            if paged:
+                arrs, table = paginate(arrs, positions, page_s=page_s)
+                arrs = poison_unreferenced(arrs, table, positions, page_s=page_s)
+            t = [torch.from_numpy(a).to(dev) for a in arrs]
+            if not int8:
+                t = [x.to(dtype) for x in t]
+            sc = dict(k_scale=t[2], v_scale=t[3]) if int8 else {}
+            name = tda.edition(int8, paged)
+            before = tda.LAUNCHES[name]
+            if paged:
+                tt = torch.from_numpy(table).to(dev)
+                out = tda.decode_gqa_attention_paged(tq, t[0], t[1], tt, pos, **sc)
+                ref = tda.decode_gqa_attention_paged_ref(tq, t[0], t[1], tt, pos, **sc)
+            else:
+                out = tda.decode_gqa_attention(tq, t[0], t[1], pos, **sc)
+                ref = (tda.decode_gqa_attention_quant_ref(tq, *t, pos) if int8
+                       else tda.decode_gqa_attention_ref(tq, *t, pos))
+            torch.cuda.synchronize()
+            assert tda.LAUNCHES[name] == before + 1, name
+            assert torch.isfinite(out).all(), f"{name}: a poisoned row was read"
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0,
+                                       msg=lambda m: f"{name}: {m}")
+            outs[name] = out
+    if page_s == tda.SPLIT_ROWS:
+        for paged, contiguous in (("decode_attention_paged", "decode_attention"),
+                                  ("decode_attention_paged_int8", "decode_attention_int8")):
+            torch.testing.assert_close(outs[paged], outs[contiguous], atol=0, rtol=0)
+
+
+# f32: summation order only; bf16: two bf16 ulps at magnitude 1.
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)]
 
 
 @pytest.mark.cuda
@@ -146,3 +204,81 @@ def test_cuda_new_editions_match_plain(dtype, atol, D):
                                           torch.from_numpy(v).to(dev, dtype), pos)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, k1, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_cuda_split_edges(dtype, atol):
+    """Positions on the first row, and on the last and first rows of a
+    64-row split: tiles of one live row, of 64, and the combine of 1–3
+    tiles."""
+    needs_card()
+    check_editions(dtype, atol, [0, 63, 64, 127, 128, 255], S=256, H=32, Hkv=8, D=128)
+
+
+@pytest.mark.cuda
+def test_cuda_long_cache():
+    """S = 8192: up to 128 tiles merged by one block's combine."""
+    needs_card()
+    # bf16: two bf16 ulps at magnitude 1 (the f32 sums are order-only).
+    check_editions(torch.bfloat16, 1.6e-2, [8191, 4097, 64, 8000], S=8192, H=8, Hkv=2,
+                   D=128, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("G,D", [(1, 128), (8, 128), (1, 64), (8, 64)])
+def test_cuda_group_sizes(dtype, atol, G, D):
+    """G = 1 and G = 8 query heads per KV head; f32 at D = 128 takes the
+    dynamic shared-memory path (64 KB of K and V rows per block)."""
+    needs_card()
+    check_editions(dtype, atol, [5, 64, 200, 255], S=256, H=2 * G, Hkv=2, D=D, seed=G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_s", [16, 128])
+def test_cuda_page_sizes(page_s):
+    """Pages shorter than a tile (one block each) and longer (two tiles of
+    64 rows each), in f32 at D = 128."""
+    needs_card()
+    # f32: summation order only.
+    check_editions(torch.float32, 1e-4, [0, 15, 16, 127, 128, 255], S=256, H=8, Hkv=2,
+                   D=128, page_s=page_s)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_changes_between_calls():
+    """B = 8, then 3, then 8 again: the combine counters are back at 0
+    after every call, so each call matches its plain version."""
+    needs_card()
+    rng = np.random.default_rng(11)
+    for i, B in enumerate((8, 3, 8)):
+        positions = [int(p) for p in rng.integers(0, 256, B)]
+        # bf16: two bf16 ulps at magnitude 1.
+        check_editions(torch.bfloat16, 1.6e-2, positions, S=256, H=32, Hkv=8, D=128,
+                       seed=20 + i)
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_rows_raise():
+    """Rows are copied 16 bytes at a time: a view that starts off a 16-byte
+    boundary raises and launches nothing."""
+    needs_card()
+    q, k, v = inputs(B=2, S=128, H=8, Hkv=2, D=64)
+    kq, vq, ks, vs = quant(k, v)
+    dev = "cuda"
+    pos = torch.tensor([3, 127], dtype=torch.int32, device=dev)
+    tq = torch.from_numpy(q).to(dev, torch.bfloat16)
+    flat = torch.zeros(kq.size + 16, dtype=torch.int8, device=dev)
+    k_bad = flat[1:1 + kq.size].view(kq.shape)
+    k_bad.copy_(torch.from_numpy(kq))
+    assert k_bad.is_contiguous() and k_bad.data_ptr() % 16
+    vp, ksp, vsp = (torch.from_numpy(a).to(dev) for a in (vq, ks, vs))
+    before = dict(tda.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.decode_gqa_attention(tq, k_bad, vp, pos, k_scale=ksp, v_scale=vsp)
+    flat16 = torch.zeros(k.size + 8, dtype=torch.bfloat16, device=dev)
+    k16 = flat16[1:1 + k.size].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.decode_gqa_attention(tq, k16, torch.from_numpy(v).to(dev, torch.bfloat16), pos)
+    assert tda.LAUNCHES == before
