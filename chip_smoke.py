@@ -31,9 +31,26 @@ Phases, each failing loudly (exit code != 0, no result line):
    combine kernel. Then the same greedy requests, stepped inline, give the
    same tokens on the paged engine as on the contiguous one at each KV
    precision.
+6. Sessions, on each of the four engines after its burst: 16 sessions on
+   8 slots, 3 greedy turns of 16 tokens each, every turn after the first
+   the previous prompt, its reply and 40–150 new tokens (one session
+   reaches 1002 rows, so that its last extend runs single-token pieces,
+   which launch the decode kernel with B = 1 on a one-slot view). Every
+   turn must end STOP/LENGTH; sessions must be offloaded to host and
+   restored; the reused and prefilled tokens must equal what the script
+   implies; the engine's kernel must launch num_layers x (decode steps +
+   single-token pieces) times and no other; one session's turn 2, served
+   again after export_session -> import_session on the stopped engine,
+   must give the tokens of its resident replay; the paged engines'
+   session tokens must equal the contiguous ones' at each precision; and
+   every page must be free once every session is released. Phase 3 also
+   holds each kernel's B = 1 call on one slot of the 8-slot cache against
+   its plain version and against row b of the B = 8 call, bit for bit.
 
-Prints a ``kernels`` JSON line, then the card's name and power limit,
-then as its last line {"ok": true, "device": {...}}.
+Prints an ``engine <K> sessions`` JSON line per engine, a ``kernels``
+JSON line (launches: each kernel's count over its engine's burst and
+session runs), then the card's name and power limit, then as its last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -85,6 +102,8 @@ ENGINES = {
     "K2": (dict(kv_quant="int8"), 6),
     "K4": (dict(kv_quant="int8", **PAGED), 12),
 }
+# Phase 6: sessions on each engine's 8 slots, turns per session, new tokens per turn.
+SESSIONS, TURNS, SESSION_TOKENS = 16, 3, 16
 
 
 def fail(msg: str) -> None:
@@ -251,6 +270,40 @@ def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
             shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S), max_abs_err=err,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    # The session path's call: B = 1 on one slot of the same 8-slot cache
+    # (a view of it, or a one-row slice of the table), every other slot
+    # poisoned by its own rows past position. Each slot's result equals
+    # row b of the B = 8 call bit for bit, and the plain version's.
+    views = {
+        "K1": lambda b: (da.decode_gqa_attention(q[b:b + 1], k_nan[b:b + 1], v_nan[b:b + 1],
+                                                 pos[b:b + 1]),
+                         da.decode_gqa_attention_ref(q[b:b + 1], k_nan[b:b + 1],
+                                                     v_nan[b:b + 1], pos[b:b + 1])),
+        "K2": lambda b: (da.decode_gqa_attention(q[b:b + 1], kq[b:b + 1], vq[b:b + 1],
+                                                 pos[b:b + 1], k_scale=ks[b:b + 1],
+                                                 v_scale=vs[b:b + 1]),
+                         da.decode_gqa_attention_quant_ref(q[b:b + 1], kq[b:b + 1], vq[b:b + 1],
+                                                           ks[b:b + 1], vs[b:b + 1], pos[b:b + 1])),
+        "K3": lambda b: (da.decode_gqa_attention_paged(q[b:b + 1], pk, pv, table[b:b + 1],
+                                                       pos[b:b + 1]),
+                         da.decode_gqa_attention_paged_ref(q[b:b + 1], pk, pv, table[b:b + 1],
+                                                           pos[b:b + 1])),
+        "K4": lambda b: (da.decode_gqa_attention_paged(q[b:b + 1], pkq, pvq, table8[b:b + 1],
+                                                       pos[b:b + 1], k_scale=pks, v_scale=pvs),
+                         da.decode_gqa_attention_paged_ref(q[b:b + 1], pkq, pvq, table8[b:b + 1],
+                                                           pos[b:b + 1], k_scale=pks,
+                                                           v_scale=pvs)),
+    }
+    for label, one_slot in views.items():
+        for b in range(B):
+            out, ref = one_slot(b)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.isfinite(out).all() or err > TOL[dtype]:
+                fail(f"{label} {model} {dtype} one-slot view b={b}: max abs error {err}")
+            if not torch.equal(out[0], outs[label][b]):
+                fail(f"{label} {model} {dtype} one-slot view b={b} differs from row b of B={B}")
+            cases[label]["max_abs_err"] = max(cases[label]["max_abs_err"], err)
     # The paged editions read the same rows through the table with the
     # same arithmetic: bit-identical to the contiguous ones.
     for paged, contiguous in (("K3", "K1"), ("K4", "K2")):
@@ -513,11 +566,194 @@ def decode_profile(label: str, engine, card: str) -> None:
     )), flush=True)
 
 
+# -- phase 6 ---------------------------------------------------------------
+
+def session_script(vocab: int) -> tuple[list, list]:
+    """16 sessions' turn-1 prompts (200–700 tokens) and the new text of
+    each later turn (40–120 tokens), from a fixed seed. The last session
+    starts at 700 and adds 120, then 150: its third turn extends from row
+    851 to 1002, where a 256-row piece would cross max_seq 1024, so its
+    first 23 pieces are single tokens."""
+    rng = np.random.default_rng(77)
+    firsts = [int(n) for n in np.linspace(200, 700, SESSIONS)]
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)] for n in firsts]
+    new = [[[int(t) for t in rng.integers(0, vocab, int(rng.integers(40, 121)))]
+            for _ in range(TURNS - 1)] for _ in range(SESSIONS)]
+    new[-1] = [[int(t) for t in rng.integers(0, vocab, n)] for n in (120, 150)]
+    return prompts, new
+
+
+def host_bytes(sess) -> int:
+    return 0 if sess.host_k is None else sess.host_k.nbytes + sess.host_v.nbytes
+
+
+def timed_calls(engine, log: dict) -> None:
+    """Time each offload, restore and placement of the engine alone (the
+    card idle before and after it): (ms, host bytes moved) per offload or
+    restore, (ms, request id) per placement (a restore, the prefill or
+    extend, and the first token)."""
+    def wrap(name):
+        inner = getattr(engine, name)
+
+        def run(first, *args):
+            before = host_bytes(first) if name == "_restore_session" else 0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            inner(first, *args)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3
+            if name == "_place_request":
+                log[name].append((ms, args[0].request_id))
+            elif before or host_bytes(first):
+                log[name].append((ms, before or host_bytes(first)))
+
+        setattr(engine, name, run)
+
+    for name in log:
+        wrap(name)
+
+
+def sessions(label: str, engine, card: str) -> dict:
+    """Phase 6 on one engine: 16 clients, one per session, each submit 3
+    greedy turns of 16 tokens through the engine thread; every turn after
+    the first is the previous prompt, its reply and new text. Launch
+    counts are set to 0 just before and read just after. Then, on the
+    stopped engine, one session's turn 2 is served again resident and
+    again after export → import, and every session is released."""
+    cfg = engine.model_cfg
+    prompts, new = session_script(cfg.vocab_size)
+    sp = SamplingParams(temperature=0.0, max_tokens=SESSION_TOKENS)
+    turns = [[] for _ in range(SESSIONS)]
+    errors = []
+    calls = {"_offload_session": [], "_restore_session": [], "_place_request": []}
+    timed_calls(engine, calls)
+
+    def client(i):
+        prompt = prompts[i]
+        try:
+            for t in range(TURNS):
+                t0 = time.monotonic()
+                h = engine.submit(prompt, sp, session_id=f"s{i}")
+                toks, ev = h.collect_tokens(timeout=600)
+                turns[i].append((prompt, toks, ev, h.first_token_at - t0, h.request_id))
+                if t < TURNS - 1:
+                    prompt = prompt + toks + new[i][t]
+        except Exception as e:  # a hung or failed turn fails the phase below
+            errors.append(f"session {i}: {e!r}")
+
+    m0 = dict(engine.metrics)
+    engine.start()
+    for name in da.LAUNCHES:
+        da.LAUNCHES[name] = 0               # counts start here
+    t_start = time.monotonic()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(SESSIONS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t_start
+    engine.stop()
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    m = engine.metrics
+    delta = {k: m[k] - m0[k] for k in ("decode_steps", "prefill_tokens", "prefix_reuse_tokens",
+                                       "session_offloads", "session_restores", "extend_steps",
+                                       "decode_dispatch_s", "decode_sync_s")}
+    if errors or any(len(t) != TURNS for t in turns):
+        fail(f"{label} sessions: turns missing or failed: {errors}")
+    reuse = prefill = singles = 0
+    for per in turns:
+        for t, (prompt, toks, ev, _, _) in enumerate(per):
+            if ev.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP) or ev.error:
+                fail(f"{label} sessions: a turn ended {ev.finish_reason} error={ev.error}")
+            r = 0
+            if t:
+                prev_prompt, prev_toks = per[t - 1][0], per[t - 1][1]
+                r = len(prev_prompt) + len(prev_toks) - 1
+                singles += sum(b == 1 for _, _, b in
+                               engine._extend_pieces(r, len(prompt) - r))
+            reuse += r
+            prefill += len(prompt) - r
+    if delta["prefix_reuse_tokens"] != reuse or delta["prefill_tokens"] != prefill:
+        fail(f"{label} sessions: reuse {delta['prefix_reuse_tokens']} / prefill "
+             f"{delta['prefill_tokens']} tokens, the script implies {reuse} / {prefill}")
+    if not (delta["session_offloads"] > 0 and delta["session_restores"] > 0):
+        fail(f"{label} sessions: {delta['session_offloads']} offloads, "
+             f"{delta['session_restores']} restores")
+    edition = KERNELS[label][0]
+    expected = cfg.num_layers * (delta["decode_steps"] + singles)
+    if launches[edition] != expected or singles == 0:
+        fail(f"{label} sessions launched {launches[edition]} times, expected {cfg.num_layers} "
+             f"x ({delta['decode_steps']} decode steps + {singles} single-token pieces) "
+             f"= {expected}")
+    others = {n: c for n, c in launches.items() if n != edition and c}
+    if others:
+        fail(f"{label} sessions launched other kernels: {others}")
+
+    # Exact restore: turn 2 of session 3 served again (restored first if
+    # it was paged out, resident after), then again after export → import
+    # on the stopped engine: the restored rows must give the same tokens.
+    prompt2 = turns[3][1][0]
+
+    def inline(prompt):
+        h = engine.submit(prompt, sp, session_id="s3")
+        while engine.step():
+            pass
+        return h.collect_tokens(timeout=60)[0]
+
+    resident = inline(prompt2)
+    payload = engine.export_session("s3")
+    if payload is None or payload.restore_rows != engine.cfg.restore_bucket_for(
+            len(payload.token_ids)):
+        fail(f"{label} sessions: export_session gave {payload}")
+    engine.import_session(payload)
+    restores = m["session_restores"]
+    imported = inline(prompt2)
+    if imported != resident or m["session_restores"] != restores + 1:
+        fail(f"{label} sessions: turn 2 after export -> import {imported[:8]}... differs from "
+             f"the resident replay {resident[:8]}...")
+    for i in range(SESSIONS):
+        engine.release_session(f"s{i}")
+    if engine.cfg.kv_pages and m["kv_pages_free"] != m["kv_pages_total"]:
+        fail(f"{label} sessions: {m['kv_pages_free']} of {m['kv_pages_total']} pages free "
+             f"after every session was released")
+    for name in calls:
+        delattr(engine, name)
+
+    ttft1 = [per[0][3] for per in turns]
+    ttft23 = [x[3] for per in turns for x in per[1:]]
+    placed = dict((rid, ms) for ms, rid in calls["_place_request"])
+    moves = {name: calls[name] for name in ("_offload_session", "_restore_session")}
+    summary = dict(
+        card=card, kernel=label, kv_quant=engine.cfg.kv_quant, kv_pages=engine.cfg.kv_pages,
+        sessions=SESSIONS, turns=SESSIONS * TURNS, wall_s=wall,
+        ttft_p50_turn1_s=statistics.median(ttft1), ttft_p50_turns23_s=statistics.median(ttft23),
+        placement_ms_p50_turn1=statistics.median(placed[per[0][4]] for per in turns),
+        placement_ms_p50_turns23=statistics.median(placed[x[4]] for per in turns
+                                                   for x in per[1:]),
+        prefill_tokens=prefill, prefill_tokens_saved=reuse,
+        decode_steps=delta["decode_steps"], single_token_pieces=singles,
+        extend_steps=delta["extend_steps"], launches=launches[edition],
+        session_offloads=delta["session_offloads"], session_restores=delta["session_restores"],
+        offload_ms_p50=statistics.median(t for t, _ in moves["_offload_session"]),
+        restore_ms_p50=statistics.median(t for t, _ in moves["_restore_session"]),
+        bytes_per_session_p50=statistics.median(b for _, b in moves["_offload_session"]),
+        offload_ms_per_mib=sum(t for t, _ in moves["_offload_session"])
+        / (sum(b for _, b in moves["_offload_session"]) / 2**20),
+        restore_ms_per_mib=sum(t for t, _ in moves["_restore_session"])
+        / (sum(b for _, b in moves["_restore_session"]) / 2**20),
+        decode_step_ms=wall_decode_ms(delta, delta["decode_steps"]),
+        turn2_replay_equals_original=resident == turns[3][1][1],
+    )
+    print(f"engine {label} sessions " + json.dumps(summary), flush=True)
+    return dict(launches=launches[edition], tokens=[[x[1] for x in per] for per in turns])
+
+
 def engines(card: str) -> dict:
-    """Phase 5: the four engine runs and the greedy equalities; returns
-    each kernel's launch count from its own run."""
+    """Phases 5 and 6: the four engine runs, their session runs and the
+    greedy equalities; returns each kernel's launch count from its runs."""
     cfg = get_config("llama3-8b")
-    params, launches, greedy = None, {}, {}
+    params, launches, greedy, session_tokens = None, {}, {}, {}
     for label, (fields, n_requests) in ENGINES.items():
         t0 = time.monotonic()
         engine = InferenceEngine(cfg, EngineConfig(**fields), params=params, seed=0,
@@ -533,6 +769,9 @@ def engines(card: str) -> dict:
         if label in ("K1", "K4"):
             decode_profile(label, engine, card)
         greedy[label] = greedy_inline(engine)
+        run = sessions(label, engine, card)
+        launches[label] += run["launches"]
+        session_tokens[label] = run["tokens"]
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -540,8 +779,13 @@ def engines(card: str) -> dict:
         if greedy[paged] != greedy[contiguous]:
             fail(f"greedy tokens of the {paged} (paged) engine differ from the "
                  f"{contiguous} (contiguous) engine's")
+        if session_tokens[paged] != session_tokens[contiguous]:
+            fail(f"session tokens of the {paged} (paged) engine differ from the "
+                 f"{contiguous} (contiguous) engine's")
     print("greedy equality: paged == contiguous at bf16 (K3 vs K1) and int8 (K4 vs K2), "
-          f"{sum(map(len, greedy['K1']))} and {sum(map(len, greedy['K2']))} tokens", flush=True)
+          f"{sum(map(len, greedy['K1']))} and {sum(map(len, greedy['K2']))} tokens; "
+          f"session turns {sum(len(t) for per in session_tokens['K1'] for t in per)} and "
+          f"{sum(len(t) for per in session_tokens['K2'] for t in per)} tokens", flush=True)
     return launches
 
 

@@ -1,14 +1,21 @@
 """Continuous-batching inference engine (port of
-``omnia_tpu/engine/engine.py::InferenceEngine`` for a session-less,
-dense configuration; the KV cache is contiguous or paged, in the model's
-dtype or int8).
+``omnia_tpu/engine/engine.py::InferenceEngine`` for a dense, sessionful
+configuration; the KV cache is contiguous or paged, in the model's dtype
+or int8).
 
 - **Slot batching.** Decode runs over a fixed batch of ``num_slots``
   sequences; requests claim and free slots as they arrive and finish.
   Inactive slots still compute (a fixed batch), and admission reclaims
   them.
 - **Prefill, then decode.** A fresh prompt prefills in its bucket and is
-  written into its slot's rows; decode never sees prompt shapes.
+  written into its slot's rows; a longer one, or a session turn past its
+  cached prefix, extends in bucket-sized pieces. Decode never sees prompt
+  shapes.
+- **Sessions.** With ``submit(..., session_id=...)`` a conversation's
+  rows outlive its requests: the next turn prefills only the tokens past
+  the longest common prefix, idle sessions beyond the slots page to host
+  RAM and back, and ``export_session`` / ``import_session`` move one to
+  another engine in the JAX engine's host-row format.
 - **Everything stays on the device.** Sampled tokens feed the next step
   as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
   cross to the host, for streaming and stop logic.
@@ -16,9 +23,10 @@ dtype or int8).
   shares the batch (``ops/sampling.py``).
 
 Layout mirrors the JAX package: programs in ``programs.py``, the
-dispatch policy in ``scheduler.py``, placement in ``placement.py``, the
-thread lifecycle in ``lifecycle.py``, the page pool's books in
-``paged.py``; this module owns construction, submission and warmup.
+dispatch policy in ``scheduler.py``, placement in ``placement.py``,
+session residency in ``sessions.py``, the thread lifecycle in
+``lifecycle.py``, the page pool's books in ``paged.py``; this module
+owns construction, submission and warmup.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
 from omnia_tpu_torch.engine.placement import _PlacementMixin
 from omnia_tpu_torch.engine.programs import build_programs
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
+from omnia_tpu_torch.engine.sessions import _SessionKV, _SessionMixin, _Slot
 from omnia_tpu_torch.engine.types import (
     MAX_DEVICE_STOP_IDS,
     EngineConfig,
@@ -48,7 +57,7 @@ from omnia_tpu_torch.engine.types import (
     resolve_dtype,
 )
 from omnia_tpu_torch.models import ModelConfig, llama
-from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
+from omnia_tpu_torch.models.kv_quant import cache_bytes, kv_device, kv_host, validate_kv_quant
 from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
 
@@ -74,33 +83,8 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
             )
 
 
-class _Slot:
-    __slots__ = ("request", "handle", "length", "generated", "max_total",
-                 "stop_ids", "emitted")
-
-    def __init__(self):
-        self.request: Optional[Request] = None
-        self.handle: Optional[RequestHandle] = None
-        self.length = 0          # tokens currently in the slot's KV rows
-        self.generated = 0
-        self.max_total = 0       # generation cap (request max_tokens)
-        self.stop_ids: frozenset[int] = frozenset()
-        self.emitted: list[int] = []
-
-    def clear(self):
-        self.request = None
-        self.handle = None
-        self.length = 0
-        self.generated = 0
-        self.emitted = []
-
-    @property
-    def active(self) -> bool:
-        return self.request is not None
-
-
-class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
-                      _LifecycleMixin):
+class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
+                      _PagedKVMixin, _LifecycleMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
@@ -123,6 +107,10 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
         progs = build_programs(model_cfg, engine_cfg)
         self._prefill_insert_fn = progs.prefill_insert
         self._decode_fns = progs.decode_fns
+        self._extend_fn = progs.extend
+        self._extend_nosample_fn = progs.extend_nosample
+        self._offload_fn = progs.offload
+        self._restore_fn = progs.restore
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -136,9 +124,15 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
         self._placing = 0  # guarded-by: _lock
         self._draining = False  # guarded-by: _lock
         self._req_counter = itertools.count()
+        # Session registry, engine-thread-owned; other threads' releases
+        # and imports queue under _lock (engine/sessions.py).
+        self._sessions: dict[str, _SessionKV] = {}
+        self._pending_releases: list[str] = []  # guarded-by: _lock
+        self._pending_imports: list = []  # guarded-by: _lock
         self._inflight: collections.deque = collections.deque()
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
+        self._healthy = True
         # The JAX engine's metric names, for what this engine does.
         self.metrics = {
             "requests_submitted": 0,
@@ -146,7 +140,13 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
             "tokens_generated": 0,
             "prefill_steps": 0,
             "decode_steps": 0,
+            "extend_steps": 0,
             "prefill_tokens": 0,
+            "prefix_reuse_tokens": 0,
+            "session_offloads": 0,
+            "session_restores": 0,
+            "session_exports": 0,
+            "session_imports": 0,
             "decode_dispatch_s": 0.0,
             "decode_sync_s": 0.0,
             "prefill_dispatch_s": 0.0,
@@ -212,18 +212,18 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
                session_id: Optional[str] = None, grammar=None,
                deadline_s: Optional[float] = None,
                trace_ctx: Optional[str] = None) -> RequestHandle:
-        """Queue a generation request. Sessions, grammars and prompts
-        longer than the largest prefill bucket are refused with a
-        ValueError: their placement paths are not ported yet."""
-        if session_id is not None:
-            raise ValueError(
-                "session_id: sessionful serving is not ported yet (ROADMAP A6)"
-            )
+        """Queue a generation request. With a session_id the session's KV
+        rows persist across requests: the next request prefills only the
+        tokens past its longest common prefix with what is cached. A
+        prompt longer than the largest prefill bucket prefills in pieces;
+        the one hard limit is the cache (max_seq - 2). Grammars are
+        refused with a ValueError (not ported yet)."""
         if grammar is not None:
             raise ValueError("grammar: not ported yet (ROADMAP A11)")
         rid = f"req-{next(self._req_counter)}"
         handle = RequestHandle(rid)
-        request = Request(rid, list(prompt_tokens), params, trace_ctx=trace_ctx)
+        request = Request(rid, list(prompt_tokens), params, session_id=session_id,
+                          trace_ctx=trace_ctx)
         if deadline_s is not None:
             request.deadline_at = self.clock() + deadline_s
         error = None
@@ -242,11 +242,6 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
         if error is not None:
             handle._push(StreamEvent(rid, finish_reason=FinishReason.ERROR, error=error))
             return handle
-        if len(prompt_tokens) > max(self.cfg.usable_buckets()):
-            raise ValueError(
-                f"prompt of {len(prompt_tokens)} tokens exceeds the largest "
-                "prefill bucket; chunked extend is not ported yet (ROADMAP A6)"
-            )
         with self._lock:
             if self._draining:
                 shed_why = "engine draining (stop(drain=True))"
@@ -272,16 +267,30 @@ class InferenceEngine(_SchedulerMixin, _PlacementMixin, _PagedKVMixin,
         """Occupied decode slots (equal to active_slots here)."""
         return self.active_slots()
 
+    def healthy(self) -> bool:
+        """False once recovery itself failed (the readiness signal)."""
+        return self._healthy
+
     def warmup(self):
-        """Build the kernels and run every prefill bucket and decode chunk
-        size once, so no request pays a first-call cost; then restore the
-        device state and metrics warmup touched."""
+        """Build the kernel and run every program once at every shape a
+        request can give it: each prefill bucket, an extend piece per
+        bucket and of one token, an offload and a restore per restore
+        bucket, each decode chunk size. Then restore the device state and
+        the metrics warmup touched."""
         if self.device.type == "cuda":
             kernels.load(edition(self._kv_quant is not None, self.cfg.kv_pages > 0))
         metrics_before = dict(self.metrics)
         sp = SamplingParams(temperature=0.0)
         for bucket in self.cfg.usable_buckets():
             self._fresh_prefill(0, [0] * bucket, sp)
+        for b in sorted(set(self.cfg.usable_buckets()) | {1}):
+            self._extend_fn(*self._piece_args(0, [0] * b, 0, b, b), b - 1,
+                            *self._sampler_args(0, sp))
+        for rows in self.cfg.restore_buckets():
+            self._prepare_slot_write(0, 0, rows)
+            k, v = self._offload_fn(self._ck, self._cv, 0, rows)
+            self._restore_fn(self._ck, self._cv, kv_device(kv_host(k), self.device),
+                             kv_device(kv_host(v), self.device), 0)
         for chunk in self._decode_fns:
             self._run_decode_step(chunk)
         if self.device.type == "cuda":

@@ -1,6 +1,7 @@
 """Engine thread lifecycle (port of ``omnia_tpu/engine/lifecycle.py``):
-the step loop, graceful drain, and the recovery that turns a failed step
-into failed handles plus fresh device state instead of a dead engine."""
+the step loop, graceful drain (which pages idle sessions to host), and
+the recovery that turns a failed step into failed handles plus fresh
+device state instead of a dead engine."""
 
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ class _LifecycleMixin:
     def stop(self, drain: bool = False, drain_timeout_s: float = 30.0):
         """Stop the loop. drain=True first stops admission (submit sheds
         OVERLOADED) and lets queued and active requests finish, bounded
-        by drain_timeout_s; leftovers then get their terminal event."""
+        by drain_timeout_s; leftovers then get their terminal event, and
+        idle sessions' rows are offloaded to host RAM."""
         if drain:
             with self._lock:
                 self._draining = True
@@ -47,6 +49,7 @@ class _LifecycleMixin:
             self._thread.join(timeout=30)
             if self._thread.is_alive():
                 logger.error("engine loop did not stop within 30s; still alive")
+                self._healthy = False
                 wedged = True
             else:
                 self._thread = None
@@ -62,6 +65,9 @@ class _LifecycleMixin:
                 self.metrics["requests_finished"] += 1
             if not wedged and any(s.active for s in self._slots):
                 self._fail_all("engine stopped: drain window elapsed mid-request")
+        if drain and not wedged and self._healthy:
+            # The loop has joined, so device state is this caller's.
+            self._offload_idle_sessions()
 
     def _drain_work_left(self) -> bool:
         with self._lock:
@@ -85,8 +91,20 @@ class _LifecycleMixin:
         written."""
         self._fail_all(msg)
         self._inflight.clear()
-        self._init_device_state()
-        self.metrics["recoveries"] += 1
+        # Device-resident session rows die with the caches; host-paged
+        # sessions keep theirs.
+        for sess in self._sessions.values():
+            if sess.slot is not None:
+                self._slots[sess.slot].session_id = None
+                sess.slot = None
+                sess.token_ids = []
+        try:
+            self._init_device_state()
+            self.metrics["recoveries"] += 1
+            self._healthy = True
+        except Exception:
+            logger.exception("engine recovery failed; marking unhealthy")
+            self._healthy = False
 
     def _fail_all(self, msg: str):
         for slot in self._slots:

@@ -1,5 +1,5 @@
-"""Paged-KV wiring for the serving engine (port of the session-less part
-of ``omnia_tpu/engine/paged.py``).
+"""Paged-KV wiring for the serving engine (port of
+``omnia_tpu/engine/paged.py`` without the prefix cache's page runs).
 
 The device side is one page pool plus one per-slot page table
 (``PagedKV``, models/paged_kv.py), shared by the k and v caches; this
@@ -33,6 +33,7 @@ import torch
 from omnia_tpu_torch.engine.kv_pages import PageAllocator, PoolExhausted
 from omnia_tpu_torch.engine.types import FinishReason
 from omnia_tpu_torch.models import llama
+from omnia_tpu_torch.models.kv_quant import is_quant_kv
 from omnia_tpu_torch.models.paged_kv import PagedKV
 
 logger = logging.getLogger(__name__)
@@ -117,7 +118,8 @@ class _PagedKVMixin:
         if through_row <= from_row:
             return
         need = self._pages.writes_needed(slot_idx, from_row, through_row)
-        if need > self._pages.free_count and not self._reclaim_pages(need):
+        if need > self._pages.free_count and not self._reclaim_pages(
+                need, protect_slot=slot_idx):
             raise PoolExhausted(
                 f"kv page pool exhausted writing rows [{from_row}, "
                 f"{through_row}) of slot {slot_idx}: need {need} pages, "
@@ -163,8 +165,29 @@ class _PagedKVMixin:
     def _free_slot_pages(self, slot_idx: int) -> None:
         self._trim_slot_pages(slot_idx, 0)
 
-    def _reclaim_pages(self, need: int) -> bool:
-        """Free pages until ``need`` are free. The JAX engine demotes idle
-        prefix entries and offloads idle sessions here; this engine has
-        neither (ROADMAP A6, A11), so nothing can be reclaimed."""
-        return self._pages.free_count >= need
+    def _prepare_slot_restore(self, slot_idx: int, host_k) -> None:
+        """Session restore: fresh pages covering the host rows and the
+        table row synced before the restore scatters through it."""
+        if self._pages is None:
+            return
+        rows = (host_k.q if is_quant_kv(host_k) else host_k).shape[1]
+        self._free_slot_pages(slot_idx)
+        self._prepare_slot_write(slot_idx, 0, int(rows))
+
+    def _reclaim_pages(self, need: int, protect_slot: int = -1) -> bool:
+        """Offload least-recently-used idle sessions (never the one on
+        ``protect_slot``) until ``need`` pages are free. False when no
+        offload frees a page any more: every page is held by live work."""
+        while self._pages.free_count < need:
+            before = self._pages.free_count
+            idle = [
+                (sess.last_used, sid)
+                for sid, sess in self._sessions.items()
+                if sess.slot is not None and sess.slot != protect_slot
+                and not self._slots[sess.slot].active
+            ]
+            if idle:
+                self._offload_session(self._sessions[min(idle)[1]])
+            if self._pages.free_count <= before:
+                return False
+        return True

@@ -1,9 +1,8 @@
-"""Request placement (port of the fresh branch of
-``omnia_tpu/engine/placement.py``): a queued request goes to its first
-sampled token through one bucketed fresh prefill.
-
-Session reuse and the chunked extend of prompts longer than the largest
-bucket are not ported yet (ROADMAP A6); ``submit`` refuses both.
+"""Request placement (port of ``omnia_tpu/engine/placement.py`` without
+the shared-prefix pool and grammars): a queued request goes to its first
+sampled token through one bucketed fresh prefill when nothing is
+reusable and the prompt fits a bucket, else through a chunked extend from
+the session's reuse frontier (or from row 0 for a long prompt).
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import time
 import numpy as np
 import torch
 
+from omnia_tpu_torch.engine.sessions import _SessionKV
 from omnia_tpu_torch.engine.types import (
     MAX_DEVICE_STOP_IDS,
     Request,
@@ -33,26 +33,73 @@ class _PlacementMixin:
     def _scalar(self, value, dtype) -> torch.Tensor:
         return torch.tensor([value], dtype=dtype, device=self.device)
 
+    def _sampler_args(self, slot_idx: int, sp: SamplingParams) -> tuple:
+        return (self._sampling_key(slot_idx, sp),
+                self._scalar(sp.temperature, torch.float32),
+                self._scalar(sp.top_p, torch.float32),
+                self._scalar(sp.top_k, torch.int32))
+
+    def _prepare_session_slot(self, slot_idx: int, request: Request):
+        """The session half of placement: find or create the session,
+        take the longest common prefix of the prompt with its cached rows
+        (at most n - 1, so a suffix token yields the next logits),
+        restore it from host when it reuses any row, and pin the slot.
+        Returns ``(slot_idx, sess, reuse)``."""
+        prompt = request.prompt_tokens
+        n = len(prompt)
+        sess = None
+        reuse = 0
+        if self.cfg.max_sessions > 0 and request.session_id:
+            sess = self._sessions.get(request.session_id)
+            if sess is None:
+                sess = self._sessions[request.session_id] = _SessionKV(
+                    request.session_id, now=self.clock()
+                )
+                self._enforce_session_cap(protect=request.session_id)
+            sess.last_used = self.clock()
+            limit = min(len(sess.token_ids), n - 1)
+            while reuse < limit and sess.token_ids[reuse] == prompt[reuse]:
+                reuse += 1
+            if sess.slot is None and sess.host_k is not None:
+                if reuse > 0:
+                    self._restore_session(sess, slot_idx)
+                else:
+                    sess.host_k = sess.host_v = None  # diverged: useless rows
+            if sess.slot is None:
+                sess.slot = slot_idx
+                self._slots[slot_idx].session_id = sess.session_id
+            slot_idx = sess.slot
+            if reuse == 0:
+                sess.token_ids = []
+        return slot_idx, sess, reuse
+
     def _place_request(self, slot_idx: int, request: Request, handle: RequestHandle):
         prompt = request.prompt_tokens
         n = len(prompt)
+        slot_idx, sess, reuse = self._prepare_session_slot(slot_idx, request)
         sp = request.params
         t_prefill = time.monotonic()
+        if reuse == 0:
+            # Paged pool: a cold start owns no history; return any stale
+            # pages before the bucket write allocates fresh ones.
+            self._free_slot_pages(slot_idx)
         # Every prefill dispatched while a decode slot is live stalls the
         # decode batch for its duration.
         stalled = any(s.active for s in self._slots)
-        # Paged pool: a cold start owns no history; return any stale
-        # pages before the bucket write allocates fresh ones.
-        self._free_slot_pages(slot_idx)
-        first_tok = self._fresh_prefill(slot_idx, prompt, sp)
-        # Paged pool: the bucket-padded prefill covered rows past the
+        ext0 = self.metrics["extend_steps"]
+        if reuse == 0 and n <= max(self.cfg.usable_buckets()):
+            first_tok = self._fresh_prefill(slot_idx, prompt, sp)
+        else:
+            first_tok = self._chunked_extend(slot_idx, prompt, reuse, sp)
+        if stalled:
+            self.metrics["decode_stall_steps"] += max(self.metrics["extend_steps"] - ext0, 1)
+        # Paged pool: the bucket-padded writes covered rows past the
         # prompt; return that slack now. The next decode write gets its
         # page in the pre-dispatch preallocation.
         self._trim_slot_pages(slot_idx, n)
-        if stalled:
-            self.metrics["decode_stall_steps"] += 1
         self.metrics["prefill_dispatch_s"] += time.monotonic() - t_prefill
-        self.metrics["prefill_tokens"] += n
+        self.metrics["prefix_reuse_tokens"] += reuse
+        self.metrics["prefill_tokens"] += n - reuse
         self.metrics["prefill_steps"] += 1
 
         slot = self._slots[slot_idx]
@@ -63,6 +110,8 @@ class _PlacementMixin:
         slot.emitted = []
         slot.max_total = sp.max_tokens
         slot.stop_ids = frozenset(sp.stop_token_ids)
+        if sess is not None:
+            sess.token_ids = list(prompt)
 
         self._tokens[slot_idx] = first_tok
         self._positions[slot_idx] = n
@@ -94,10 +143,55 @@ class _PlacementMixin:
             self.params, self._ck, self._cv,
             torch.from_numpy(toks).to(self.device),
             torch.from_numpy(pos).to(self.device),
-            slot_idx, n - 1, self._sampling_key(slot_idx, sp),
-            self._scalar(sp.temperature, torch.float32),
-            self._scalar(sp.top_p, torch.float32),
-            self._scalar(sp.top_k, torch.int32),
+            slot_idx, n - 1, *self._sampler_args(slot_idx, sp),
         )
         self._key_data[slot_idx] = new_kd
+        return first_tok
+
+    def _extend_pieces(self, start: int, count: int) -> list[tuple[int, int, int]]:
+        """(offset, real_len, bucket) pieces covering prompt[start:
+        start+count]. A bucket-padded write must never cross max_seq (a
+        clamped write would land on earlier rows), so near the cache end
+        the pieces fall back to single tokens."""
+        buckets = sorted(self.cfg.usable_buckets())
+        S = self.cfg.max_seq
+        pieces = []
+        pos, left = start, count
+        while left > 0:
+            b = buckets[-1] if left >= buckets[-1] else self.cfg.bucket_for(left)
+            if pos + b > S:
+                b = 1
+            take = min(left, b)
+            pieces.append((pos, take, b))
+            pos += take
+            left -= take
+        return pieces
+
+    def _piece_args(self, slot_idx: int, prompt: list[int], off: int, take: int,
+                    b: int) -> tuple:
+        """The extend programs' leading operands for prompt[off:off+take]
+        padded to b tokens at rows [off, off+b) of a slot. Paged pool: the
+        piece's pages are made exclusive first."""
+        toks = np.zeros((1, b), np.int32)
+        toks[0, :take] = prompt[off:off + take]
+        pos = (off + np.arange(b, dtype=np.int32))[None, :]
+        self._prepare_slot_write(slot_idx, off, off + b)
+        return (self.params, self._ck, self._cv,
+                torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(pos).to(self.device), slot_idx,
+                self._scalar(off, torch.int32))
+
+    def _chunked_extend(self, slot_idx: int, prompt: list[int], reuse: int,
+                        sp: SamplingParams):
+        """Incremental prefill of prompt[reuse:] against the slot's
+        resident rows; only the last piece samples."""
+        pieces = self._extend_pieces(reuse, len(prompt) - reuse)
+        for off, take, b in pieces[:-1]:
+            self._extend_nosample_fn(*self._piece_args(slot_idx, prompt, off, take, b))
+        off, take, b = pieces[-1]
+        first_tok, new_kd = self._extend_fn(
+            *self._piece_args(slot_idx, prompt, off, take, b), take - 1,
+            *self._sampler_args(slot_idx, sp))
+        self._key_data[slot_idx] = new_kd
+        self.metrics["extend_steps"] += len(pieces)
         return first_tok

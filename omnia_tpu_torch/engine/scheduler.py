@@ -1,8 +1,9 @@
 """Decode scheduler (port of the prefill-first policy of
-``omnia_tpu/engine/scheduler.py``, as a session-less default config
-runs it).
+``omnia_tpu/engine/scheduler.py``, without speculation, grammars and the
+token-budget interleave).
 
-One placement per step, then decode for all active slots. Up to
+Each step applies queued session releases and imports, places the first
+waiting request that can take a slot, then decodes all active slots. Up to
 ``decode_pipeline`` chunks stay in flight: chunk N+1 is enqueued before
 chunk N's tokens are read. PyTorch launches are asynchronous, so the
 analog of reading a JAX future is a copy of the chunk's ``[K, B]`` tokens
@@ -52,6 +53,8 @@ class _SchedulerMixin:
 
     def step(self) -> bool:
         """One scheduling step. Returns True if any work was done."""
+        self._drain_releases()
+        self._drain_imports()
         self._reap_cancelled()
         self._reap_deadlines()
         did = False
@@ -82,23 +85,27 @@ class _SchedulerMixin:
         return did
 
     def _claim_pending(self):
-        """Claim the oldest waiting request if a slot is free: it leaves
-        the queue and ``_placing`` counts it until placement ends."""
+        """Claim the first waiting request that can be placed now: a turn
+        whose session still decodes must not hold up the requests behind
+        it. The claim leaves the queue and ``_placing`` counts it until
+        placement ends. Returns ``(pending, slot_idx)`` or ``(None, None)``."""
         with self._lock:
-            if not self._waiting:
-                return None, None
-            slot_idx = self._slot_for()
-            if slot_idx is None:
-                return None, None
-            pending = self._waiting.pop(0)
+            waiting = list(self._waiting)
+        for cand in waiting:
+            # May offload an idle session to free its slot: outside the
+            # lock, since the copy waits on the device.
+            slot_idx = self._slot_for(cand[0])
+            if slot_idx is not None:
+                break
+        else:
+            return None, None
+        with self._lock:
+            try:
+                self._waiting.remove(cand)
+            except ValueError:
+                return None, None  # reaped meanwhile
             self._placing += 1
-        return pending, slot_idx
-
-    def _slot_for(self) -> Optional[int]:
-        for i, s in enumerate(self._slots):
-            if not s.active:
-                return i
-        return None
+        return cand, slot_idx
 
     def _place_pending(self, slot_idx, request, handle):
         try:
@@ -116,6 +123,8 @@ class _SchedulerMixin:
             num_prompt_tokens=len(request.prompt_tokens),
         ))
         self.metrics["requests_finished"] += 1
+        self._drop_session(request.session_id)
+        self._slots[slot_idx].session_id = None
         self._slots[slot_idx].clear()
 
     def _dispatch_ahead_useful(self) -> bool:
@@ -264,17 +273,31 @@ class _SchedulerMixin:
         handle = slot.handle
         n_prompt = len(slot.request.prompt_tokens)
         generated = slot.generated
+        # Sessionful: record which rows the next turn may reuse, BEFORE the
+        # terminal event is observable. The last emitted token's row is
+        # written only if another decode step ran, so it is left out. The
+        # slot then parks at that frontier, so the frozen row's garbage
+        # lands only at rows >= the session's length.
+        quiesce_row = 0
+        sess = self._sessions.get(slot.session_id) if slot.session_id else None
+        if sess is not None:
+            sess.token_ids = list(slot.request.prompt_tokens) + slot.emitted[:-1]
+            sess.last_used = self.clock()
+            quiesce_row = len(sess.token_ids)
         slot.clear()
-        # Paged pool: all the slot's pages go back to the free list and
-        # its table row to trash. Chunks still in flight were enqueued
-        # before this table write and write the slot's frozen row through
-        # the old row; a page handed out now is written only by work
-        # enqueued after them (engine/paged.py).
-        self._trim_slot_pages(slot_idx, 0)
+        # Paged pool: pages past the quiesce row (all of them for an
+        # unpinned slot) go back to the free list and their table
+        # positions to trash, so the frozen row's writes land in the kept
+        # partial page or in trash. Chunks still in flight were enqueued
+        # before this table write and write through the old row; a page
+        # handed out now is written only by work enqueued after them
+        # (engine/paged.py).
+        self._trim_slot_pages(slot_idx, quiesce_row)
         # Quiesce: decode keeps running over the slot (static batch) but
-        # with active False it only rewrites row 0, which the next
-        # placement's prefill overwrites (through trash when paged).
-        self._positions[slot_idx] = 0
+        # with active False it only rewrites its frozen row: row 0 of an
+        # unpinned slot, which the next placement's prefill overwrites
+        # (through trash when paged), or the session's frontier.
+        self._positions[slot_idx] = quiesce_row
         self._tokens[slot_idx] = 0
         self._temp[slot_idx] = 0.0
         self._active[slot_idx] = False

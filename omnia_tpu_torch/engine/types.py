@@ -1,5 +1,6 @@
 """Engine request/response types (the port's own copy of the parts of
-``omnia_tpu/engine/types.py`` that its engine uses).
+``omnia_tpu/engine/types.py`` that its engine uses, ``SessionExport``
+included).
 
 ``EngineConfig`` keeps every field of the JAX package's, with the same
 defaults, so one set of field values configures both engines. Knobs
@@ -70,6 +71,27 @@ class StreamEvent:
     @property
     def is_final(self) -> bool:
         return self.finish_reason is not None
+
+
+@dataclasses.dataclass
+class SessionExport:
+    """One idle session's portable residency record: what
+    ``export_session`` hands a coordinator and ``import_session`` takes.
+
+    ``host_k``/``host_v`` are the host offload rows ``[L, R, Hkv, D]``
+    (R = ``restore_rows``, the session's restore bucket) as numpy arrays,
+    or a ``QuantKV`` of numpy leaves under ``kv_quant``; a paged engine
+    gathers its pages into the same layout. bf16 rows travel as their
+    16-bit patterns (``np.uint16``: numpy has no bf16 without
+    ``ml_dtypes``). ``kv_quant`` and ``restore_rows`` stamp the payload
+    so an incompatible engine refuses it at import."""
+
+    session_id: str
+    token_ids: list
+    host_k: object
+    host_v: object
+    kv_quant: Optional[str] = None
+    restore_rows: int = 0
 
 
 class RequestHandle:
@@ -203,3 +225,21 @@ class EngineConfig:
         raise ValueError(
             f"prompt of {n} tokens exceeds largest usable prefill bucket {limit}"
         )
+
+    def restore_buckets(self) -> tuple[int, ...]:
+        """Row counts a session's KV rows move in between device and
+        host: powers of two from the smallest usable bucket, then max_seq."""
+        usable = self.usable_buckets()
+        b = min(usable) if usable else 64
+        out = []
+        while b < self.max_seq:
+            out.append(b)
+            b *= 2
+        out.append(self.max_seq)
+        return tuple(out)
+
+    def restore_bucket_for(self, n: int) -> int:
+        for b in self.restore_buckets():
+            if n <= b:
+                return b
+        raise ValueError(f"{n} rows exceed max_seq {self.max_seq}")

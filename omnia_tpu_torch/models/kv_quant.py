@@ -68,6 +68,14 @@ def is_quant_kv(x: Any) -> bool:
     return isinstance(x, QuantKV)
 
 
+def as_quant_kv(x: Any) -> Any:
+    """Another package's QuantKV (an object with ``q`` and ``s`` leaves,
+    as the JAX package's) → this package's; anything else unchanged."""
+    if not is_quant_kv(x) and hasattr(x, "q") and hasattr(x, "s"):
+        return QuantKV(x.q, x.s)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Quantize / dequantize
 # ---------------------------------------------------------------------------
@@ -112,14 +120,19 @@ def kv_map(fn: Callable[..., Any], *caches: Any) -> Any:
     return fn(*caches)
 
 
-def _put(arr: torch.Tensor, chunk: torch.Tensor, starts: Sequence[int]) -> None:
-    # dynamic_update_slice semantics: each start is clamped so the chunk fits.
+def _window(shape: Sequence[int], starts: Sequence[int],
+            sizes: Sequence[int]) -> tuple[slice, ...]:
+    """Slices over the leading axes, each start clamped so its size fits
+    (``dynamic_slice`` / ``dynamic_update_slice`` semantics)."""
     idx = []
-    for axis, start in enumerate(starts):
-        n = chunk.shape[axis]
-        lo = min(max(int(start), 0), arr.shape[axis] - n)
+    for axis, (start, n) in enumerate(zip(starts, sizes)):
+        lo = min(max(int(start), 0), shape[axis] - n)
         idx.append(slice(lo, lo + n))
-    arr[tuple(idx)] = chunk.to(arr.dtype)
+    return tuple(idx)
+
+
+def _put(arr: torch.Tensor, chunk: torch.Tensor, starts: Sequence[int]) -> None:
+    arr[_window(arr.shape, starts, chunk.shape)] = chunk.to(arr.dtype)
 
 
 def cache_put(cache: Any, chunk: Any, starts: Sequence[int]) -> Any:
@@ -136,6 +149,50 @@ def cache_put(cache: Any, chunk: Any, starts: Sequence[int]) -> Any:
         raise TypeError("quantized chunk written into an unquantized cache")
     _put(cache, chunk, starts)
     return cache
+
+
+def cache_take(cache: Any, starts: Sequence[int], lead_sizes: Sequence[int]) -> Any:
+    """Rows of a cache over its leading axes (starts clamped as in
+    ``dynamic_slice``; head/feature axes whole). A view of the cache,
+    not a copy."""
+    return kv_map(lambda a: a[_window(a.shape, starts, lead_sizes)], cache)
+
+
+# ---------------------------------------------------------------------------
+# Host paging
+# ---------------------------------------------------------------------------
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    # copy=True: rows of a CPU cache must not stay a view of it.
+    if t.dtype == torch.bfloat16:
+        # numpy has no bf16: the rows travel as their 16-bit patterns.
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(np.uint16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()  # torch.from_numpy wants writable memory
+    if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
+        # bf16 bit patterns: ours as np.uint16, the JAX package's as
+        # ml_dtypes bfloat16; both reinterpret, never convert.
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(
+            device).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def kv_host(cache: Any) -> Any:
+    """Device rows → host numpy (a QuantKV of numpy leaves when
+    quantized): the session offload format. bf16 rows become np.uint16."""
+    return kv_map(_to_host, cache)
+
+
+def kv_device(cache: Any, device) -> Any:
+    """Host rows (:func:`kv_host`'s format, or the JAX package's, whose
+    bf16 rows are ml_dtypes bfloat16) → tensors on ``device``."""
+    return kv_map(lambda a: _to_device(a, device), cache)
 
 
 def cache_bytes(*caches: Any) -> int:

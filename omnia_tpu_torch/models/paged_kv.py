@@ -1,5 +1,5 @@
-"""Paged KV cache device layout (port of ``omnia_tpu/models/paged_kv.py``,
-the parts a session-less engine uses).
+"""Paged KV cache device layout (port of ``omnia_tpu/models/paged_kv.py``
+without the prefix cache's page-run transfers).
 
 Rows live in one fixed pool ``[L, P, PAGE_S, Hkv, D]`` (a plain tensor,
 or a QuantKV with ``[L, P, PAGE_S, Hkv]`` scales under ``kv_quant``),
@@ -74,6 +74,35 @@ def gather_view(cache: PagedKV) -> Any:
         out = arr[table]  # [B, NP, PS, ...]
         s = out.shape
         return out.reshape((s[0], s[1] * s[2]) + s[3:])
+
+    return kv_map(g, cache.pool)
+
+
+def gather_slot(cache: PagedKV, slot: int) -> Any:
+    """Engine-level paged cache → one slot's rows ``[L, 1, S, Hkv, D]``,
+    copied (the JAX package's extend seam; the port's extend runs on the
+    one-row table view ``PagedKV(pool, table[slot:slot+1])`` instead)."""
+    row = cache.table[slot:slot + 1].long()  # [1, NP]
+
+    def g(arr):  # arr [L, P, PS, ...]
+        out = arr[:, row]  # [L, 1, NP, PS, ...]
+        s = out.shape
+        return out.reshape(s[:2] + (s[2] * s[3],) + s[4:])
+
+    return kv_map(g, cache.pool)
+
+
+def gather_rows(cache: PagedKV, slot: int, rows: int) -> Any:
+    """One slot's leading ``rows`` rows → ``[L, rows, Hkv, D]``: only the
+    pages covering them are read, into the contiguous engine's host
+    offload layout."""
+    ps = cache.page_tokens
+    row = cache.table[slot, :-(-rows // ps)].long()  # [npg]
+
+    def g(arr):  # arr [L, P, PS, ...]
+        out = arr[:, row]  # [L, npg, PS, ...]
+        s = out.shape
+        return out.reshape((s[0], s[1] * s[2]) + s[3:])[:, :rows]
 
     return kv_map(g, cache.pool)
 

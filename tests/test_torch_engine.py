@@ -129,12 +129,21 @@ def test_unported_knob_raises(knob):
 
 
 def test_unported_submits_raise(both_runs):
+    """A grammar is still refused; a session turn and a prompt longer
+    than the largest bucket (32) are served."""
     eng = both_runs["engine"]
-    with pytest.raises(ValueError, match="A6"):
-        eng.submit([1, 2, 3], SamplingParams(), session_id="s1")
-    with pytest.raises(ValueError, match="A6"):
-        eng.submit(list(range(1, 41)), SamplingParams())
+    with pytest.raises(ValueError, match="A11"):
+        eng.submit([1, 2, 3], SamplingParams(), grammar=object())
     assert eng.queue_depth() == 0
+    sp = SamplingParams(temperature=0.0, max_tokens=3)
+    handles = [eng.submit([1, 2, 3], sp, session_id="s1"),
+               eng.submit(list(range(1, 41)), sp)]
+    while eng.step():
+        pass
+    for h in handles:
+        toks, fin = h.collect_tokens(timeout=5)
+        assert fin.finish_reason == FinishReason.LENGTH and len(toks) == 3
+    eng.release_session("s1")
 
 
 def test_out_of_vocab_prompt_is_an_error(both_runs):

@@ -260,6 +260,81 @@ def test_cuda_batch_changes_between_calls():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_cuda_one_slot_views(dtype, atol):
+    """The single-token extend piece's call: B = 1 on one slot of an
+    8-slot engine cache, as a view (``c[:, s:s+1]`` of [L, B, S, Hkv, D],
+    one layer of it), or through the one-row table slice ``table[s:s+1]``.
+    Every other slot, its pages, the free pages and the trash page are
+    poisoned; positions on the view's first, a middle and its last row.
+    Each edition matches its plain version on the same view, and the
+    paged ones equal the contiguous ones bit for bit."""
+    needs_card()
+    dev, B, S, H, Hkv, D = "cuda", 8, 256, 32, 8, 128
+    q8, k, v = inputs(B=B, S=S, H=H, Hkv=Hkv, D=D, seed=30)
+    kq, vq, ks, vs = quant(k, v)
+    for s in (0, 5, 7):
+        for p in (0, 100, S - 1):
+            others = np.arange(B) != s
+            past = np.zeros((B, S), bool)
+            past[others] = True
+            past[s, p + 1:] = True
+            poisoned = []
+            for a, bad in ((k, np.nan), (v, np.nan), (kq, 127), (vq, -127), (ks, np.nan),
+                           (vs, np.nan)):
+                a = a.copy()
+                a[past] = bad
+                # A leading layer axis, as the engine's [L, B, S, ...] cache.
+                poisoned.append(np.stack([a, a]))
+            ck, cv, ckq, cvq, cks, cvs = poisoned
+            tq = torch.from_numpy(q8[s:s + 1]).to(dev, dtype)
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+
+            def view(a, cast=True):
+                t = torch.from_numpy(a).to(dev)
+                t = t.to(dtype) if cast else t
+                return t[:, s:s + 1][1]               # layer 1 of the slot view
+
+            outs = {}
+            kv = (view(ck), view(cv))
+            kv8 = (view(ckq, False), view(cvq, False), view(cks, False), view(cvs, False))
+            assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in kv + kv8[:2])
+            outs["decode_attention"] = (
+                tda.decode_gqa_attention(tq, *kv, pos),
+                tda.decode_gqa_attention_ref(tq, *kv, pos))
+            outs["decode_attention_int8"] = (
+                tda.decode_gqa_attention(tq, kv8[0], kv8[1], pos, k_scale=kv8[2],
+                                         v_scale=kv8[3]),
+                tda.decode_gqa_attention_quant_ref(tq, *kv8, pos))
+            positions = [S - 1] * B
+            positions[s] = p
+            for int8 in (False, True):
+                arrs = [kq, vq, ks, vs] if int8 else [k, v]
+                pools, table = paginate(arrs, positions)
+                pools = poison_unreferenced(pools, table, positions)
+                for pool in pools:
+                    bad = 127 if pool.dtype == np.int8 else np.nan
+                    for b in np.flatnonzero(others):
+                        pool[table[b]] = bad          # the other slots' pages
+                tp = [torch.from_numpy(x).to(dev) for x in pools]
+                if not int8:
+                    tp = [x.to(dtype) for x in tp]
+                sc = dict(k_scale=tp[2], v_scale=tp[3]) if int8 else {}
+                row = torch.from_numpy(table).to(dev)[s:s + 1]
+                outs[tda.edition(int8, True)] = (
+                    tda.decode_gqa_attention_paged(tq, tp[0], tp[1], row, pos, **sc),
+                    tda.decode_gqa_attention_paged_ref(tq, tp[0], tp[1], row, pos, **sc))
+            torch.cuda.synchronize()
+            for name, (out, ref) in outs.items():
+                assert torch.isfinite(out).all(), f"{name} s={s} p={p}: a poisoned row was read"
+                torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0,
+                                           msg=lambda m: f"{name} s={s} p={p}: {m}")
+            for paged, contiguous in (("decode_attention_paged", "decode_attention"),
+                                      ("decode_attention_paged_int8", "decode_attention_int8")):
+                torch.testing.assert_close(outs[paged][0], outs[contiguous][0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_misaligned_rows_raise():
     """Rows are copied 16 bytes at a time: a view that starts off a 16-byte
     boundary raises and launches nothing."""
