@@ -10,7 +10,8 @@ Phases, each failing loudly (exit code != 0, no result line):
    all started together; ptxas's registers, spills and shared memory.
 3. Kernel vs plain: the four decode-attention kernels (K1 contiguous, K2
    int8, K3 paged, K4 paged int8) against their plain PyTorch versions
-   at the llama3-8b and llama3-1b decode shapes, q in bf16 and f32, with
+   at the llama3-8b and llama3-1b decode shapes, q in bf16 and f32, and
+   at the llama3-70b decode shape (G = 8), q in bf16, with
    every cache row past a position, every free page and the trash page
    poisoned (NaN, or 127 in int8 rows); K3 must equal K1 and K4 equal
    K2 bit for bit over the same rows. Kernel, plain and (K1) library-call
@@ -18,7 +19,11 @@ Phases, each failing loudly (exit code != 0, no result line):
    the kernel's share of it.
 4. Reference: on a small model the card's forward (kernel route) and the
    CPU's (plain route) give the same logits from the same weights, over
-   a contiguous cache and over an int8 paged one.
+   a contiguous cache and over an int8 paged one, and with int8 weights
+   in each mode; the W8A8 product (torch._int_mm, exact int32 sums) on
+   the card equals its CPU route bit for bit at f32 and bf16 activations
+   (1, 8 and 17 rows, llama3-8b and llama3-70b MLP widths), and the W8A16
+   one agrees within one rounding of the activation dtype.
 5. Engines at full llama3-8b width and depth (bf16, random seeded
    weights shared by all four): the default config (K1) and the slice's
    main path, int8 + paged (K4), serve a 12-request burst through
@@ -47,9 +52,27 @@ Phases, each failing loudly (exit code != 0, no result line):
    holds each kernel's B = 1 call on one slot of the 8-slot cache against
    its plain version and against row b of the B = 8 call, bit for bit.
 
+7. int8 weights at full width. (a) Each mode's product and the bf16
+   torch.matmul timed at 8 and 1024 rows for the llama3-8b and
+   llama3-70b projection shapes, beside the int8 weight-byte bound. (b)
+   llama3-70b, all 80 layers at full width, with W8A16 weights born
+   quantized on the card (the bf16 model would not fit), the default
+   contiguous bf16 KV cache (K1), 8 slots, max_seq 1024: its params'
+   device bytes against the reckoned count, the first prefill's logits
+   finite, the 12-request burst served with exactly 80 K1 launches per
+   decode step. (c) llama3-8b with W8A8 weights, the int8 KV cache and
+   the paged one (K4) serves the burst with exactly 32 K4 launches per
+   decode step, and its greedy tokens equal those of a contiguous int8-KV
+   engine (K2) on the same weights. (d) The provider path: a llama3-1b-
+   width checkpoint cut to 2 layers, written by the port's save_params,
+   built by runtime.providers.build_engine with quant="int8" (quantized
+   in the loader, layer by layer), gives the int8 tree and the greedy
+   tokens of an engine that quantized the same params in memory.
+
 Prints an ``engine <K> sessions`` JSON line per engine, a ``kernels``
 JSON line (launches: each kernel's count over its engine's burst and
-session runs), then the card's name and power limit, then as its last
+session runs, and phase 7's bursts for K1 and K4), then the card's name
+and power limit, then as its last
 line {"ok": true, "device": {...}}.
 """
 
@@ -58,10 +81,13 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -71,13 +97,15 @@ import torch.nn.functional as F
 
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.engine import EngineConfig, FinishReason, InferenceEngine, SamplingParams
-from omnia_tpu_torch.models import get_config, llama
+from omnia_tpu_torch.models import checkpoint as ckpt_io
+from omnia_tpu_torch.models import get_config, llama, quant
 from omnia_tpu_torch.models.kv_quant import quantize_rows
 from omnia_tpu_torch.models.paged_kv import PagedKV
 from omnia_tpu_torch.ops import decode_attention as da
+from omnia_tpu_torch.runtime.providers import ProviderSpec, build_engine
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 POSITIONS = [0, 1, 255, 256, 511, 700, 1022, 1023]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 TIMED_LAUNCHES = 50
@@ -104,6 +132,13 @@ ENGINES = {
 }
 # Phase 6: sessions on each engine's 8 slots, turns per session, new tokens per turn.
 SESSIONS, TURNS, SESSION_TOKENS = 16, 3, 16
+# Phase 7: the projection shapes [K, N] whose int8 products are timed,
+# and the requests of the llama3-70b burst.
+QDOT_SHAPES = {
+    "llama3-8b": [(4096, 4096), (4096, 14336), (14336, 4096), (4096, 128256)],
+    "llama3-70b": [(8192, 8192), (8192, 28672), (28672, 8192), (8192, 128256)],
+}
+BURST_70B = 12
 
 
 def fail(msg: str) -> None:
@@ -347,11 +382,24 @@ def _kv_caches(cfg, B, S, dev, kv_quant, paged):
     return PagedKV(ck, table), PagedKV(cv, table)
 
 
+# Phase 4 configurations: (kv_quant, paged, weight quant) and the logits'
+# tolerance against the CPU. f32 summation order only, except W8A8: an
+# activation within f32 rounding of a .5 step may round to the other
+# int8 value on the two devices, which moves a logit by ~s_in·s (~1e-5 at
+# test-tiny widths).
+REFERENCE_CASES = (
+    (None, False, None, 1e-4),
+    ("int8", True, None, 1e-4),
+    (None, False, "int8", 1e-4),
+    ("int8", True, "int8-dynamic", 1e-3),
+)
+
+
 def reference_check() -> None:
     """Small model, f32: the card's forward (kernels at T == 1) against the
     CPU's (plain path) on identical weights, a prefill then 3 decode
     steps at ragged positions, over a contiguous cache (K1) and an int8
-    paged one (K4); logits within 1e-4 (summation order only)."""
+    paged one (K4), dense and with int8 weights in each mode."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("test-tiny")
     cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(7), "cpu",
@@ -361,10 +409,11 @@ def reference_check() -> None:
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, B)))
     starts = torch.tensor([T, T + 5, T + 9], dtype=torch.int32)
-    for kv_quant, paged in ((None, False), ("int8", True)):
+    for kv_quant, paged, wquant, tol in REFERENCE_CASES:
+        base = cpu_params if wquant is None else quant.quantize_params(cpu_params, cfg, wquant)
         logits = {}
         for dev in ("cpu", "cuda"):
-            params = _to(cpu_params, dev)
+            params = _to(base, dev)
             ck, cv = _kv_caches(cfg, B, S, dev, kv_quant, paged)
             pos = torch.arange(T, dtype=torch.int32).expand(B, T).to(dev)
             lg, ck, cv = llama.forward(params, cfg, prompt.to(dev), pos, ck, cv,
@@ -377,11 +426,46 @@ def reference_check() -> None:
                 out.append(lg[:, 0].cpu())
             logits[dev] = torch.stack(out)
         err = (logits["cpu"] - logits["cuda"]).abs().max().item()
-        what = f"kv_quant={kv_quant} paged={paged}"
-        if not torch.isfinite(logits["cuda"]).all() or err > 1e-4:
+        what = f"kv_quant={kv_quant} paged={paged} quant={wquant}"
+        if not torch.isfinite(logits["cuda"]).all() or err > tol:
             fail(f"card forward ({what}) disagrees with the CPU reference: max abs err {err}")
-        print(f"reference check: test-tiny f32 {what} card vs CPU logits max abs err {err}",
-              flush=True)
+        print(f"reference check: test-tiny f32 {what} card vs CPU logits max abs err {err} "
+              f"(tolerance {tol})", flush=True)
+
+
+def qdot_check() -> None:
+    """The int8 products on the card against their CPU route on the same
+    int8 weights: W8A8 bit for bit (exact int32 sums, padded below
+    torch._int_mm's 17-row minimum), W8A16 within f32 summation order
+    (f32) or one bf16 step (2^-7 of the output's magnitude)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for K, N in ((4096, 14336), (8192, 28672)):
+        w = torch.randn((K, N), generator=gen, device="cuda").mul_(0.02)
+        for mode in quant.QUANT_MODES:
+            card_w = quant.quantize_weight(w, mode)
+            cpu_w = {k: v.cpu() for k, v in card_w.items()}
+            worst = 0.0
+            for rows in (1, 8, 17):
+                for dtype in (torch.float32, torch.bfloat16):
+                    h = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
+                    card = quant.qdot(h, card_w).cpu()
+                    cpu = quant.qdot(h.cpu(), cpu_w)
+                    torch.cuda.synchronize()
+                    what = f"qdot {mode} [{K}, {N}] rows={rows} {dtype}"
+                    if mode == "int8-dynamic":
+                        if not torch.equal(card, cpu):
+                            diff = (card.float() - cpu.float()).abs().max().item()
+                            fail(f"{what}: card differs from the CPU route by {diff}")
+                        continue
+                    rel = ((card.float() - cpu.float()).abs().max()
+                           / cpu.float().abs().max()).item()
+                    if rel > (1e-5 if dtype == torch.float32 else 2.0 ** -7):
+                        fail(f"{what}: card vs CPU max error {rel} of the largest output")
+                    worst = max(worst, rel)
+            print(f"qdot check {mode} [{K}, {N}]: card vs CPU "
+                  + ("bit-identical" if mode == "int8-dynamic"
+                     else f"max error {worst:.3g} of the largest output"), flush=True)
+        del w
 
 
 def _to(tree, device):
@@ -420,9 +504,11 @@ def burst(vocab: int, n: int) -> list:
     return reqs
 
 
-def serve(label: str, engine, card: str, n_requests: int) -> int:
+def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
     """The engine serves a burst through submit() from its own thread;
-    launch counts are set to 0 just before and read just after."""
+    launch counts are set to 0 just before and read just after. ``label``
+    names the engine's kernel, ``run`` the run in what is printed."""
+    run = run or label
     cfg = engine.model_cfg
     reqs = burst(cfg.vocab_size, n_requests)
     engine.start()
@@ -459,33 +545,34 @@ def serve(label: str, engine, card: str, n_requests: int) -> int:
 
     for i, r in enumerate(results):
         if r is None:
-            fail(f"{label}: request {i} never finished")
+            fail(f"{run}: request {i} never finished")
         toks, ev, _, _ = r
         if ev.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP) or ev.error:
-            fail(f"{label}: request {i} ended {ev.finish_reason} error={ev.error}")
+            fail(f"{run}: request {i} ended {ev.finish_reason} error={ev.error}")
         if ev.num_generated_tokens != len(toks):
-            fail(f"{label}: request {i}: {ev.num_generated_tokens} counted, {len(toks)} streamed")
+            fail(f"{run}: request {i}: {ev.num_generated_tokens} counted, {len(toks)} streamed")
         if not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"{label}: request {i}: token id out of range")
+            fail(f"{run}: request {i}: token id out of range")
     if not results[0][0] == results[-1][0]:
-        fail(f"{label}: the repeated greedy prompt gave different tokens")
+        fail(f"{run}: the repeated greedy prompt gave different tokens")
     edition = KERNELS[label][0]
     expected = cfg.num_layers * decode_steps
     if launches[edition] != expected or expected == 0:
-        fail(f"{label} launched {launches[edition]} times on its engine run, expected "
+        fail(f"{run} launched {launches[edition]} times on its engine run, expected "
              f"{cfg.num_layers} x {decode_steps} decode steps = {expected}")
     others = {n: c for n, c in launches.items() if n != edition and c}
     if others:
-        fail(f"{label} engine run launched other kernels: {others}")
+        fail(f"{run} engine run launched other kernels: {others}")
     m = engine.metrics
     if engine.cfg.kv_pages and m["kv_pages_free"] != m["kv_pages_total"]:
-        fail(f"{label}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free after the run")
+        fail(f"{run}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free after the run")
 
     ttft = [r[3][0] - r[2] for r in results]
     per_req = [(len(r[3]) - 1) / (r[3][-1] - r[3][0]) for r in results if len(r[3]) > 1]
     generated = sum(len(r[0]) for r in results)
     summary = dict(
-        card=card, kernel=label, kv_quant=engine.cfg.kv_quant,
+        card=card, kernel=label, model=cfg.name, quant=engine.cfg.quant,
+        kv_quant=engine.cfg.kv_quant,
         kv_pages=engine.cfg.kv_pages, kv_page_tokens=engine.cfg.kv_page_tokens,
         requests=len(results), generated_tokens=generated,
         decode_steps=decode_steps, launches=launches[edition],
@@ -500,7 +587,7 @@ def serve(label: str, engine, card: str, n_requests: int) -> int:
         kv_pages_total=m["kv_pages_total"], kv_pages_free=m["kv_pages_free"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    print(f"engine {label} " + json.dumps(summary), flush=True)
+    print(f"engine {run} " + json.dumps(summary), flush=True)
     return launches[edition]
 
 
@@ -789,6 +876,176 @@ def engines(card: str) -> dict:
     return launches
 
 
+# -- phase 7 ---------------------------------------------------------------
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def quantized_param_bytes(cfg) -> int:
+    """Device bytes of a tree with int8 matmul weights, reckoned from the
+    configuration: int8 projections and lm_head, their f32 scales, bf16
+    embedding and norms."""
+    L, D, F_, V = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    int8 = L * (2 * D * cfg.q_dim + 2 * D * cfg.kv_dim + 3 * D * F_) + D * V
+    scales = 4 * (L * (cfg.q_dim + 2 * cfg.kv_dim + D + 2 * F_ + D) + V)
+    bf16 = 2 * (V * D + 2 * L * D + D)
+    return int8 + scales + bf16
+
+
+def qdot_times(card: str) -> list:
+    """Each mode's product and the bf16 torch.matmul, bf16 activations, at
+    8 (a decode batch) and 1024 rows, for every projection shape of
+    llama3-8b and llama3-70b: the median of three rounds taken in turns,
+    each the median of TIMED_LAUNCHES calls with the L2 flushed, beside
+    the int8 weight-byte bound and the operations bound."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for model, shapes in QDOT_SHAPES.items():
+        for K, N in shapes:
+            w = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+            qw = {mode: quant.quantize_weight(w, mode) for mode in quant.QUANT_MODES}
+            for M in (8, 1024):
+                h = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+                calls = {"bf16": lambda: torch.matmul(h, w),
+                         "int8": lambda: quant.qdot(h, qw["int8"]),
+                         "int8-dynamic": lambda: quant.qdot(h, qw["int8-dynamic"])}
+                times = {k: [] for k in calls}
+                for _ in range(ROUNDS):
+                    for k, fn in calls.items():
+                        times[k].append(time_ms(fn, flush))
+                ops = 2 * M * K * N
+                row = dict(card=card, model=model, K=K, N=N, M=M,
+                           **{f"{k}_ms": statistics.median(t) for k, t in times.items()},
+                           int8_weight_bound_ms=K * N / HBM_BYTES_PER_S * 1e3,
+                           bf16_weight_bound_ms=2 * K * N / HBM_BYTES_PER_S * 1e3,
+                           bf16_ops_bound_ms=ops / PEAK_OPS[torch.bfloat16] * 1e3,
+                           int8_ops_bound_ms=ops / PEAK_OPS[torch.int8] * 1e3)
+                rows.append(row)
+                print(f"qdot {model} [{K}, {N}] M={M}: bf16 {row['bf16_ms']:.4f} ms, "
+                      f"int8 (W8A16) {row['int8_ms']:.4f} ms, int8-dynamic (W8A8) "
+                      f"{row['int8-dynamic_ms']:.4f} ms; int8 weight-byte bound "
+                      f"{row['int8_weight_bound_ms']:.4f} ms", flush=True)
+            del w, qw
+    print("qdot times " + json.dumps(rows), flush=True)
+    return rows
+
+
+def serve_70b(card: str) -> int:
+    """llama3-70b at full width and depth with W8A16 weights born quantized
+    on the card, the default contiguous bf16 KV cache (K1), 8 slots,
+    max_seq 1024: the burst through submit(). Returns K1's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llama3-70b")
+    t0 = time.monotonic()
+    engine = InferenceEngine(cfg, EngineConfig(quant="int8"), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    got, want = tree_bytes(engine.params), quantized_param_bytes(cfg)
+    if abs(got - want) > 0.01 * want:
+        fail(f"llama3-70b int8 params hold {got} device bytes, reckoned {want}")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 17)))
+    logits, _, _ = llama.forward_prefill(engine.params, cfg, prompt.cuda(),
+                                         torch.arange(17, dtype=torch.int32, device="cuda")[None])
+    if not torch.isfinite(logits).all():
+        fail("llama3-70b int8: the first prefill's logits are not finite")
+    del logits
+    t0 = time.monotonic()
+    engine.warmup()
+    setup = dict(card=card, params_device_bytes=got, params_reckoned_bytes=want,
+                 kv_device_bytes=engine.metrics["kv_quant_device_bytes"], init_s=init_s,
+                 warmup_s=time.monotonic() - t0,
+                 peak_mem_gb_after_warmup=torch.cuda.max_memory_allocated() / 1e9,
+                 card_mem_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    print("engine K1 llama3-70b int8 setup " + json.dumps(setup), flush=True)
+    launches = serve("K1", engine, card, BURST_70B, run="K1 llama3-70b int8")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_w8a8(card: str) -> int:
+    """llama3-8b with W8A8 weights, the int8 KV cache and the paged one
+    (K4): the burst, then greedy tokens equal to a contiguous int8-KV
+    engine's (K2) on the same weights. Returns K4's launches."""
+    cfg = get_config("llama3-8b")
+    fields = dict(quant="int8-dynamic", kv_quant="int8")
+    t0 = time.monotonic()
+    engine = InferenceEngine(cfg, EngineConfig(**fields, **PAGED), seed=0, device="cuda")
+    engine.warmup()
+    print(f"engine K4 llama3-8b int8-dynamic {fields} {PAGED}: init + warmup "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    launches = serve("K4", engine, card, 12, run="K4 llama3-8b int8-dynamic")
+    paged = greedy_inline(engine)
+    params = engine.params
+    del engine
+    contiguous = greedy_inline(InferenceEngine(cfg, EngineConfig(**fields), params=params,
+                                               device="cuda"))
+    if paged != contiguous:
+        fail("llama3-8b int8-dynamic: greedy tokens of the K4 (paged) engine differ from "
+             "the K2 (contiguous) engine's")
+    print(f"greedy equality: int8-dynamic weights, paged (K4) == contiguous (K2), "
+          f"{sum(map(len, paged))} tokens", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def provider_path(card: str) -> None:
+    """A llama3-1b-width checkpoint cut to 2 layers, written by the port's
+    save_params in 512 MiB shards, built by build_engine with quant="int8":
+    the same int8 tree, and the same greedy tokens, as an engine that
+    quantized the same bf16 params in memory."""
+    cfg = get_config("llama3-1b", num_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    tmp = tempfile.mkdtemp(prefix="omnia_ckpt_")
+    try:
+        t0 = time.monotonic()
+        ckpt_io.save_params(params, cfg, tmp, max_shard_bytes=512 * 2**20)
+        save_s = time.monotonic() - t0
+        files = sorted(f for f in os.listdir(tmp) if f.endswith(".safetensors"))
+        disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+        spec = ProviderSpec(name="ckpt", model="llama3-1b-2l",
+                            options={"checkpoint_path": tmp, "quant": "int8"})
+        t0 = time.monotonic()
+        built = build_engine(spec, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    memory = InferenceEngine(built.model_cfg, EngineConfig(quant="int8"), params=params,
+                             device="cuda")
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        else:
+            yield path, tree
+
+    mem = dict(leaves(memory.params))
+    for path, t in leaves(built.params):
+        if t.dtype != mem[path].dtype or not torch.equal(t, mem[path]):
+            fail(f"provider path: {path} of the checkpoint-built tree differs from the "
+                 f"in-memory quantized one")
+    a, b = greedy_inline(built), greedy_inline(memory)
+    if a != b:
+        fail("provider path: greedy tokens of the checkpoint-built engine differ from the "
+             "in-memory quantized engine's")
+    print("provider path " + json.dumps(dict(
+        card=card, model=built.model_cfg.name, layers=cfg.num_layers, shards=len(files),
+        checkpoint_bytes=disk, save_s=save_s, build_s=build_s,
+        params_device_bytes=tree_bytes(built.params), greedy_tokens=sum(map(len, a)),
+        trees_equal=True, tokens_equal=True)), flush=True)
+
+
 def main() -> None:
     card = device_line()
     if not torch.cuda.is_available():
@@ -806,10 +1063,17 @@ def main() -> None:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     cases = [kernel_cases(m, dt, flush) for m in ("llama3-8b", "llama3-1b")
              for dt in (torch.bfloat16, torch.float32)]
+    cases.append(kernel_cases("llama3-70b", torch.bfloat16, flush))
     del flush
     reference_check()
+    qdot_check()
 
     launches = engines(card)
+
+    qdot_times(card)
+    launches["K1"] += serve_70b(card)
+    launches["K4"] += serve_w8a8(card)
+    provider_path(card)
 
     main_case = cases[0]   # llama3-8b bf16: the engines' shape
     entries = []

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine (port of
 ``omnia_tpu/engine/engine.py::InferenceEngine`` for a dense, sessionful
 configuration; the KV cache is contiguous or paged, in the model's dtype
-or int8).
+or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
 
 - **Slot batching.** Decode runs over a fixed batch of ``num_slots``
   sequences; requests claim and free slots as they arrive and finish.
@@ -56,7 +56,7 @@ from omnia_tpu_torch.engine.types import (
     StreamEvent,
     resolve_dtype,
 )
-from omnia_tpu_torch.models import ModelConfig, llama
+from omnia_tpu_torch.models import ModelConfig, llama, quant
 from omnia_tpu_torch.models.kv_quant import cache_bytes, kv_device, kv_host, validate_kv_quant
 from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
@@ -65,7 +65,6 @@ from omnia_tpu_torch.ops.sampling import make_slot_key_data
 # away from its default, each one is refused at construction.
 _UNPORTED_KNOBS = (
     ("dp", "A13"), ("tp", "A13"), ("sp", "A13"),
-    ("quant", "A10"),
     ("prefix_cache_slots", "A11"), ("grammar", "A11"), ("spec_decode", "A11"),
     ("prefill_chunk_tokens", "A11"), ("decode_ring", "A11"),
     ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
@@ -112,10 +111,7 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
         self._offload_fn = progs.offload
         self._restore_fn = progs.restore
 
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = llama.init_params(model_cfg, gen, self.device, dtype=self._dtype)
-        self.params = params
+        self.params = self._resolve_params(params, seed)
 
         B = engine_cfg.num_slots
         self._slots = [_Slot() for _ in range(B)]
@@ -168,6 +164,40 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
             "kv_page_cow_copies": 0,
         }
         self._init_device_state()
+
+    def _resolve_params(self, params, seed: int):
+        """The engine's weights under ``EngineConfig.quant``: a loader
+        callable is called once here; a pre-quantized tree's mode is
+        adopted (a contradicting config raises); ``params=None`` is drawn
+        from ``seed``, born quantized when ``quant`` is set; full-precision
+        params with ``quant`` set are quantized on their device."""
+        qmode = quant.validate_mode(self.cfg.quant)
+        if callable(params):
+            # A streaming checkpoint loader (runtime/providers.py);
+            # overlapping it with warmup is ROADMAP A11.
+            params = params()
+        if params is not None and quant.params_quantized(params):
+            # Its mode is authoritative: a silent w8/w8d mismatch would
+            # serve the wrong arithmetic.
+            detected = quant.detect_mode(params)
+            if qmode is None:
+                qmode = detected
+            elif qmode != detected:
+                raise ValueError(
+                    f"EngineConfig.quant={qmode!r} but supplied params are "
+                    f"{detected!r}-quantized"
+                )
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            if qmode:
+                # Born quantized: at flagship sizes the full-precision tree
+                # would not fit on the card beside the int8 one.
+                return quant.init_params_quantized(self.model_cfg, gen, self.device, qmode,
+                                                   dtype=self._dtype)
+            return llama.init_params(self.model_cfg, gen, self.device, dtype=self._dtype)
+        if qmode and not quant.params_quantized(params):
+            return quant.quantize_params(params, self.model_cfg, qmode)
+        return params
 
     def _init_device_state(self):
         """(Re)allocate the KV caches (and the page books) and per-slot

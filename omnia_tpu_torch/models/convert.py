@@ -4,7 +4,9 @@ The port keeps the JAX layout (stacked layers, projections [in, out]),
 so conversion is a copy leaf by leaf. Leaves arrive as numpy arrays; a
 bfloat16 leaf (numpy dtype name ``"bfloat16"``, from ml_dtypes) is read
 through a ``uint16`` view of its bits, so neither jax nor ml_dtypes is
-imported here.
+imported here. Quantized weights (``{"w8"|"w8d": int8, "s": f32}``,
+``models/quant.py``) carry over with their dtypes, the int8 values in
+the layout the port's product reads.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from omnia_tpu_torch.models.quant import is_quantized, with_product_layout
 
 
 def _leaf(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -30,7 +34,11 @@ def _leaf(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
     """Nested dict of numpy arrays (a JAX ``llama.init_params`` tree
     after ``jax.tree.map(np.asarray, ...)``) → the same dict of tensors on
-    ``device``, cast to ``dtype`` (default: each leaf's own dtype)."""
+    ``device``, its floating weights cast to ``dtype`` (default: each
+    leaf's own dtype). A quantized weight's int8 values and f32 scales
+    keep their dtypes."""
     if isinstance(tree, dict):
+        if is_quantized(tree):
+            return with_product_layout({k: _leaf(v, device, None) for k, v in tree.items()})
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _leaf(tree, device, dtype)

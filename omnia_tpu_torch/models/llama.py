@@ -11,9 +11,12 @@
   writes its rows in place at per-slot ``write_start`` and causality is
   ``key_index <= query_position`` (``ops/attention.py``).
 - Compute dtype is the params' dtype; logits and softmax statistics f32.
+- **int8 weights**: every projection goes through ``quant.qdot``, so a
+  quantized tree (``models/quant.py``) serves with no other change; the
+  embedding gather and the tied-embedding logits stay full precision.
 
-MoE and int8 weights are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+MoE is not ported yet and raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from omnia_tpu_torch.models.kv_quant import (
     validate_kv_quant,
 )
 from omnia_tpu_torch.models.paged_kv import PagedKV, flat_rows, is_paged, scatter_rows
+from omnia_tpu_torch.models.quant import is_quantized, qdot
 from omnia_tpu_torch.ops.attention import gqa_attention
 from omnia_tpu_torch.ops.norms import rms_norm
 from omnia_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -111,18 +115,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, device,
 # ---------------------------------------------------------------------------
 
 
-def _dot(h: torch.Tensor, w) -> torch.Tensor:
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            "int8 weights are not ported yet (ROADMAP A10)"
-        )
-    return torch.matmul(h, w)
-
-
 def _dense_mlp(h, p):
-    gate = _dot(h, p["wg"])
-    up = _dot(h, p["wu"])
-    return _dot(F.silu(gate) * up, p["wd"])
+    gate = qdot(h, p["wg"])
+    up = qdot(h, p["wu"])
+    return qdot(F.silu(gate) * up, p["wd"])
 
 
 def _write_index(cache, start: torch.Tensor, T: int):
@@ -154,13 +150,20 @@ def _write_kv(cache, new: torch.Tensor, index) -> None:
         cache[index] = new.to(cache.dtype)
 
 
+def _layer_weight(w, i: int):
+    """Layer i of a stacked weight; a quantized leaf member by member."""
+    if is_quantized(w):
+        return {k: v[i] for k, v in w.items()}
+    return w[i]
+
+
 def _layer_params(params: dict, i: int) -> dict:
     lp = params["layers"]
     return {
         "ln1": lp["ln1"][i],
         "ln2": lp["ln2"][i],
-        "attn": {n: w[i] for n, w in lp["attn"].items()},
-        "mlp": {n: w[i] for n, w in lp["mlp"].items()},
+        "attn": {n: _layer_weight(w, i) for n, w in lp["attn"].items()},
+        "mlp": {n: _layer_weight(w, i) for n, w in lp["mlp"].items()},
     }
 
 
@@ -170,9 +173,9 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index):
     the rows are written into ck/cv in place and attention reads them."""
     B, T, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    q = _dot(h, p["attn"]["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = _dot(h, p["attn"]["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = _dot(h, p["attn"]["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = qdot(h, p["attn"]["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = qdot(h, p["attn"]["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = qdot(h, p["attn"]["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if ck is None:
@@ -182,7 +185,7 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index):
         _write_kv(cv, v, write_index)
         ck_eff, cv_eff = ck, cv
     attn = gqa_attention(q, ck_eff, cv_eff, q_positions)
-    x = x + _dot(attn.reshape(B, T, -1), p["attn"]["wo"])
+    x = x + qdot(attn.reshape(B, T, -1), p["attn"]["wo"])
     h2 = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     x = x + _dense_mlp(h2, p["mlp"])
     return x, k, v
@@ -192,7 +195,7 @@ def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"].T).float()
-    return _dot(x, params["lm_head"]).float()
+    return qdot(x, params["lm_head"]).float()
 
 
 # ---------------------------------------------------------------------------

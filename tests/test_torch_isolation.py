@@ -1,6 +1,7 @@
 """The port stands alone: no module of omnia_tpu_torch (nor chip_smoke.py)
-imports jax or omnia_tpu, and its kernel builder raises where it cannot
-build rather than handing back a plain version."""
+imports jax or omnia_tpu, nor a package the card's machine lacks
+(safetensors, transformers, ml_dtypes), and its kernel builder raises
+where it cannot build rather than handing back a plain version."""
 
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ MODULES = sorted(
 )
 
 
+FORBIDDEN = ("jax", "jaxlib", "omnia_tpu", "safetensors", "transformers", "ml_dtypes")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "omnia_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,8 +48,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'omnia_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -1,5 +1,5 @@
-"""Decode-attention kernels (K1–K4) against their plain versions, on a
-card. This file imports neither jax nor omnia_tpu (the machine with the
+"""Decode-attention kernels (K1–K4) against their plain versions, and
+the int8-weight products against their CPU route, on a card. This file imports neither jax nor omnia_tpu (the machine with the
 card has neither), so run it there without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from omnia_tpu_torch.models import quant as tquant
 from omnia_tpu_torch.models.kv_quant import quantize_rows_np
 from omnia_tpu_torch.ops import decode_attention as tda
 
@@ -357,3 +358,40 @@ def test_cuda_misaligned_rows_raise():
     with pytest.raises(ValueError, match="16-byte"):
         tda.decode_gqa_attention(tq, k16, torch.from_numpy(v).to(dev, torch.bfloat16), pos)
     assert tda.LAUNCHES == before
+
+
+def _qdot_case(mode, dtype, rows, K=256, N=96):
+    rng = np.random.default_rng(rows)
+    h = torch.from_numpy(rng.standard_normal((rows, K)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(np.float32))
+    qw = tquant.quantize_weight(w, mode)
+    card = tquant.qdot(h.cuda(), {k: v.cuda() for k, v in qw.items()})
+    torch.cuda.synchronize()
+    return card.cpu(), tquant.qdot(h, qw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 17])
+@pytest.mark.parametrize("K", [64, 256])
+def test_cuda_w8a8_qdot_equals_cpu_route(dtype, rows, K):
+    """W8A8 on the card (torch._int_mm on the column-major weight, rows
+    padded up to its 17-row minimum) equals the CPU route bit for bit: the
+    int32 sums are exact, the scales true quotients, the rescale
+    elementwise. K = 64 is test-tiny's width."""
+    needs_card()
+    card, cpu = _qdot_case("int8-dynamic", dtype, rows, K=K)
+    assert card.dtype == dtype and torch.equal(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_w8a16_qdot_matches_cpu_route(dtype):
+    """W8A16 on the card keeps the product in f32 (torch.mm with
+    out_dtype) like the CPU route: f32 summation order only, then one
+    rounding to the activation dtype (one bf16 step, 2^-7 relative)."""
+    needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = _qdot_case("int8", dtype, 8)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(card.float(), cpu.float(), rtol=rtol, atol=1e-6)
