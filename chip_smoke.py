@@ -69,11 +69,34 @@ Phases, each failing loudly (exit code != 0, no result line):
    in the loader, layer by layer), gives the int8 tree and the greedy
    tokens of an engine that quantized the same params in memory.
 
-Prints an ``engine <K> sessions`` JSON line per engine, a ``kernels``
-JSON line (launches: each kernel's count over its engine's burst and
-session runs, and phase 7's bursts for K1 and K4), then the card's name
-and power limit, then as its last
-line {"ok": true, "device": {...}}.
+8. Agent traffic on the llama3-8b bf16 weights of phase 5, full width
+   and depth, three engines of 8 slots, max_seq 1024, a shared-prefix
+   pool of 4 entries and grammars of up to 512 states: (a) the default
+   contiguous bf16 cache (K1), (b) int8 + paged (K4; 140 pages of 64
+   rows, the slots' 8 x 1024 rows and the block's 11 pages), (c)
+   contiguous int8 (K2). A 650-token system block is registered with register_prefix;
+   session 1's first turn prefills it and publishes it, then 16 sessions
+   send 3 turns each from their own threads, each turn the block, the
+   session's history and 16–48 new tokens. Every second turn is
+   constrained by a tool-call JSON schema (enums and booleans, a finite
+   language) compiled by the port's compiler over its byte tokenizer;
+   even sessions are greedy, odd ones sampled; (c) runs the greedy
+   sessions only. Checks: the pool's hit tokens equal 650 per seeded
+   first turn; (b) copies shared pages on write; each engine's kernel
+   launches num_layers x (decode steps + single-token pieces) times and
+   no other; every grammared token is admissible from the FSM's state
+   and every grammared turn that stops parses and names an enum member;
+   (b)'s greedy tokens equal (c)'s. Prints each engine's prefill tokens
+   saved, TTFT and placement of the seeded first turns against session
+   1's, and the grammar tables' device bytes, and times one decode window
+   (8 greedy requests, no grammar) on (a) and on an engine built without
+   grammars, three times each in turns.
+
+Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
+lines for phase 8, a ``kernels`` JSON line (launches: each kernel's
+count over its engine's burst and session runs, phase 7's bursts for K1
+and K4, and phase 8's runs for K1, K4 and K2), then the card's name and
+power limit, then as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,6 +120,8 @@ import torch.nn.functional as F
 
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.engine import EngineConfig, FinishReason, InferenceEngine, SamplingParams
+from omnia_tpu_torch.engine.grammar import compile_json_schema
+from omnia_tpu_torch.engine.tokenizer import ByteTokenizer
 from omnia_tpu_torch.models import checkpoint as ckpt_io
 from omnia_tpu_torch.models import get_config, llama, quant
 from omnia_tpu_torch.models.kv_quant import quantize_rows
@@ -139,6 +164,29 @@ QDOT_SHAPES = {
     "llama3-70b": [(8192, 8192), (8192, 28672), (28672, 8192), (8192, 128256)],
 }
 BURST_70B = 12
+# Phase 8: the agent engines' extra knobs and configurations (label →
+# the kernel their decode runs), the system block's length (not a whole
+# number of 64-row pages, so a seeded suffix copies the shared boundary
+# page), and the tool-call schema of the constrained turns. The paged
+# engine gets the block's 11 pages beyond the 8 x 1024 rows of its slots:
+# the pinned entry holds them while 8 restored sessions (no pages shared)
+# may hold 16 pages each.
+AGENT = dict(prefix_cache_slots=4, grammar=True, grammar_max_states=512)
+SYSTEM_TOKENS = 650
+AGENT_ENGINES = {
+    "K1": dict(),
+    "K4": dict(kv_quant="int8", kv_pages=129 + -(-SYSTEM_TOKENS // PAGE_S),
+               kv_page_tokens=PAGE_S),
+    "K2": dict(kv_quant="int8"),
+}
+TOOL_CALL = {"type": "object",
+             "properties": {"tool": {"enum": ["search", "calendar", "weather", "email"]},
+                            "args": {"type": "object",
+                                     "properties": {"unit": {"enum": ["c", "f"]},
+                                                    "urgent": {"type": "boolean"},
+                                                    "notify": {"type": "boolean"}},
+                                     "required": ["unit", "urgent", "notify"]}},
+             "required": ["tool", "args"]}
 
 
 def fail(msg: str) -> None:
@@ -873,6 +921,260 @@ def engines(card: str) -> dict:
           f"{sum(map(len, greedy['K1']))} and {sum(map(len, greedy['K2']))} tokens; "
           f"session turns {sum(len(t) for per in session_tokens['K1'] for t in per)} and "
           f"{sum(len(t) for per in session_tokens['K2'] for t in per)} tokens", flush=True)
+    for label, n in agent(card, params).items():
+        launches[label] += n
+    return launches
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+def agent_script(vocab: int) -> tuple[list, list]:
+    """The system block and each session's new text per turn (16–48
+    tokens), from a fixed seed. Each session's first new token is its
+    own, so no two sessions share a row past the block."""
+    rng = np.random.default_rng(88)
+    block = [int(t) for t in rng.integers(0, vocab, SYSTEM_TOKENS)]
+    new = [[[int(t) for t in rng.integers(0, vocab, int(rng.integers(16, 49)))]
+            for _ in range(TURNS)] for _ in range(SESSIONS)]
+    for i in range(SESSIONS):
+        new[i][0][0] = 1000 + i
+    return block, new
+
+
+def agent_turn(i: int, t: int, grammar):
+    """Session i's turn t: (SamplingParams, grammar or None). Even
+    sessions are greedy, odd ones sampled; every second turn is
+    constrained."""
+    constrained = (i + t) % 2 == 1
+    eos = ByteTokenizer().eos_id
+    if i % 2 == 0:
+        sp = SamplingParams(temperature=0.0, max_tokens=96 if constrained else SESSION_TOKENS,
+                            stop_token_ids=(eos,))
+    else:
+        sp = SamplingParams(temperature=0.7, top_p=0.9, top_k=40, seed=100 * i + t,
+                            max_tokens=96 if constrained else SESSION_TOKENS,
+                            stop_token_ids=(eos,))
+    return sp, grammar if constrained else None
+
+
+def agent_run(label: str, engine, grammar, sessions_: list, card: str) -> dict:
+    """Phase 8 on one engine: the block registered; session 0's first
+    turn alone (it prefills and publishes the block); then the other
+    sessions' first turns and every later turn from one thread per
+    session. Launch counts are set to 0 just before and read just after.
+    Returns the turns and the reckoned counts."""
+    cfg = engine.model_cfg
+    block, new = agent_script(cfg.vocab_size)
+    turns = {i: [] for i in sessions_}
+    errors = []
+    calls = {"_place_request": []}
+    timed_calls(engine, calls)
+
+    def one(i, t, prompt):
+        sp, g = agent_turn(i, t, grammar)
+        t0 = time.monotonic()
+        h = engine.submit(prompt, sp, session_id=f"a{i}", grammar=g)
+        toks, ev = h.collect_tokens(timeout=600)
+        ttft = None if h.first_token_at is None else h.first_token_at - t0
+        turns[i].append((prompt, toks, ev, ttft, h.request_id, g))
+        return prompt + toks
+
+    def client(i, first):
+        try:
+            prompt = block + new[i][0]
+            for t in range(TURNS):
+                if t or not first:
+                    prompt = one(i, t, prompt)
+                else:
+                    prompt = turns[i][0][0] + turns[i][0][1]
+                if t < TURNS - 1:
+                    prompt = prompt + new[i][t + 1]
+        except Exception as e:  # a hung or failed turn fails the phase below
+            errors.append(f"session {i}: {e!r}")
+
+    m0 = dict(engine.metrics)
+    engine.register_prefix(block)
+    engine.start()
+    for name in da.LAUNCHES:
+        da.LAUNCHES[name] = 0               # counts start here
+    t_start = time.monotonic()
+    one(sessions_[0], 0, block + new[sessions_[0]][0])
+    threads = [threading.Thread(target=client, args=(i, i == sessions_[0])) for i in sessions_]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t_start
+    engine.stop()
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    delattr(engine, "_place_request")
+    if errors or any(len(turns[i]) != TURNS for i in sessions_):
+        fail(f"agent {label}: turns missing or failed: {errors}")
+    m = engine.metrics
+    delta = {k: m[k] - m0[k] for k in (
+        "decode_steps", "prefill_tokens", "prefix_reuse_tokens", "prefix_cache_hit_tokens",
+        "prefix_cache_insertions", "prefix_cache_evictions", "prefix_cache_host_hits",
+        "prefix_cache_offload_elisions", "session_offloads", "session_restores",
+        "decode_dispatch_s", "decode_sync_s")}
+    # Reckoned from the script: every first turn but session 0's seeds
+    # the block; every later turn reuses its session's rows (the last
+    # emitted token's row excluded) and extends from there.
+    reuse = hits = prefill = singles = 0
+    for i in sessions_:
+        for t, (prompt, toks, ev, _, _, _) in enumerate(turns[i]):
+            if ev.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP) or ev.error:
+                fail(f"agent {label}: a turn ended {ev.finish_reason} error={ev.error}")
+            if t:
+                prev_prompt, prev_toks = turns[i][t - 1][0], turns[i][t - 1][1]
+                frontier = len(prev_prompt) + len(prev_toks) - 1
+                reuse += frontier
+            elif i != sessions_[0]:
+                frontier = SYSTEM_TOKENS
+                hits += frontier
+            else:
+                frontier = 0
+            if frontier:
+                singles += sum(b == 1 for _, _, b in
+                               engine._extend_pieces(frontier, len(prompt) - frontier))
+            prefill += len(prompt) - frontier
+    if delta["prefix_cache_offload_elisions"]:
+        fail(f"agent {label}: {delta['prefix_cache_offload_elisions']} offloads elided; the "
+             f"reckoning assumes every later turn reuses its session's rows")
+    if (delta["prefix_cache_hit_tokens"], delta["prefix_reuse_tokens"],
+            delta["prefill_tokens"]) != (hits, reuse, prefill):
+        fail(f"agent {label}: pool hits / reuse / prefill {delta['prefix_cache_hit_tokens']} / "
+             f"{delta['prefix_reuse_tokens']} / {delta['prefill_tokens']} tokens, the script "
+             f"implies {hits} / {reuse} / {prefill}")
+    if delta["prefix_cache_insertions"] < 1:
+        fail(f"agent {label}: the block was never published")
+    if engine.cfg.kv_pages and m["kv_page_cow_copies"] <= 0:
+        fail(f"agent {label}: no page was copied on write")
+    edition = KERNELS[label][0]
+    expected = cfg.num_layers * (delta["decode_steps"] + singles)
+    if launches[edition] != expected:
+        fail(f"agent {label} launched {launches[edition]} times, expected {cfg.num_layers} "
+             f"x ({delta['decode_steps']} decode steps + {singles} single-token pieces) "
+             f"= {expected}")
+    others = {n: c for n, c in launches.items() if n != edition and c}
+    if others:
+        fail(f"agent {label} launched other kernels: {others}")
+
+    tok = ByteTokenizer()
+    enums = set(TOOL_CALL["properties"]["tool"]["enum"])
+    stopped = 0
+    for i in sessions_:
+        for prompt, toks, ev, _, rid, g in turns[i]:
+            if g is None:
+                continue
+            view = g.view(cfg.vocab_size, (tok.eos_id,))
+            s = view.start
+            for x in toks:
+                s = view.advance(s, x)
+                if s < 0:
+                    fail(f"agent {label}: {rid} emitted token {x}, which its grammar masks")
+            if ev.finish_reason == FinishReason.STOP:
+                stopped += 1
+                try:
+                    doc = json.loads(tok.decode(toks))
+                except ValueError as e:
+                    fail(f"agent {label}: {rid} stopped on {tok.decode(toks)!r}: {e}")
+                if doc.get("tool") not in enums:
+                    fail(f"agent {label}: {rid} names no tool of the enum: {doc}")
+    if not stopped:
+        fail(f"agent {label}: no grammared turn stopped")
+
+    placed = {rid: ms for ms, rid in calls["_place_request"]}
+    seeded = [turns[i][0] for i in sessions_[1:]]
+    first = turns[sessions_[0]][0]
+    summary = dict(
+        card=card, kernel=label, kv_quant=engine.cfg.kv_quant, kv_pages=engine.cfg.kv_pages,
+        sessions=len(sessions_), turns=len(sessions_) * TURNS, wall_s=wall,
+        system_tokens=SYSTEM_TOKENS,
+        ttft_s_session1_turn1=first[3],
+        ttft_p50_s_seeded_turn1=statistics.median(x[3] for x in seeded),
+        placement_ms_session1_turn1=placed[first[4]],
+        placement_ms_p50_seeded_turn1=statistics.median(placed[x[4]] for x in seeded),
+        prefill_tokens=prefill, prefill_tokens_saved=hits + reuse,
+        prefix_cache_hit_tokens=hits, prefix_reuse_tokens=reuse,
+        prefix_cache_insertions=delta["prefix_cache_insertions"],
+        prefix_cache_evictions=delta["prefix_cache_evictions"],
+        prefix_cache_host_hits=delta["prefix_cache_host_hits"],
+        kv_page_cow_copies=m["kv_page_cow_copies"],
+        session_offloads=delta["session_offloads"], session_restores=delta["session_restores"],
+        grammared_turns=sum(1 for i in sessions_ for x in turns[i] if x[5] is not None),
+        grammared_stops=stopped,
+        grammar_rejections_avoided=m["grammar_rejections_avoided"],
+        masked_logit_fraction=m["masked_logit_fraction"],
+        grammar_table_device_bytes=engine._gtable.nbytes,
+        kv_quant_device_bytes=m["kv_quant_device_bytes"],
+        decode_steps=delta["decode_steps"], single_token_pieces=singles,
+        launches=launches[edition], decode_step_ms=wall_decode_ms(delta, delta["decode_steps"]),
+    )
+    print(f"agent {label} " + json.dumps(summary), flush=True)
+    return dict(launches=launches[edition],
+                greedy={i: [x[1] for x in turns[i]] for i in sessions_ if i % 2 == 0})
+
+
+def decode_window(engine) -> float:
+    """Eight greedy requests of 100 prompt tokens, 64 new tokens each,
+    stepped inline: host ms per decode step (dispatch + sync)."""
+    rng = np.random.default_rng(12)
+    m0 = dict(engine.metrics)
+    handles = [engine.submit([int(t) for t in rng.integers(0, engine.model_cfg.vocab_size, 100)],
+                             SamplingParams(temperature=0.0, max_tokens=64))
+               for _ in range(engine.cfg.num_slots)]
+    while engine.step():
+        pass
+    for h in handles:
+        h.collect_tokens(timeout=60)
+    m = engine.metrics
+    delta = {k: m[k] - m0[k] for k in ("decode_steps", "decode_dispatch_s", "decode_sync_s")}
+    return wall_decode_ms(delta, delta["decode_steps"])
+
+
+def agent(card: str, params) -> dict:
+    """Phase 8: the three agent engines on the shared llama3-8b weights;
+    returns each kernel's launches from its engine's run."""
+    cfg = get_config("llama3-8b")
+    grammar = compile_json_schema(TOOL_CALL, ByteTokenizer())
+    launches, greedy, step_ms = {}, {}, {"on": [], "off": []}
+    for label, fields in AGENT_ENGINES.items():
+        t0 = time.monotonic()
+        engine = InferenceEngine(cfg, EngineConfig(**AGENT, **fields), params=params, seed=0,
+                                 device="cuda")
+        engine.warmup()
+        print(f"agent {label} llama3-8b bf16 L={cfg.num_layers} {dict(AGENT, **fields)}: init + "
+              f"warmup {time.monotonic() - t0:.1f}s; {grammar.num_states} grammar states",
+              flush=True)
+        sessions_ = list(range(SESSIONS)) if label != "K2" else list(range(0, SESSIONS, 2))
+        run = agent_run(label, engine, grammar, sessions_, card)
+        launches[label], greedy[label] = run["launches"], run["greedy"]
+        if label == "K1":
+            # The same window on this engine and on one built without
+            # grammars, three times each in turns: the cost of the
+            # grammar's decode edition, beside the host's spread.
+            for i in sessions_:
+                engine.release_session(f"a{i}")
+            off = InferenceEngine(cfg, EngineConfig(), params=params, seed=0, device="cuda")
+            off.warmup()
+            for key in ("on", "off", "off", "on", "on", "off"):
+                step_ms[key].append(decode_window(engine if key == "on" else off))
+            del off
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if greedy["K4"] != greedy["K2"]:
+        fail("agent: greedy tokens of the K4 (int8 paged) engine differ from the K2 "
+             "(contiguous int8) engine's")
+    print("agent greedy equality: int8 paged (K4) == contiguous int8 (K2) over "
+          f"{len(greedy['K2'])} greedy sessions, "
+          f"{sum(len(t) for per in greedy['K2'].values() for t in per)} tokens", flush=True)
+    print("agent decode window " + json.dumps(dict(
+        card=card, grammar_on_engine_ms_per_step=step_ms["on"],
+        grammar_off_engine_ms_per_step=step_ms["off"],
+        median_on=statistics.median(step_ms["on"]),
+        median_off=statistics.median(step_ms["off"]))), flush=True)
     return launches
 
 

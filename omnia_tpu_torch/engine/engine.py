@@ -16,6 +16,15 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
   the longest common prefix, idle sessions beyond the slots page to host
   RAM and back, and ``export_session`` / ``import_session`` move one to
   another engine in the JAX engine's host-row format.
+- **Shared prefixes** (``prefix_cache_slots > 0``): a prefix seen often
+  enough, or registered by ``register_prefix`` (a pack's system block),
+  is kept in a pool, and a fresh session seeds its rows from there
+  instead of prefilling them (``prefix_cache.py``).
+- **Grammars** (``grammar=True``): ``submit(..., grammar=g)`` masks every
+  sampled token with g's FSM, on the device.
+- **Terminals in the caller's enum.** ``finish_reasons`` names the enum
+  class final events carry (the JAX package's, for its runtime and
+  coordinator); by default the port's own.
 - **Everything stays on the device.** Sampled tokens feed the next step
   as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
   cross to the host, for streaming and stop logic.
@@ -24,15 +33,17 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
 
 Layout mirrors the JAX package: programs in ``programs.py``, the
 dispatch policy in ``scheduler.py``, placement in ``placement.py``,
-session residency in ``sessions.py``, the thread lifecycle in
-``lifecycle.py``, the page pool's books in ``paged.py``; this module
-owns construction, submission and warmup.
+session residency in ``sessions.py``, the shared-prefix pool in
+``prefix_cache.py``, the thread lifecycle in ``lifecycle.py``, the page
+pool's books in ``paged.py``; this module owns construction, submission
+and warmup.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import logging
 import threading
 import time
 from typing import Optional
@@ -42,7 +53,9 @@ import torch
 from omnia_tpu_torch import kernels, resolve_device
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
 from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
+from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
 from omnia_tpu_torch.engine.placement import _PlacementMixin
+from omnia_tpu_torch.engine.prefix_cache import PrefixPool, _PrefixCacheMixin
 from omnia_tpu_torch.engine.programs import build_programs
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
 from omnia_tpu_torch.engine.sessions import _SessionKV, _SessionMixin, _Slot
@@ -53,7 +66,6 @@ from omnia_tpu_torch.engine.types import (
     Request,
     RequestHandle,
     SamplingParams,
-    StreamEvent,
     resolve_dtype,
 )
 from omnia_tpu_torch.models import ModelConfig, llama, quant
@@ -61,11 +73,12 @@ from omnia_tpu_torch.models.kv_quant import cache_bytes, kv_device, kv_host, val
 from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
 
+logger = logging.getLogger(__name__)
+
 # Knobs this port does not implement yet: (field, ROADMAP item). Set
 # away from its default, each one is refused at construction.
 _UNPORTED_KNOBS = (
-    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"),
-    ("prefix_cache_slots", "A11"), ("grammar", "A11"), ("spec_decode", "A11"),
+    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"), ("spec_decode", "A11"),
     ("prefill_chunk_tokens", "A11"), ("decode_ring", "A11"),
     ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
 )
@@ -82,17 +95,23 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
             )
 
 
-class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
-                      _PagedKVMixin, _LifecycleMixin):
+class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
+                      _PlacementMixin, _PagedKVMixin, _LifecycleMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig = EngineConfig(),
-                 params=None, seed: int = 0, device=None):
+                 params=None, seed: int = 0, device=None, finish_reasons=None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
+        # The enum class final events carry; any enum with the same
+        # values (the JAX package's FinishReason) may be passed.
+        self._finish_reasons = finish_reasons or FinishReason
         _refuse_unported(engine_cfg)
+        self._gr_on = bool(engine_cfg.grammar)
+        if self._gr_on and engine_cfg.grammar_max_states < 2:
+            raise ValueError("grammar_max_states must be >= 2 with grammar on")
         if engine_cfg.max_seq > model_cfg.max_seq_len:
             raise ValueError("engine max_seq exceeds model max_seq_len")
         if model_cfg.is_moe:
@@ -102,6 +121,14 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
         validate_paged_config(engine_cfg)
         self._seed = seed
         self.clock = time.monotonic
+        # Cross-session shared-prefix pool: host-side books here, device
+        # rows allocated with the caches (_init_device_state).
+        self._prefix_pool: Optional[PrefixPool] = None
+        self._pending_prefix_regs: list[list[int]] = []  # guarded-by: _lock
+        if engine_cfg.prefix_cache_slots > 0:
+            self._prefix_pool = PrefixPool(engine_cfg.prefix_cache_slots,
+                                           engine_cfg.prefix_cache_host_entries,
+                                           clock=lambda: self.clock())
 
         progs = build_programs(model_cfg, engine_cfg)
         self._prefill_insert_fn = progs.prefill_insert
@@ -110,6 +137,12 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
         self._extend_nosample_fn = progs.extend_nosample
         self._offload_fn = progs.offload
         self._restore_fn = progs.restore
+        self._prefix_store_fn = progs.prefix_store
+        self._prefix_seed_fn = progs.prefix_seed
+        self._prefix_offload_fn = progs.prefix_offload
+        self._page_copy_fn = progs.page_copy
+        self._gather_pages_fn = progs.gather_pages
+        self._scatter_pages_fn = progs.scatter_pages
 
         self.params = self._resolve_params(params, seed)
 
@@ -143,6 +176,12 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
             "session_restores": 0,
             "session_exports": 0,
             "session_imports": 0,
+            # Cross-session shared-prefix pool (engine/prefix_cache.py).
+            "prefix_cache_hit_tokens": 0,
+            "prefix_cache_insertions": 0,
+            "prefix_cache_evictions": 0,
+            "prefix_cache_host_hits": 0,
+            "prefix_cache_offload_elisions": 0,
             "decode_dispatch_s": 0.0,
             "decode_sync_s": 0.0,
             "prefill_dispatch_s": 0.0,
@@ -150,19 +189,32 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
             "deadline_exceeded": 0,
             "recoveries": 0,
             "decode_stall_steps": 0,
+            # Grammars: compile_hits/misses read this package's compile
+            # cache (a grammar compiled by another package counts in
+            # that package's cache); masked_logit_fraction is the mean
+            # share of the vocabulary masked per constrained step;
+            # rejections_avoided counts constrained generations brought
+            # to a valid stop.
+            "grammar_compile_hits": 0,
+            "grammar_compile_misses": 0,
+            "masked_logit_fraction": 0.0,
+            "grammar_rejections_avoided": 0,
             # int8 KV cache: bytes one cached token costs (k + v over all
-            # layers, scales included) and the caches' real allocation.
+            # layers, scales included) and the caches' real allocation,
+            # the prefix pool's included.
             "kv_quant_enabled": 1 if self._kv_quant else 0,
             "kv_quant_bytes_per_token": self.kv_bytes_per_token(),
             "kv_quant_device_bytes": 0,
             # Paged KV cache: usable pages total / free, the slack inside
-            # slot-held pages, and copy-on-write copies (none without a
-            # prefix cache). Zero while kv_pages == 0.
+            # slot-held pages, and copy-on-write copies of pages shared
+            # with prefix entries. Zero while kv_pages == 0.
             "kv_pages_total": 0,
             "kv_pages_free": 0,
             "kv_page_fragmentation": 0.0,
             "kv_page_cow_copies": 0,
         }
+        self._gr_mask_sum = 0.0
+        self._gr_mask_steps = 0
         self._init_device_state()
 
     def _resolve_params(self, params, seed: int):
@@ -203,15 +255,48 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
         """(Re)allocate the KV caches (and the page books) and per-slot
         device state."""
         B, dev = self.cfg.num_slots, self.device
-        self._ck = self._cv = None  # free the old caches before allocating
+        # Free the old caches and tables before allocating.
+        self._ck = self._cv = self._pk = self._pv = self._gtable = None
         if self.cfg.kv_pages > 0:
+            # One page pool serves the slots and the prefix entries.
             self._init_paged_state()
         else:
             self._ck, self._cv = llama.init_kv_cache(
                 self.model_cfg, B, self.cfg.max_seq, dev, dtype=self._dtype,
                 kv_quant=self._kv_quant,
             )
-        self.metrics["kv_quant_device_bytes"] = cache_bytes(self._ck, self._cv)
+            if self._prefix_pool is not None:
+                # The pool [L, P, R, H, D] in the cache's representation;
+                # device entries died with the old one, host-tier entries
+                # survive.
+                self._pk, self._pv = llama.init_kv_cache(
+                    self.model_cfg, self.cfg.prefix_cache_slots,
+                    self.cfg.prefix_buckets()[-1], dev, dtype=self._dtype,
+                    kv_quant=self._kv_quant,
+                )
+                self._prefix_pool.on_device_reset()
+                self.metrics["prefix_cache_evictions"] = self._prefix_pool.evictions
+        self.metrics["kv_quant_device_bytes"] = cache_bytes(self._ck, self._cv, self._pk,
+                                                            self._pv)
+        # Grammar state: per-slot FSM tables [B, grammar_max_states, V],
+        # states and active flags; none of it with grammar off.
+        self._gstate = self._gactive = self._gbias_zero = self._gslot_key = None
+        if self._gr_on:
+            V, Sg = self.model_cfg.vocab_size, self.cfg.grammar_max_states
+            table_bytes = B * Sg * V * 4
+            if table_bytes > 1 << 30:
+                logger.warning(
+                    "grammar transition tables need %.1f GiB of device memory "
+                    "(num_slots=%d x grammar_max_states=%d x vocab=%d x 4B); size "
+                    "grammar_max_states down to the largest schema you serve",
+                    table_bytes / (1 << 30), B, Sg, V)
+            self._gtable = torch.zeros((B, Sg, V), dtype=torch.int32, device=dev)
+            self._gstate = torch.zeros(B, dtype=torch.int32, device=dev)
+            self._gactive = torch.zeros(B, dtype=torch.bool, device=dev)
+            self._gbias_zero = torch.zeros(V, dtype=torch.float32, device=dev)
+            # What each slot's table rows hold, so that placing the same
+            # grammar again skips the upload.
+            self._gslot_key = [None] * B
         self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
         self._positions = torch.zeros(B, dtype=torch.int32, device=dev)  # next write row
         self._temp = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -246,31 +331,19 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
         rows persist across requests: the next request prefills only the
         tokens past its longest common prefix with what is cached. A
         prompt longer than the largest prefill bucket prefills in pieces;
-        the one hard limit is the cache (max_seq - 2). Grammars are
-        refused with a ValueError (not ported yet)."""
-        if grammar is not None:
-            raise ValueError("grammar: not ported yet (ROADMAP A11)")
+        the one hard limit is the cache (max_seq - 2). With a grammar
+        (either package's compiled grammar; grammar=True) every sampled
+        token is FSM-masked on the device and EOS is admissible only in
+        accepting states."""
         rid = f"req-{next(self._req_counter)}"
         handle = RequestHandle(rid)
         request = Request(rid, list(prompt_tokens), params, session_id=session_id,
-                          trace_ctx=trace_ctx)
+                          grammar=grammar, trace_ctx=trace_ctx)
         if deadline_s is not None:
             request.deadline_at = self.clock() + deadline_s
-        error = None
-        if not prompt_tokens:
-            error = "empty prompt"
-        elif params.max_tokens < 1:
-            error = f"max_tokens must be >= 1, got {params.max_tokens}"
-        elif not self.cfg.usable_buckets():
-            error = "no usable prefill buckets (all exceed max_seq)"
-        elif not all(0 <= t < self.model_cfg.vocab_size for t in prompt_tokens):
-            # An id past the embedding table would fault the device.
-            error = f"prompt token ids must lie in [0, {self.model_cfg.vocab_size})"
-        elif len(prompt_tokens) > self.cfg.max_seq - 2:
-            error = (f"prompt of {len(prompt_tokens)} tokens exceeds KV "
-                     f"capacity (max_seq {self.cfg.max_seq} - 2)")
+        error = self._submit_error(prompt_tokens, params, grammar)
         if error is not None:
-            handle._push(StreamEvent(rid, finish_reason=FinishReason.ERROR, error=error))
+            self._push_final(handle, rid, FinishReason.ERROR, error=error)
             return handle
         with self._lock:
             if self._draining:
@@ -282,9 +355,36 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
                 self.metrics["requests_submitted"] += 1
                 return handle
             self.metrics["requests_shed"] += 1
-        handle._push(StreamEvent(rid, finish_reason=FinishReason.OVERLOADED,
-                                 error=shed_why))
+        self._push_final(handle, rid, FinishReason.OVERLOADED, error=shed_why)
         return handle
+
+    def supports_grammar(self) -> bool:
+        """True when this engine enforces request grammars (the runtime
+        attaches one only then)."""
+        return self._gr_on
+
+    def _submit_error(self, prompt_tokens: list[int], params: SamplingParams,
+                      grammar) -> Optional[str]:
+        """Why a request is refused at submit, or None."""
+        if grammar is not None:
+            error = self._validate_grammar(grammar, params)
+            if error is not None:
+                return error
+            self.metrics["grammar_compile_hits"] = grammar_cache_stats["hits"]
+            self.metrics["grammar_compile_misses"] = grammar_cache_stats["misses"]
+        if not prompt_tokens:
+            return "empty prompt"
+        if params.max_tokens < 1:
+            return f"max_tokens must be >= 1, got {params.max_tokens}"
+        if not self.cfg.usable_buckets():
+            return "no usable prefill buckets (all exceed max_seq)"
+        if not all(0 <= t < self.model_cfg.vocab_size for t in prompt_tokens):
+            # An id past the embedding table would fault the device.
+            return f"prompt token ids must lie in [0, {self.model_cfg.vocab_size})"
+        if len(prompt_tokens) > self.cfg.max_seq - 2:
+            return (f"prompt of {len(prompt_tokens)} tokens exceeds KV "
+                    f"capacity (max_seq {self.cfg.max_seq} - 2)")
+        return None
 
     def queue_depth(self) -> int:
         with self._lock:
@@ -315,7 +415,7 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PlacementMixin,
             self._fresh_prefill(0, [0] * bucket, sp)
         for b in sorted(set(self.cfg.usable_buckets()) | {1}):
             self._extend_fn(*self._piece_args(0, [0] * b, 0, b, b), b - 1,
-                            *self._sampler_args(0, sp))
+                            *self._sampler_args(0, sp), *self._grammar_args(None, sp))
         for rows in self.cfg.restore_buckets():
             self._prepare_slot_write(0, 0, rows)
             k, v = self._offload_fn(self._ck, self._cv, 0, rows)

@@ -9,7 +9,7 @@ import logging
 import threading
 import time
 
-from omnia_tpu_torch.engine.types import FinishReason, StreamEvent
+from omnia_tpu_torch.engine.types import FinishReason
 
 logger = logging.getLogger(__name__)
 
@@ -57,11 +57,9 @@ class _LifecycleMixin:
             with self._lock:
                 leftover, self._waiting = self._waiting, []
             for req, handle in leftover:
-                handle._push(StreamEvent(
-                    req.request_id, finish_reason=FinishReason.OVERLOADED,
-                    error="engine draining: drain window elapsed while queued",
-                    num_prompt_tokens=len(req.prompt_tokens),
-                ))
+                self._push_final(handle, req.request_id, FinishReason.OVERLOADED,
+                                 error="engine draining: drain window elapsed while queued",
+                                 num_prompt_tokens=len(req.prompt_tokens))
                 self.metrics["requests_finished"] += 1
             if not wedged and any(s.active for s in self._slots):
                 self._fail_all("engine stopped: drain window elapsed mid-request")
@@ -109,10 +107,9 @@ class _LifecycleMixin:
     def _fail_all(self, msg: str):
         for slot in self._slots:
             if slot.active:
-                slot.handle._push(StreamEvent(
-                    slot.request.request_id, finish_reason=FinishReason.ERROR,
-                    error=msg, num_prompt_tokens=len(slot.request.prompt_tokens),
-                    num_generated_tokens=slot.generated,
-                ))
+                self._push_final(slot.handle, slot.request.request_id, FinishReason.ERROR,
+                                 error=msg, num_prompt_tokens=len(slot.request.prompt_tokens),
+                                 num_generated_tokens=slot.generated)
                 self.metrics["requests_finished"] += 1
+                self._release_slot_seed(slot)
                 slot.clear()

@@ -1,13 +1,21 @@
-"""Request placement (port of ``omnia_tpu/engine/placement.py`` without
-the shared-prefix pool and grammars): a queued request goes to its first
-sampled token through one bucketed fresh prefill when nothing is
-reusable and the prompt fits a bucket, else through a chunked extend from
-the session's reuse frontier (or from row 0 for a long prompt).
+"""Request placement (port of ``omnia_tpu/engine/placement.py``): a
+queued request goes to its first sampled token through one bucketed
+fresh prefill when nothing is reusable and the prompt fits a bucket,
+else through a chunked extend from the reuse frontier: the session's
+own rows, or rows seeded from the shared-prefix pool (or from row 0
+for a long prompt). A grammar request gets its start-state mask on the
+first token and its table and FSM state in the slot's device rows.
+
+Grammars are duck-typed: one compiled by this package or by the JAX
+package serves alike, since placement reads only ``view``, ``key`` and
+``eos_id`` and a view's ``table``, ``start``, ``advance`` and
+``num_states``.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,7 +27,8 @@ from omnia_tpu_torch.engine.types import (
     RequestHandle,
     SamplingParams,
 )
-from omnia_tpu_torch.ops.sampling import make_slot_key_data
+from omnia_tpu_torch.engine.grammar import GrammarTooLarge
+from omnia_tpu_torch.ops.sampling import _NEG_INF, make_slot_key_data
 
 
 class _PlacementMixin:
@@ -38,6 +47,68 @@ class _PlacementMixin:
                 self._scalar(sp.temperature, torch.float32),
                 self._scalar(sp.top_p, torch.float32),
                 self._scalar(sp.top_k, torch.int32))
+
+    # -- grammar ----------------------------------------------------------
+
+    def _validate_grammar(self, grammar, sp: SamplingParams) -> Optional[str]:
+        """Submit-time refusal with the JAX engine's messages: budget and
+        liveness on the exact view placement uploads. A ValueError covers
+        both packages' GrammarError."""
+        if not self._gr_on:
+            return "grammar-constrained request on an engine built with grammar=off"
+        try:
+            grammar.validate(self.cfg.grammar_max_states, self.model_cfg.vocab_size,
+                             sp.stop_token_ids)
+        except ValueError as e:
+            return f"grammar rejected: {e}"
+        return None
+
+    def _grammar_args(self, request: Optional[Request], sp: SamplingParams) -> tuple:
+        """The first-token sampler's extra operand: the start state's mask
+        bias [V], zero for a request without a grammar; () with grammar
+        support off."""
+        if not self._gr_on:
+            return ()
+        g = request.grammar if request is not None else None
+        if g is None:
+            return (self._gbias_zero,)
+        view = g.view(self.model_cfg.vocab_size, sp.stop_token_ids)
+        bias = np.where(view.table[view.start] < 0, _NEG_INF, 0.0).astype(np.float32)
+        return (torch.from_numpy(bias).to(self.device),)
+
+    def _attach_grammar(self, slot_idx: int, request: Request, first_tok: int) -> None:
+        """Upload the request's table (unless the slot holds it already)
+        and the FSM state after the first token into the slot's device
+        rows; mirror the state on the host slot."""
+        if not self._gr_on:
+            return
+        g = request.grammar
+        if g is None:
+            self._gactive[slot_idx] = False
+            return
+        sp = request.params
+        view = g.view(self.model_cfg.vocab_size, sp.stop_token_ids)
+        state0 = view.advance(view.start, first_tok)
+        if state0 < 0:  # the first token finished the request (a stop id)
+            state0 = view.start
+        # Keyed on the grammar object itself when it has no content key,
+        # which pins it alive so that a recycled id() never aliases. Rows
+        # past num_states are never reached, so a stale tail is harmless.
+        gkey = (g.key or g, tuple(sorted({g.eos_id, *sp.stop_token_ids})))
+        if self._gslot_key[slot_idx] != gkey:
+            if view.num_states > self.cfg.grammar_max_states:
+                raise GrammarTooLarge(
+                    f"grammar needs {view.num_states} states, engine "
+                    f"grammar_max_states is {self.cfg.grammar_max_states}"
+                )
+            self._gtable[slot_idx, :view.num_states] = torch.from_numpy(
+                np.ascontiguousarray(view.table)).to(self.device)
+            self._gslot_key[slot_idx] = gkey
+        self._gstate[slot_idx] = state0
+        self._gactive[slot_idx] = True
+        slot = self._slots[slot_idx]
+        slot.gr_view = view
+        slot.gr_state = view.start  # _emit_token advances past first_tok
 
     def _prepare_session_slot(self, slot_idx: int, request: Request):
         """The session half of placement: find or create the session,
@@ -79,7 +150,12 @@ class _PlacementMixin:
         slot_idx, sess, reuse = self._prepare_session_slot(slot_idx, request)
         sp = request.params
         t_prefill = time.monotonic()
-        if reuse == 0:
+        # No rows of its own to extend from: seed the slot from the
+        # shared-prefix pool, so a fresh session of a known pack
+        # prefills only its suffix.
+        seeded = self._try_seed_from_pool(slot_idx, prompt, sess) if reuse == 0 else 0
+        frontier = reuse or seeded
+        if frontier == 0:
             # Paged pool: a cold start owns no history; return any stale
             # pages before the bucket write allocates fresh ones.
             self._free_slot_pages(slot_idx)
@@ -87,19 +163,21 @@ class _PlacementMixin:
         # decode batch for its duration.
         stalled = any(s.active for s in self._slots)
         ext0 = self.metrics["extend_steps"]
-        if reuse == 0 and n <= max(self.cfg.usable_buckets()):
-            first_tok = self._fresh_prefill(slot_idx, prompt, sp)
+        if frontier == 0 and n <= max(self.cfg.usable_buckets()):
+            first_tok = self._fresh_prefill(slot_idx, prompt, sp, request)
         else:
-            first_tok = self._chunked_extend(slot_idx, prompt, reuse, sp)
+            first_tok = self._chunked_extend(slot_idx, prompt, frontier, sp, request)
         if stalled:
             self.metrics["decode_stall_steps"] += max(self.metrics["extend_steps"] - ext0, 1)
+        self._maybe_publish_prefix(slot_idx, prompt)
         # Paged pool: the bucket-padded writes covered rows past the
-        # prompt; return that slack now. The next decode write gets its
-        # page in the pre-dispatch preallocation.
+        # prompt; return that slack now (a publish above already shares
+        # the prefix pages). The next decode write gets its page in the
+        # pre-dispatch preallocation.
         self._trim_slot_pages(slot_idx, n)
         self.metrics["prefill_dispatch_s"] += time.monotonic() - t_prefill
         self.metrics["prefix_reuse_tokens"] += reuse
-        self.metrics["prefill_tokens"] += n - reuse
+        self.metrics["prefill_tokens"] += n - frontier
         self.metrics["prefill_steps"] += 1
 
         slot = self._slots[slot_idx]
@@ -109,7 +187,13 @@ class _PlacementMixin:
         slot.generated = 0
         slot.emitted = []
         slot.max_total = sp.max_tokens
-        slot.stop_ids = frozenset(sp.stop_token_ids)
+        stop_ids = frozenset(sp.stop_token_ids)
+        if request.grammar is not None:
+            # In its accepting states a grammar view admits only its eos
+            # id: the slot must finish on it even when the caller's stop
+            # set omits it.
+            stop_ids |= {request.grammar.eos_id}
+        slot.stop_ids = stop_ids
         if sess is not None:
             sess.token_ids = list(prompt)
 
@@ -125,12 +209,18 @@ class _PlacementMixin:
         # past MAX_DEVICE_STOP_IDS are checked on the host only.
         budget = min(sp.max_tokens - 1, self.cfg.max_seq - 2 - n)
         self._budget[slot_idx] = max(budget, 0)
-        ids = list(sp.stop_token_ids)[:MAX_DEVICE_STOP_IDS]
+        ids = list(sp.stop_token_ids)
+        if request.grammar is not None and request.grammar.eos_id not in ids:
+            ids.append(request.grammar.eos_id)
+        ids = ids[:MAX_DEVICE_STOP_IDS]
         ids += [-1] * (MAX_DEVICE_STOP_IDS - len(ids))
         self._stop_ids[slot_idx] = torch.tensor(ids, dtype=torch.int32)
-        self._emit_token(slot_idx, int(first_tok))
+        first = int(first_tok)
+        self._attach_grammar(slot_idx, request, first)
+        self._emit_token(slot_idx, first)
 
-    def _fresh_prefill(self, slot_idx: int, prompt: list[int], sp: SamplingParams):
+    def _fresh_prefill(self, slot_idx: int, prompt: list[int], sp: SamplingParams,
+                       request: Optional[Request] = None):
         n = len(prompt)
         bucket = self.cfg.bucket_for(n)
         toks = np.zeros((1, bucket), np.int32)
@@ -144,6 +234,7 @@ class _PlacementMixin:
             torch.from_numpy(toks).to(self.device),
             torch.from_numpy(pos).to(self.device),
             slot_idx, n - 1, *self._sampler_args(slot_idx, sp),
+            *self._grammar_args(request, sp),
         )
         self._key_data[slot_idx] = new_kd
         return first_tok
@@ -182,16 +273,16 @@ class _PlacementMixin:
                 self._scalar(off, torch.int32))
 
     def _chunked_extend(self, slot_idx: int, prompt: list[int], reuse: int,
-                        sp: SamplingParams):
+                        sp: SamplingParams, request: Optional[Request] = None):
         """Incremental prefill of prompt[reuse:] against the slot's
-        resident rows; only the last piece samples."""
+        resident (or seeded) rows; only the last piece samples."""
         pieces = self._extend_pieces(reuse, len(prompt) - reuse)
         for off, take, b in pieces[:-1]:
             self._extend_nosample_fn(*self._piece_args(slot_idx, prompt, off, take, b))
         off, take, b = pieces[-1]
         first_tok, new_kd = self._extend_fn(
             *self._piece_args(slot_idx, prompt, off, take, b), take - 1,
-            *self._sampler_args(slot_idx, sp))
+            *self._sampler_args(slot_idx, sp), *self._grammar_args(request, sp))
         self._key_data[slot_idx] = new_kd
         self.metrics["extend_steps"] += len(pieces)
         return first_tok

@@ -1,5 +1,5 @@
-"""The serving engine's device programs (port of the plain, non-ring,
-non-grammar programs of ``omnia_tpu/engine/programs.py``).
+"""The serving engine's device programs (port of the non-ring, non-spec
+programs of ``omnia_tpu/engine/programs.py``).
 
 - ``prefill_insert``: a fresh bucketed prefill whose KV chunk is written
   WHOLE into the slot's rows 0..bucket-1 (pad rows sit past every real
@@ -23,24 +23,43 @@ non-grammar programs of ``omnia_tpu/engine/programs.py``).
 - ``offload`` / ``restore``: a session's leading rows out to a device
   copy ``[L, rows, Hkv, D]`` (the caller moves it to the host) and back
   into a slot's rows 0..rows-1, verbatim in the cache's representation.
+- ``prefix_store`` / ``prefix_seed`` / ``prefix_offload`` (contiguous
+  caches with ``prefix_cache_slots > 0``): a slot's leading rows into a
+  shared-prefix pool entry, an entry into a fresh slot, an entry out to
+  a device copy for the host tier. Entries keep the cache's
+  representation, so int8 rows and scales move verbatim.
+- ``page_copy`` / ``gather_pages`` / ``scatter_pages`` (paged caches):
+  the copy-on-write page copy and the prefix host tier's page-run
+  transfers. A paged prefix entry is a refcounted run of the one pool's
+  pages, so publish and seed need no copy at all.
+
+Grammar (``EngineConfig.grammar``): every first-token sampler takes one
+extra operand, the start state's ``[V]`` mask bias, and the decode
+chunk takes the per-slot FSM state, tables and active flags: each step
+gathers each slot's ``[V]`` row ``gtable[b, gstate[b]]``, masks the
+tokens whose entry is negative, and advances the state on the device.
+Without it the programs take none of these operands.
 
 PyTorch launches are asynchronous, so every program returns as soon as
 its work is enqueued; the caller reads tokens when it needs them. KV
-caches are updated in place (JAX donates and returns them).
+caches are updated in place (JAX donates and returns them), every copy
+on the one stream the engine uses, so each lands before the work
+enqueued after it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from omnia_tpu_torch.engine.types import EngineConfig
 from omnia_tpu_torch.models import ModelConfig, llama
 from omnia_tpu_torch.models.kv_quant import cache_put, cache_take, kv_map
+from omnia_tpu_torch.models import paged_kv as pkv
 from omnia_tpu_torch.models.paged_kv import PagedKV, gather_rows, put_chunk
-from omnia_tpu_torch.ops.sampling import sample_tokens_per_slot
+from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +70,15 @@ class EnginePrograms:
     extend_nosample: Callable
     offload: Callable
     restore: Callable
+    # Shared-prefix pool transfers (contiguous caches with
+    # prefix_cache_slots > 0, else None).
+    prefix_store: Optional[Callable] = None
+    prefix_seed: Optional[Callable] = None
+    prefix_offload: Optional[Callable] = None
+    # Paged caches (kv_pages > 0, else None).
+    page_copy: Optional[Callable] = None
+    gather_pages: Optional[Callable] = None
+    scatter_pages: Optional[Callable] = None
 
 
 def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
@@ -70,18 +98,21 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
             return PagedKV(c.pool, c.table[slot:slot + 1])
         return kv_map(lambda a: a[:, slot:slot + 1], c)
 
-    def _sample_one(logits, key_data, temp, top_p, top_k):
-        tok, new_kd = sample_tokens_per_slot(logits, key_data[None], temp, top_p, top_k)
+    def _sample_one(logits, key_data, temp, top_p, top_k, g):
+        """``g`` is () or (the start state's mask bias [V],)."""
+        tok, new_kd = sample_tokens_per_slot(logits, key_data[None], temp, top_p, top_k,
+                                             mask_bias=g[0][None] if g else None)
         return tok[0], new_kd[0]
 
     def prefill_insert(params, ck, cv, tokens, positions, slot: int,
-                       last_idx: int, key_data, temp, top_p, top_k):
+                       last_idx: int, key_data, temp, top_p, top_k, *g):
         """tokens, positions [1, bucket]; key_data [2]; temp, top_p,
-        top_k [1] → (first token 0-d int32, new key_data [2])."""
+        top_k [1]; g the grammar bias, if any → (first token 0-d int32,
+        new key_data [2])."""
         logits, k_chunk, v_chunk = llama.forward_prefill(params, cfg, tokens, positions)
         _put(ck, k_chunk, slot, 0)
         _put(cv, v_chunk, slot, 0)
-        return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k)
+        return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k, g)
 
     def extend_nosample(params, ck, cv, tokens, positions, slot: int, write_start):
         """tokens, positions [1, T]; write_start int32 [1] → logits
@@ -92,11 +123,11 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         return logits
 
     def extend(params, ck, cv, tokens, positions, slot: int, write_start,
-               last_idx: int, key_data, temp, top_p, top_k):
+               last_idx: int, key_data, temp, top_p, top_k, *g):
         """The final piece: extend_nosample, then the first token sampled
         at ``last_idx`` → (token 0-d int32, new key_data [2])."""
         logits = extend_nosample(params, ck, cv, tokens, positions, slot, write_start)
-        return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k)
+        return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k, g)
 
     def offload(ck, cv, slot: int, rows: int):
         """A slot's rows [0, rows) → [L, rows, H, D] on the device: a
@@ -115,18 +146,36 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
 
     def make_decode(chunk: int) -> Callable:
         def decode_chunk(params, ck, cv, tokens, positions, active, budget,
-                         stop_ids, key_data, temp, top_p, top_k):
+                         stop_ids, key_data, temp, top_p, top_k, *g):
             """``chunk`` decode steps → (ck, cv, tokens, positions, active,
-            budget, key_data, toks [chunk, B])."""
+            budget, key_data, toks [chunk, B]); with ``g = (gstate,
+            gtable, gactive)`` the per-slot grammar masks every step and
+            gstate rides the outputs before toks."""
             toks = []
+            if g:
+                gstate, gtable, gactive = g
+                rows = torch.arange(gtable.shape[0], device=gtable.device)
             for _ in range(chunk):
                 logits, ck, cv = llama.forward(
                     params, cfg, tokens[:, None], positions[:, None], ck, cv,
                     positions,
                 )
-                tok, key_data = sample_tokens_per_slot(
-                    logits[:, 0], key_data, temp, top_p, top_k
-                )
+                if g:
+                    row = gtable[rows, gstate.long()]               # [B, V]
+                    bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
+                    tok, key_data = sample_tokens_per_slot(
+                        logits[:, 0], key_data, temp, top_p, top_k, mask_bias=bias
+                    )
+                    # The state advances on the sampled token, gated like
+                    # the position (active at the step's start); a masked
+                    # token cannot be sampled, so the max only covers
+                    # inactive slots' samples.
+                    nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
+                    gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
+                else:
+                    tok, key_data = sample_tokens_per_slot(
+                        logits[:, 0], key_data, temp, top_p, top_k
+                    )
                 # The row just written advances the position only for slots
                 # active at the step's start; deactivation applies from the
                 # next step on, as the host's finish bookkeeping does.
@@ -138,13 +187,15 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
                 active = active & ~hit_stop & (budget > 0)
                 tokens = torch.where(active | hit_stop, tok, tokens)
                 toks.append(tok)
-            return (ck, cv, tokens, positions, active, budget, key_data,
-                    torch.stack(toks))
+            out = (ck, cv, tokens, positions, active, budget, key_data)
+            if g:
+                out += (gstate,)
+            return out + (torch.stack(toks),)
 
         decode_chunk.__name__ = f"decode_chunk_{chunk}"
         return decode_chunk
 
-    return EnginePrograms(
+    progs = dict(
         prefill_insert=prefill_insert,
         decode_fns={k: make_decode(k) for k in ecfg.chunk_variants()},
         extend=extend,
@@ -152,3 +203,41 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         offload=offload,
         restore=restore,
     )
+    if ecfg.prefix_cache_slots > 0 and not paged:
+        def _slot_rows(c, idx: int, rows: int):
+            """Rows [0, rows) of batch row ``idx`` as [L, 1, rows, H, D]."""
+            return cache_take(c, (0, idx, 0), (c.shape[0], 1, rows))
+
+        def prefix_store(pool_k, pool_v, ck, cv, slot: int, pool_idx: int, rows: int):
+            """A slot's rows [0, rows) → pool entry ``pool_idx``."""
+            cache_put(pool_k, _slot_rows(ck, slot, rows), (0, pool_idx, 0))
+            cache_put(pool_v, _slot_rows(cv, slot, rows), (0, pool_idx, 0))
+
+        def prefix_seed(ck, cv, pool_k, pool_v, pool_idx: int, slot: int, rows: int):
+            """Pool entry ``pool_idx``'s rows [0, rows) → a slot's rows."""
+            cache_put(ck, _slot_rows(pool_k, pool_idx, rows), (0, slot, 0))
+            cache_put(cv, _slot_rows(pool_v, pool_idx, rows), (0, slot, 0))
+
+        def prefix_offload(pool_k, pool_v, pool_idx: int, rows: int):
+            """Pool entry rows → [L, rows, H, D] views; the caller copies
+            them to the host at once."""
+            return tuple(kv_map(lambda a: a[:, 0], _slot_rows(p, pool_idx, rows))
+                         for p in (pool_k, pool_v))
+
+        progs.update(prefix_store=prefix_store, prefix_seed=prefix_seed,
+                     prefix_offload=prefix_offload)
+    if paged:
+        def page_copy(ck, cv, src: int, dst: int):
+            pkv.copy_page(ck.pool, src, dst)
+            pkv.copy_page(cv.pool, src, dst)
+
+        def gather_pages(ck, cv, idx):
+            return pkv.gather_pages(ck.pool, idx), pkv.gather_pages(cv.pool, idx)
+
+        def scatter_pages(ck, cv, idx, k_pages, v_pages):
+            pkv.scatter_pages(ck.pool, idx, k_pages)
+            pkv.scatter_pages(cv.pool, idx, v_pages)
+
+        progs.update(page_copy=page_copy, gather_pages=gather_pages,
+                     scatter_pages=scatter_pages)
+    return EnginePrograms(**progs)

@@ -1,6 +1,6 @@
 """Decode scheduler (port of the prefill-first policy of
-``omnia_tpu/engine/scheduler.py``, without speculation, grammars and the
-token-budget interleave).
+``omnia_tpu/engine/scheduler.py``, without speculation, the decode ring
+and the token-budget interleave).
 
 Each step applies queued session releases and imports, places the first
 waiting request that can take a slot, then decodes all active slots. Up to
@@ -15,13 +15,14 @@ single steps are taken so a waiting prefill never sits out a full chunk.
 
 from __future__ import annotations
 
+import queue
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from omnia_tpu_torch.engine.types import FinishReason, StreamEvent
+from omnia_tpu_torch.engine.types import FinishReason, SamplingParams, StreamEvent
 
 
 class _InflightChunk:
@@ -51,10 +52,44 @@ class _InflightChunk:
 class _SchedulerMixin:
     """Step-loop and pipeline methods of :class:`InferenceEngine`."""
 
+    def generate(self, prompt_tokens: list[int],
+                 params: SamplingParams = SamplingParams()) -> tuple[list[int], StreamEvent]:
+        """Submit and wait: steps the engine inline when no engine thread
+        runs, else blocks on the stream. Returns (tokens, final event)."""
+        handle = self.submit(prompt_tokens, params)
+        if self._thread is None:
+            toks: list[int] = []
+            while True:
+                self.step()
+                try:
+                    while True:
+                        ev = handle._queue.get_nowait()
+                        if ev.token_id is not None:
+                            toks.append(ev.token_id)
+                        if ev.is_final:
+                            return toks, ev
+                except queue.Empty:
+                    pass
+        return handle.collect_tokens(timeout=120)
+
+    def live_request_ids(self) -> set:
+        """Request ids still queued or decoding."""
+        with self._lock:
+            waiting = {req.request_id for req, _h in self._waiting}
+        return waiting | {s.request.request_id for s in self._slots if s.active}
+
+    def _push_final(self, handle, rid: str, reason: FinishReason, **fields) -> None:
+        """Push a request's terminal event, its reason mapped by value
+        into the caller's enum class (``finish_reasons``), so that the
+        JAX package's runtime and coordinator recognise it."""
+        handle._push(StreamEvent(rid, finish_reason=self._finish_reasons(reason.value),
+                                 **fields))
+
     def step(self) -> bool:
         """One scheduling step. Returns True if any work was done."""
         self._drain_releases()
         self._drain_imports()
+        self._drain_prefix_regs()
         self._reap_cancelled()
         self._reap_deadlines()
         did = False
@@ -91,7 +126,7 @@ class _SchedulerMixin:
         placement ends. Returns ``(pending, slot_idx)`` or ``(None, None)``."""
         with self._lock:
             waiting = list(self._waiting)
-        for cand in waiting:
+        for cand in self._admission_order(waiting):
             # May offload an idle session to free its slot: outside the
             # lock, since the copy waits on the device.
             slot_idx = self._slot_for(cand[0])
@@ -107,6 +142,44 @@ class _SchedulerMixin:
             self._placing += 1
         return cand, slot_idx
 
+    # Requests older than this keep strict FIFO priority whatever their
+    # estimated prefill; the estimate is taken over the queue's head only.
+    _ADMIT_FAIRNESS_S = 0.5
+    _ADMIT_WINDOW = 8
+
+    def _admission_order(self, waiting):
+        """With the prefix pool on, place the cheapest estimated prefill
+        first among the queue's young head: a fresh session mostly covered
+        by the pool costs a seed and a short suffix."""
+        if len(waiting) < 2 or not self._prefix_enabled() or self.clock is not time.monotonic:
+            # An injected clock keeps the submit order, as in the JAX engine.
+            return waiting
+        now = time.monotonic()  # Request.submitted_at's clock
+        head = waiting[:self._ADMIT_WINDOW]
+
+        def key(item):
+            idx, (req, _h) = item
+            if now - req.submitted_at >= self._ADMIT_FAIRNESS_S:
+                return (0, idx, 0)
+            return (1, self._estimated_prefill_cost(req), idx)
+
+        ordered = [it for _, it in sorted(enumerate(head), key=key)]
+        return ordered + waiting[self._ADMIT_WINDOW:]
+
+    def _estimated_prefill_cost(self, req) -> int:
+        """Tokens the request would prefill: its prompt less the better of
+        its session's resident-row LCP and the pool's match."""
+        prompt = req.prompt_tokens
+        covered = self._prefix_match_len(prompt)
+        if req.session_id and self.cfg.max_sessions > 0:
+            sess = self._sessions.get(req.session_id)
+            if sess is not None:
+                lcp, limit = 0, min(len(sess.token_ids), len(prompt) - 1)
+                while lcp < limit and sess.token_ids[lcp] == prompt[lcp]:
+                    lcp += 1
+                covered = max(covered, lcp)
+        return len(prompt) - min(covered, len(prompt) - 1)
+
     def _place_pending(self, slot_idx, request, handle):
         try:
             self._place_request(slot_idx, request, handle)
@@ -118,13 +191,14 @@ class _SchedulerMixin:
                 self._placing -= 1
 
     def _fail_placement(self, slot_idx, request, handle, msg: str):
-        handle._push(StreamEvent(
-            request.request_id, finish_reason=FinishReason.ERROR, error=msg,
-            num_prompt_tokens=len(request.prompt_tokens),
-        ))
+        # A nonzero prompt count marks an accepted request: the
+        # coordinator resubmits such an ERROR elsewhere.
+        self._push_final(handle, request.request_id, FinishReason.ERROR, error=msg,
+                         num_prompt_tokens=len(request.prompt_tokens))
         self.metrics["requests_finished"] += 1
         self._drop_session(request.session_id)
         self._slots[slot_idx].session_id = None
+        self._release_slot_seed(self._slots[slot_idx])
         self._slots[slot_idx].clear()
 
     def _dispatch_ahead_useful(self) -> bool:
@@ -140,8 +214,7 @@ class _SchedulerMixin:
             still = []
             for req, handle in self._waiting:
                 if handle.cancelled:
-                    handle._push(StreamEvent(
-                        req.request_id, finish_reason=FinishReason.CANCELLED))
+                    self._push_final(handle, req.request_id, FinishReason.CANCELLED)
                     self.metrics["requests_finished"] += 1
                 else:
                     still.append((req, handle))
@@ -160,9 +233,8 @@ class _SchedulerMixin:
             still = []
             for req, handle in self._waiting:
                 if req.deadline_at is not None and now >= req.deadline_at:
-                    handle._push(StreamEvent(
-                        req.request_id, finish_reason=FinishReason.DEADLINE,
-                        num_prompt_tokens=len(req.prompt_tokens)))
+                    self._push_final(handle, req.request_id, FinishReason.DEADLINE,
+                                     num_prompt_tokens=len(req.prompt_tokens))
                     self.metrics["deadline_exceeded"] += 1
                     self.metrics["requests_finished"] += 1
                 else:
@@ -173,14 +245,17 @@ class _SchedulerMixin:
         """Enqueue one decode chunk; device state advances to its outputs
         at once and the tokens [K, B] are returned unread."""
         t_dispatch = time.monotonic()
-        (
-            self._ck, self._cv, self._tokens, self._positions, self._active,
-            self._budget, self._key_data, toks,
-        ) = self._decode_fns[chunk](
+        out = self._decode_fns[chunk](
             self.params, self._ck, self._cv, self._tokens, self._positions,
             self._active, self._budget, self._stop_ids, self._key_data,
             self._temp, self._top_p, self._top_k,
+            *((self._gstate, self._gtable, self._gactive) if self._gr_on else ()),
         )
+        (self._ck, self._cv, self._tokens, self._positions, self._active,
+         self._budget, self._key_data) = out[:7]
+        if self._gr_on:
+            self._gstate = out[7]
+        toks = out[-1]
         self.metrics["decode_dispatch_s"] += time.monotonic() - t_dispatch
         self.metrics["decode_steps"] += int(toks.shape[0])
         return toks
@@ -255,6 +330,16 @@ class _SchedulerMixin:
         slot = self._slots[slot_idx]
         if not slot.active:
             return
+        if slot.gr_view is not None:
+            # Host mirror of the device FSM walk: the state before this
+            # token is what the sampler masked with.
+            self._gr_mask_sum += slot.gr_view.masked_fraction(slot.gr_state)
+            self._gr_mask_steps += 1
+            self.metrics["masked_logit_fraction"] = round(
+                self._gr_mask_sum / self._gr_mask_steps, 6)
+            nxt = slot.gr_view.advance(slot.gr_state, token)
+            if nxt >= 0:
+                slot.gr_state = nxt
         if token in slot.stop_ids:
             self._finish_slot(slot_idx, FinishReason.STOP)
             return
@@ -273,6 +358,11 @@ class _SchedulerMixin:
         handle = slot.handle
         n_prompt = len(slot.request.prompt_tokens)
         generated = slot.generated
+        if slot.gr_view is not None:
+            # A constrained generation brought to a valid stop.
+            if reason is FinishReason.STOP and slot.gr_view.is_accepting(slot.gr_state):
+                self.metrics["grammar_rejections_avoided"] += 1
+            self._gactive[slot_idx] = False
         # Sessionful: record which rows the next turn may reuse, BEFORE the
         # terminal event is observable. The last emitted token's row is
         # written only if another decode step ran, so it is left out. The
@@ -284,6 +374,7 @@ class _SchedulerMixin:
             sess.token_ids = list(slot.request.prompt_tokens) + slot.emitted[:-1]
             sess.last_used = self.clock()
             quiesce_row = len(sess.token_ids)
+        self._release_slot_seed(slot)
         slot.clear()
         # Paged pool: pages past the quiesce row (all of them for an
         # unpinned slot) go back to the free list and their table
@@ -301,8 +392,6 @@ class _SchedulerMixin:
         self._tokens[slot_idx] = 0
         self._temp[slot_idx] = 0.0
         self._active[slot_idx] = False
-        handle._push(StreamEvent(
-            rid, finish_reason=reason, num_prompt_tokens=n_prompt,
-            num_generated_tokens=generated,
-        ))
+        self._push_final(handle, rid, reason, num_prompt_tokens=n_prompt,
+                         num_generated_tokens=generated)
         self.metrics["requests_finished"] += 1

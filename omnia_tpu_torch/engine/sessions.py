@@ -1,5 +1,5 @@
 """Slot and session-KV bookkeeping (port of
-``omnia_tpu/engine/sessions.py`` without the shared-prefix pool).
+``omnia_tpu/engine/sessions.py``).
 
 A *slot* is one row of the fixed decode batch; a *session* is a
 conversation whose KV rows outlive its requests, so that the next turn
@@ -25,7 +25,8 @@ from omnia_tpu_torch.models.kv_quant import as_quant_kv, kv_device, kv_host
 
 class _Slot:
     __slots__ = ("request", "handle", "length", "generated", "max_total",
-                 "stop_ids", "session_id", "emitted")
+                 "stop_ids", "session_id", "emitted", "seeded_from",
+                 "gr_view", "gr_state")
 
     def __init__(self):
         self.request: Optional[Request] = None
@@ -36,6 +37,13 @@ class _Slot:
         self.stop_ids: frozenset[int] = frozenset()
         self.session_id: Optional[str] = None  # pinned session (may be idle)
         self.emitted: list[int] = []
+        # Shared-prefix entry a sessionless request seeded from: pins it
+        # until the finish (a session's seed pins through _SessionKV).
+        self.seeded_from: Optional[int] = None
+        # Grammar: the request grammar's sampler view for this engine's
+        # vocab and stop ids, and the host mirror of the device FSM state.
+        self.gr_view = None
+        self.gr_state = 0
 
     def clear(self):
         self.request = None
@@ -43,6 +51,9 @@ class _Slot:
         self.length = 0
         self.generated = 0
         self.emitted = []
+        self.seeded_from = None
+        self.gr_view = None
+        self.gr_state = 0
 
     @property
     def active(self) -> bool:
@@ -55,7 +66,8 @@ class _SessionKV:
     whose rows are known valid: at a finish the last emitted token is
     left out, since its row is written only if another decode step ran."""
 
-    __slots__ = ("session_id", "token_ids", "slot", "host_k", "host_v", "last_used")
+    __slots__ = ("session_id", "token_ids", "slot", "host_k", "host_v", "last_used",
+                 "seeded_from")
 
     def __init__(self, session_id: str, now: Optional[float] = None):
         self.session_id = session_id
@@ -65,6 +77,9 @@ class _SessionKV:
         self.host_k: Optional[np.ndarray] = None
         self.host_v: Optional[np.ndarray] = None
         self.last_used = time.monotonic() if now is None else now
+        # Shared-prefix entry this session seeded from: pinned for the
+        # session's lifetime.
+        self.seeded_from: Optional[int] = None
 
 
 class _SessionMixin:
@@ -102,10 +117,16 @@ class _SessionMixin:
         """Copy an idle session's valid rows to host RAM, in its restore
         bucket's row count, and unpin its slot. The copy is ordered on the
         engine's stream after every chunk already enqueued, and waits for
-        them; a paged slot's pages go back to the free list."""
+        them; a paged slot's pages go back to the free list. When the
+        shared-prefix pool covers every valid row, the copy is elided:
+        the session forgets its rows and the next turn seeds from the
+        pool."""
         slot_idx = sess.slot
         valid = len(sess.token_ids)
-        if valid > 0:
+        if valid > 0 and self._prefix_covered(sess.token_ids):
+            sess.token_ids = []
+            self.metrics["prefix_cache_offload_elisions"] += 1
+        elif valid > 0:
             rows = self.cfg.restore_bucket_for(valid)
             k, v = self._offload_fn(self._ck, self._cv, slot_idx, rows)
             sess.host_k = kv_host(k)
@@ -138,6 +159,8 @@ class _SessionMixin:
             slot.session_id = None
             if not slot.active:
                 self._free_slot_pages(sess.slot)
+        if sess is not None:
+            self._prefix_decref(sess.seeded_from)
 
     def release_session(self, session_id: str) -> None:
         """Forget a session's cached rows. Thread-safe: queued and applied

@@ -157,7 +157,10 @@ class EngineConfig:
     lengths, max_seq the KV cache rows per slot; kv_quant="int8" stores
     the KV cache as int8 rows with f32 row scales, and kv_pages > 0
     replaces the slot-contiguous cache by a pool of kv_pages pages of
-    kv_page_tokens rows (page 0 reserved) behind per-slot page tables."""
+    kv_page_tokens rows (page 0 reserved) behind per-slot page tables;
+    prefix_cache_slots > 0 keeps a pool of prefixes shared across
+    sessions (engine/prefix_cache.py), and grammar=True lets a request
+    carry a grammar whose FSM masks every sampled token."""
 
     num_slots: int = 8
     max_seq: int = 1024
@@ -210,6 +213,40 @@ class EngineConfig:
     def num_page_positions(self) -> int:
         """Page-table width: table positions per slot (max_seq / page)."""
         return self.max_seq // max(self.kv_page_tokens, 1)
+
+    def prefix_rows(self) -> int:
+        """Row capacity of one shared-prefix pool entry."""
+        rows = self.prefix_cache_rows or self.max_seq
+        return min(rows, self.max_seq)
+
+    def prefix_buckets(self) -> tuple[int, ...]:
+        """Row counts of the shared-prefix pool's transfers (store, seed,
+        demote): the restore buckets that fit one entry."""
+        buckets = tuple(b for b in self.restore_buckets() if b <= self.prefix_rows())
+        return buckets or self.restore_buckets()[:1]
+
+    def prefix_bucket_for(self, n: int) -> int:
+        for b in self.prefix_buckets():
+            if n <= b:
+                return b
+        return self.prefix_buckets()[-1]
+
+    def page_run_buckets(self) -> tuple[int, ...]:
+        """Page counts of the prefix host tier's page-run transfers:
+        powers of two up to the pages of one entry."""
+        cap = max(-(-self.prefix_rows() // max(self.kv_page_tokens, 1)), 1)
+        out, b = [], 1
+        while b < cap:
+            out.append(b)
+            b *= 2
+        out.append(cap)
+        return tuple(out)
+
+    def page_bucket_for(self, n: int) -> int:
+        for b in self.page_run_buckets():
+            if n <= b:
+                return b
+        return self.page_run_buckets()[-1]
 
     def usable_buckets(self) -> tuple[int, ...]:
         """Prefill buckets that fit the KV cache (a bucket's chunk is

@@ -84,7 +84,11 @@ def as_quant_kv(x: Any) -> Any:
 def quantize_rows(x: torch.Tensor) -> QuantKV:
     """x float [..., H, D] → QuantKV; the JAX package's ops in its order."""
     xf = x.float()
-    s = torch.clamp_min(xf.abs().amax(dim=-1), _EPS) / _QMAX
+    # A true division by a device tensor: CUDA divides by a Python scalar
+    # as a multiply by its reciprocal, which can differ from the CPU's
+    # (and the JAX package's) quotient in the last bit.
+    qmax = torch.full((1,), _QMAX, dtype=torch.float32, device=xf.device)
+    s = torch.clamp_min(xf.abs().amax(dim=-1), _EPS) / qmax
     q = torch.clamp(torch.round(xf / s[..., None]), -_QMAX, _QMAX).to(torch.int8)
     return QuantKV(q, s)
 

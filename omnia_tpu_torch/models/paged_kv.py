@@ -1,5 +1,4 @@
-"""Paged KV cache device layout (port of ``omnia_tpu/models/paged_kv.py``
-without the prefix cache's page-run transfers).
+"""Paged KV cache device layout (port of ``omnia_tpu/models/paged_kv.py``).
 
 Rows live in one fixed pool ``[L, P, PAGE_S, Hkv, D]`` (a plain tensor,
 or a QuantKV with ``[L, P, PAGE_S, Hkv]`` scales under ``kv_quant``),
@@ -105,6 +104,33 @@ def gather_rows(cache: PagedKV, slot: int, rows: int) -> Any:
         return out.reshape((s[0], s[1] * s[2]) + s[3:])[:, :rows]
 
     return kv_map(g, cache.pool)
+
+
+def gather_pages(pool: Any, idx: torch.Tensor) -> Any:
+    """Pool pages ``idx [n]`` → ``[L, n, PAGE_S, ...]``, copied verbatim
+    (the prefix host tier's demotion)."""
+    return kv_map(lambda arr: arr[:, idx.long()], pool)
+
+
+def scatter_pages(pool: Any, idx: torch.Tensor, pages: Any) -> None:
+    """In place: pool pages ``idx [n]`` ← ``pages [L, n, PAGE_S, ...]``,
+    verbatim (the prefix host tier's promotion)."""
+    i = idx.long()
+    if is_quant_kv(pool):
+        pool.q[:, i] = pages.q.to(pool.q.dtype)
+        pool.s[:, i] = pages.s.to(pool.s.dtype)
+    else:
+        pool[:, i] = pages.to(pool.dtype)
+
+
+def copy_page(pool: Any, src: int, dst: int) -> None:
+    """In place: pool page ``dst`` ← page ``src`` over all layers, the
+    device half of copy-on-write."""
+    def one(arr):  # [L, P, PS, ...]
+        arr[:, dst].copy_(arr[:, src])
+        return arr
+
+    kv_map(one, pool)
 
 
 def _flat_scatter(arr: torch.Tensor, flat_idx: torch.Tensor, vals: torch.Tensor,

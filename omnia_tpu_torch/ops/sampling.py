@@ -26,7 +26,7 @@ Contract with the JAX package:
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -91,9 +91,14 @@ def _filter_thresholds(scaled, top_p, top_k):
     return torch.where(feasible, fast, slow)
 
 
-def _prepare(logits, temperature, top_p, top_k):
+def _prepare(logits, temperature, top_p, top_k, mask_bias=None):
     B = logits.shape[0]
     logits = logits.float()
+    if mask_bias is not None:
+        # Grammar: an additive mask (0 admissible, -1e30 masked), applied
+        # before the greedy argmax and the filter thresholds so that
+        # greedy, top-k and top-p all sample inside the grammar.
+        logits = logits + mask_bias
     if isinstance(top_k, int):
         top_k = torch.full((B,), top_k, dtype=torch.int32, device=logits.device)
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -127,18 +132,23 @@ def gumbel_noise(key_data: torch.Tensor, vocab: int) -> torch.Tensor:
     iv = torch.arange(vocab, dtype=torch.int64, device=key_data.device)
     hv = _fmix32((iv + 0x632BE5AB) & _M32)
     bits = _fmix32(hb[:, None] ^ hv[None, :])
-    u = ((bits >> 8).float() + 0.5) * (2.0 ** -24)
+    # u lies in (0, 1): (2^24 - 1) + 0.5 rounds up to 2^24 in f32, so the
+    # top value is clamped below 1, where the noise would be +inf and its
+    # token would win over every mask and filter.
+    u = torch.clamp(((bits >> 8).float() + 0.5) * (2.0 ** -24), max=1.0 - 2.0 ** -24)
     return -torch.log(-torch.log(u))
 
 
 def sample_tokens_per_slot(logits: torch.Tensor, key_data: torch.Tensor,
                            temperature: torch.Tensor, top_p: torch.Tensor,
-                           top_k: Union[int, torch.Tensor] = 0):
+                           top_k: Union[int, torch.Tensor] = 0,
+                           mask_bias: Optional[torch.Tensor] = None):
     """logits [B, V]; key_data int64 [B, 2] per-slot [seed, counter];
-    temperature [B] (<= 0 → greedy); top_p [B]; top_k int or [B] int.
-    Returns (tokens int32 [B], new key_data [B, 2]); every slot's counter
-    advances by one, greedy or not."""
-    filtered, greedy_tok = _prepare(logits, temperature, top_p, top_k)
+    temperature [B] (<= 0 → greedy); top_p [B]; top_k int or [B] int;
+    mask_bias an optional additive [B, V] grammar mask. Returns (tokens
+    int32 [B], new key_data [B, 2]); every slot's counter advances by
+    one, greedy or not."""
+    filtered, greedy_tok = _prepare(logits, temperature, top_p, top_k, mask_bias)
     noise = gumbel_noise(key_data, filtered.shape[-1])
     sampled_tok = torch.argmax(filtered + noise, dim=-1).to(torch.int32)
     tok = torch.where(temperature <= 0.0, greedy_tok, sampled_tok)

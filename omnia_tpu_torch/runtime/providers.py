@@ -70,10 +70,12 @@ _ENGINE_OPTIONS = frozenset({
 
 
 def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
-                 coldstart=None) -> InferenceEngine:
+                 coldstart=None, finish_reasons=None) -> InferenceEngine:
     """Instantiate the engine for a provider spec, on ``device`` (the card
-    unless the caller names another). Only type ``"tpu"`` is ported: the
-    mock engine and cold-start tracking raise ``ProviderError``."""
+    unless the caller names another). ``finish_reasons`` is the enum class
+    the engine's final events carry (the JAX runtime's own, to serve
+    under it). Only type ``"tpu"`` is ported: the mock engine and
+    cold-start tracking raise ``ProviderError``."""
     if spec.type == "mock":
         raise ProviderError("provider type 'mock' is not ported to omnia_tpu_torch "
                             "yet (ROADMAP A7)")
@@ -107,7 +109,7 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
             )
         cfg = get_config(spec.model)
     engine = InferenceEngine(cfg, ecfg, params=params, seed=spec.options.get("seed", 0),
-                             device=device)
+                             device=device, finish_reasons=finish_reasons)
     if warmup:
         engine.warmup()
     return engine

@@ -120,7 +120,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
         InferenceEngine(get_config("test-tiny"), EngineConfig(**ENGINE_FIELDS))
 
 
-@pytest.mark.parametrize("knob", [dict(grammar=True), dict(tp=2),
+@pytest.mark.parametrize("knob", [dict(prefill_chunk_tokens=16), dict(tp=2),
                                   dict(spec_decode=2), dict(decode_ring=2)])
 def test_unported_knob_raises(knob):
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -129,11 +129,13 @@ def test_unported_knob_raises(knob):
 
 
 def test_unported_submits_raise(both_runs):
-    """A grammar is still refused; a session turn and a prompt longer
-    than the largest bucket (32) are served."""
+    """A grammar on an engine built without grammar support ends at
+    submit with the JAX engine's ERROR; a session turn and a prompt
+    longer than the largest bucket (32) are served."""
     eng = both_runs["engine"]
-    with pytest.raises(ValueError, match="A11"):
-        eng.submit([1, 2, 3], SamplingParams(), grammar=object())
+    ev = eng.submit([1, 2, 3], SamplingParams(), grammar=object()).get_event(timeout=1)
+    assert ev.finish_reason == FinishReason.ERROR
+    assert ev.error == "grammar-constrained request on an engine built with grammar=off"
     assert eng.queue_depth() == 0
     sp = SamplingParams(temperature=0.0, max_tokens=3)
     handles = [eng.submit([1, 2, 3], sp, session_id="s1"),

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from omnia_tpu_torch.models import quant as tquant
-from omnia_tpu_torch.models.kv_quant import quantize_rows_np
+from omnia_tpu_torch.models.kv_quant import quantize_rows, quantize_rows_np
 from omnia_tpu_torch.ops import decode_attention as tda
 
 # Positions 0, mid-block and S-1 (block_s = 128 in the JAX kernel).
@@ -395,3 +395,21 @@ def test_cuda_w8a16_qdot_matches_cpu_route(dtype):
     card, cpu = _qdot_case("int8", dtype, 8)
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(card.float(), cpu.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kv_row_scales_equal_cpu_route(dtype):
+    """int8 KV rows quantized on the card equal the CPU route bit for
+    bit, scales included: the scale divides by a device tensor, which
+    CUDA does not turn into a reciprocal multiply. Rows of llama3-8b's
+    KV width, magnitudes across many binades."""
+    needs_card()
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((4, 257, 8, 128)) * np.exp(rng.uniform(-6, 6, (4, 257, 8, 1)))
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    card = quantize_rows(x.cuda())
+    torch.cuda.synchronize()
+    cpu = quantize_rows(x)
+    assert torch.equal(card.s.cpu(), cpu.s)
+    assert torch.equal(card.q.cpu(), cpu.q)

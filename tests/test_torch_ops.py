@@ -142,3 +142,27 @@ def test_sampled_stream_independent_of_batch_mates():
     np.testing.assert_array_equal(together[:, 1], alone[:, 0])
     np.testing.assert_array_equal(swapped[:, 1], alone[:, 0])
     assert len(set(alone[:, 0].tolist())) > 1
+
+
+@pytest.mark.parametrize("seed,counter,hit", [(3, 13, 13382), (32, 12, 103475)])
+def test_noise_finite_where_the_hash_tops_out(seed, counter, hit):
+    """Port-only: at these sampler states vocab index ``hit`` draws the
+    hash's top value, whose uniform rounded to 1.0 in f32 and gave +inf
+    noise: a masked or filtered-out token then won. The noise is finite
+    and the sample stays inside a mask and the top-k set at llama3's
+    vocab."""
+    V = 128256
+    keys = torch.tensor([[seed, counter]], dtype=torch.int64)
+    noise = tsamp.gumbel_noise(keys, V)
+    assert torch.isfinite(noise).all() and noise[0, hit] > 15
+    logits = torch.from_numpy(_rng(7).standard_normal((1, V)).astype(np.float32))
+    bias = torch.full((1, V), tsamp._NEG_INF)
+    bias[0, :3] = 0.0
+    tok, _ = tsamp.sample_tokens_per_slot(logits, keys, torch.tensor([0.7]),
+                                          torch.tensor([0.9]),
+                                          torch.tensor([40], dtype=torch.int32), mask_bias=bias)
+    assert int(tok[0]) < 3
+    tok, _ = tsamp.sample_tokens_per_slot(logits, keys, torch.tensor([0.7]),
+                                          torch.tensor([1.0]),
+                                          torch.tensor([40], dtype=torch.int32))
+    assert int(tok[0]) in torch.topk(logits[0], 40).indices.tolist()
