@@ -92,11 +92,39 @@ Phases, each failing loudly (exit code != 0, no result line):
    (8 greedy requests, no grammar) on (a) and on an engine built without
    grammars, three times each in turns.
 
+9. Stall-free batching and speculative decoding on the same llama3-8b
+   bf16 weights, at full width and depth, on the contiguous bf16 cache
+   (K1) and the int8 + paged one (K4), 8 slots, max_seq 1024: per cache
+   three engines, both knobs on (prefill_chunk_tokens=256, spec_decode=4,
+   spec_decode_max=8, spec_gate_window=0), the interleave alone, and
+   neither, all with grammars of up to 128 states. (a) Arrivals: 6 greedy
+   decoders (each turn 2 of a session, so that its rows do not depend on
+   the arm) decode 128 tokens; after their first chunk two 900-token
+   prompts arrive, once interleaved and once prefill-first: the
+   decoders' largest and p99 delivery gap and tokens/s over the arrival
+   window, the arrivals' TTFT; interleaved_prefill_tokens must be exactly
+   the arrivals' 1,800 and the decoders' tokens equal across arms. (b)
+   Repetition: 8 requests whose prompts repeat a span 8 times (6 greedy
+   tool calls under phase 8's schema, 2 sampled) with spec on and off:
+   proposals, acceptances, verify steps, tokens per verify step, host ms
+   per verify step, tokens/s, the verify window's plain attention per
+   layer; spec_accepted > 0 and the sampled tokens equal; greedy tokens
+   agreeing at bf16 and the admissible top-2 margin where they part. (c)
+   Fused: a 900-token arrival during the repetition must ride at least
+   one mixed step that carries a verify window. Each kernel must launch
+   num_layers x decode steps times over the phase and no other. Then at
+   llama3-1b width, 4 layers, f32: interleaved == monolithic placement
+   and spec on == spec off greedy tokens on both caches (on the int8 one
+   with buckets up to 256, so that every prompt extends on both arms: a
+   fresh prefill there attends its float chunk, a piece the quantized
+   rows).
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
-lines for phase 8, a ``kernels`` JSON line (launches: each kernel's
-count over its engine's burst and session runs, phase 7's bursts for K1
-and K4, and phase 8's runs for K1, K4 and K2), then the card's name and
-power limit, then as its last line {"ok": true, "device": {...}}.
+lines for phase 8, ``phase 9`` lines, a ``kernels`` JSON line
+(launches: each kernel's count over its engine's burst and session runs,
+phase 7's bursts for K1 and K4, phase 8's runs for K1, K4 and K2, and
+phase 9's llama3-8b runs for K1 and K4), then the card's name and power
+limit, then as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,6 +215,26 @@ TOOL_CALL = {"type": "object",
                                                     "notify": {"type": "boolean"}},
                                      "required": ["unit", "urgent", "notify"]}},
              "required": ["tool", "args"]}
+
+
+# Phase 9: stall-free batching and speculative decoding on the phase 5
+# weights. Per cache (label → the kernel its decode runs) three engines
+# share them: "both" knobs on; "mixed", the interleave alone (the
+# repetition's spec-off arm and the arrivals' interleaved arm); "plain",
+# neither (the arrivals' prefill-first arm). The arrival arms run without
+# speculation, so that their decode steps have the same shapes. Random
+# weights do not copy from their context, so the repetition's greedy
+# requests are tool calls under phase 8's schema, whose prompts repeat a
+# tool call: what the grammar forces (keys, quotes, the rest of an enum
+# value) is what prompt lookup proposes.
+STALL_SPEC = dict(prefill_chunk_tokens=256, spec_decode=4, spec_decode_max=8,
+                  spec_gate_window=0)
+STALL_SPEC_ENGINES = {"K1": dict(), "K4": dict(kv_quant="int8", **PAGED)}
+STALL_SPEC_ARMS = {"both": STALL_SPEC, "mixed": dict(prefill_chunk_tokens=256),
+                   "plain": dict()}
+STALL_SPEC_GRAMMAR = dict(grammar=True, grammar_max_states=128)
+DECODERS, DECODE_TOKENS, DECODE_PROMPT, ARRIVAL_TOKENS = 6, 128, 100, 900
+REPEAT_SPAN, REPEATS, REPEAT_TOKENS = 48, 8, 96
 
 
 def fail(msg: str) -> None:
@@ -923,6 +971,8 @@ def engines(card: str) -> dict:
           f"{sum(len(t) for per in session_tokens['K2'] for t in per)} tokens", flush=True)
     for label, n in agent(card, params).items():
         launches[label] += n
+    for label, n in stall_free_spec(card, params).items():
+        launches[label] += n
     return launches
 
 
@@ -1176,6 +1226,432 @@ def agent(card: str, params) -> dict:
         median_on=statistics.median(step_ms["on"]),
         median_off=statistics.median(step_ms["off"]))), flush=True)
     return launches
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+def _record_events(handle, rec: dict) -> None:
+    """Each delivered token and its host time, then the final event."""
+    for ev in handle.events(timeout=600):
+        if ev.token_id is not None:
+            rec["toks"].append(ev.token_id)
+            rec["times"].append(time.monotonic())
+        if ev.is_final:
+            rec["final"] = ev
+
+
+def _threaded(engine, reqs: list, recs: list, threads: list, sessions: str = "") -> None:
+    """Submit (prompt, params[, grammar]) requests, one consumer thread
+    each; with ``sessions``, request i is a turn of session
+    ``f"{sessions}{i}"``."""
+    for i, (prompt, sp, *g) in enumerate(reqs):
+        rec = dict(toks=[], times=[], final=None, t_submit=time.monotonic())
+        h = engine.submit(prompt, sp, session_id=f"{sessions}{i}" if sessions else None,
+                          grammar=g[0] if g else None)
+        th = threading.Thread(target=_record_events, args=(h, rec))
+        th.start()
+        recs.append(rec)
+        threads.append(th)
+
+
+def _finished(run: str, recs: list) -> None:
+    for i, r in enumerate(recs):
+        ev = r["final"]
+        if ev is None:
+            fail(f"{run}: request {i} never finished")
+        if ev.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP) or ev.error:
+            fail(f"{run}: request {i} ended {ev.finish_reason} error={ev.error}")
+        if ev.num_generated_tokens != len(r["toks"]):
+            fail(f"{run}: request {i}: {ev.num_generated_tokens} counted, "
+                 f"{len(r['toks'])} streamed")
+
+
+def _delta(engine, m0: dict) -> dict:
+    return {k: engine.metrics[k] - m0[k] for k in (
+        "decode_steps", "mixed_steps", "interleaved_prefill_tokens", "prefill_tokens",
+        "spec_steps", "spec_proposed", "spec_accepted", "tokens_generated",
+        "decode_dispatch_s", "decode_sync_s")}
+
+
+def arrivals(run: str, engine, vocab: int) -> dict:
+    """6 greedy requests decode 128 tokens; once each has its first token
+    and one chunk, two 900-token prompts arrive. The decoders' delivery
+    gaps and rate over the arrival window (arrival → both first tokens),
+    and the arrivals' TTFT.
+
+    Each decoder is turn 2 of a session whose turn 1 ran alone: its new
+    tokens extend at the same bucket whether they are placed by a chunked
+    extend or by a mixed step, so its rows, like its decode steps, do not
+    depend on the arm (a fresh prefill and an extend round differently
+    in bf16)."""
+    rng = np.random.default_rng(91)
+    decoders = [[int(t) for t in rng.integers(0, vocab, DECODE_PROMPT)]
+                for _ in range(DECODERS)]
+    arrivals_ = [[int(t) for t in rng.integers(0, vocab, ARRIVAL_TOKENS)] for _ in range(2)]
+    for i, p in enumerate(decoders):
+        h = engine.submit(p, SamplingParams(temperature=0.0, max_tokens=1),
+                          session_id=f"d{i}")
+        while engine.step():
+            pass
+        decoders[i] = p + h.collect_tokens(timeout=60)[0] + [
+            int(t) for t in rng.integers(0, vocab, 20)]
+    m0 = dict(engine.metrics)
+    recs, threads = [], []
+    engine.start()
+    _threaded(engine, [(p, SamplingParams(temperature=0.0, max_tokens=DECODE_TOKENS))
+                       for p in decoders], recs, threads, sessions="d")
+    t0 = time.monotonic()
+    while min(len(r["toks"]) for r in recs) < 1 + engine.cfg.decode_chunk:
+        if time.monotonic() - t0 > 300:
+            fail(f"{run}: the decoders never reached their first chunk")
+        time.sleep(0.0005)
+    # Every decoder is placed and no piece is in flight: the counters
+    # from here on are the arrivals'.
+    m_arr = dict(engine.metrics)
+    t_arr = time.monotonic()
+    _threaded(engine, [(p, SamplingParams(temperature=0.0, max_tokens=16))
+                       for p in arrivals_], recs, threads)
+    for th in threads:
+        th.join(timeout=900)
+    engine.stop()
+    torch.cuda.synchronize()
+    _finished(run, recs)
+    for i in range(DECODERS):
+        engine.release_session(f"d{i}")
+    t_end = max(r["times"][0] for r in recs[DECODERS:])
+    gaps, in_window = [], 0
+    for r in recs[:DECODERS]:
+        ts = r["times"]
+        gaps += [b - a for a, b in zip(ts, ts[1:]) if t_arr < b <= t_end]
+        in_window += sum(t_arr < t <= t_end for t in ts)
+    return dict(delta=_delta(engine, m0), arrival_delta=_delta(engine, m_arr),
+                decoder_tokens=[r["toks"] for r in recs[:DECODERS]],
+                largest_gap_ms=max(gaps) * 1e3 if gaps else None,
+                p99_gap_ms=float(np.percentile(gaps, 99)) * 1e3 if gaps else None,
+                window_s=t_end - t_arr,
+                decoder_tokens_per_s_in_window=in_window / (t_end - t_arr),
+                arrival_ttft_s=[r["times"][0] - r["t_submit"] for r in recs[DECODERS:]])
+
+
+def tool_call_text(i: int) -> str:
+    tools = TOOL_CALL["properties"]["tool"]["enum"]
+    return json.dumps({"tool": tools[i % 4], "args": {
+        "unit": "cf"[i % 2], "urgent": i % 3 == 0, "notify": i % 2 == 1}})
+
+
+def repetition_prompts(vocab: int, n: int) -> list:
+    """Prompts that repeat a span 8 times: a tool call's bytes for the
+    greedy requests 0–5, 48 random tokens for the sampled ones."""
+    rng = np.random.default_rng(93)
+    return [(list(tool_call_text(i).encode()) if i < 6
+             else [int(t) for t in rng.integers(0, vocab, REPEAT_SPAN)]) * REPEATS
+            for i in range(n)]
+
+
+def repetition_requests(vocab: int, n: int, grammar) -> list:
+    """(prompt, params, grammar): 0–5 greedy tool calls under the schema,
+    6 and 7 sampled and free (a verify step's scan lane)."""
+    out = []
+    for i, p in enumerate(repetition_prompts(vocab, n)):
+        if i < 6:
+            out.append((p, SamplingParams(temperature=0.0, max_tokens=REPEAT_TOKENS), grammar))
+        else:
+            out.append((p, SamplingParams(temperature=0.7, top_p=0.9, top_k=40,
+                                          max_tokens=REPEAT_TOKENS, seed=300 + i), None))
+    return out
+
+
+def repetition(run: str, engine, vocab: int, grammar, arrival: bool = False) -> dict:
+    """8 requests whose prompts repeat a span 8 times (7 and a 900-token
+    arrival once the greedy ones have 32 tokens, with ``arrival``). Times
+    each standalone verify step and counts the tokens each verify step
+    accepts and emits, and the mixed steps that carry a verify window."""
+    stats = dict(verify_ms=[], verify_lane_tokens=0, fused=0)
+
+    def timed(name):
+        inner = getattr(engine, name)
+
+        def call(*args):
+            t0, n0 = time.monotonic(), engine.metrics["tokens_generated"]
+            out = inner(*args)
+            if name == "_spec_dispatch":
+                stats["verify_ms"].append((time.monotonic() - t0) * 1e3)
+            else:
+                stats["verify_lane_tokens"] += engine.metrics["tokens_generated"] - n0
+            return out
+
+        setattr(engine, name, call)
+
+    saved = [dict(fns) for fns in (engine._mixed_spec_fns, engine._mixed_spec_sample_fns)]
+    for fns in (engine._mixed_spec_fns, engine._mixed_spec_sample_fns):
+        for b, fn in list(fns.items()):
+            def counted(*args, _fn=fn):
+                stats["fused"] += 1
+                return _fn(*args)
+            fns[b] = counted
+    if engine.cfg.spec_decode:
+        timed("_spec_dispatch")
+        timed("_spec_accept")
+    m0 = dict(engine.metrics)
+    recs, threads = [], []
+    engine.start()
+    t0 = time.monotonic()
+    _threaded(engine, repetition_requests(vocab, 7 if arrival else 8, grammar), recs, threads)
+    if arrival:
+        while min(len(r["toks"]) for r in recs[:6]) < 32:
+            if time.monotonic() - t0 > 300:
+                fail(f"{run}: the greedy requests never reached 32 tokens")
+            time.sleep(0.0005)
+        rng = np.random.default_rng(97)
+        _threaded(engine, [([int(t) for t in rng.integers(0, vocab, ARRIVAL_TOKENS)],
+                            SamplingParams(temperature=0.0, max_tokens=16))], recs, threads)
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t0
+    engine.stop()
+    torch.cuda.synchronize()
+    _finished(run, recs)
+    for name in ("_spec_dispatch", "_spec_accept"):
+        engine.__dict__.pop(name, None)
+    engine._mixed_spec_fns.update(saved[0])
+    engine._mixed_spec_sample_fns.update(saved[1])
+    d = _delta(engine, m0)
+    return dict(delta=d, tokens=[r["toks"] for r in recs], wall_s=wall,
+                tokens_per_s=d["tokens_generated"] / wall, **stats)
+
+
+def device_ms(fn, rounds: int = 5) -> float:
+    """Device ms of one call of a function of a few dozen kernels, median
+    of ``rounds``: the card spins ~20 ms first, so the host has enqueued
+    the whole call before the start event runs."""
+    times = []
+    for _ in range(rounds + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40 * SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def verify_attention_ms(engine) -> float:
+    """Device ms of the verify window's plain attention for one layer:
+    q [B, W+1, H, D] at positions 400.., over the engine's layer-0 cache
+    (a paged cache through its slot-contiguous gather)."""
+    from omnia_tpu_torch.ops.attention import gqa_attention
+    cfg, B, W = engine.model_cfg, engine.cfg.num_slots, engine.cfg.spec_window()
+    q = torch.randn((B, W + 1, cfg.num_heads, cfg.head_dim), dtype=torch.bfloat16,
+                    device="cuda")
+    pos = (400 + torch.arange(W + 1, dtype=torch.int32)).expand(B, W + 1).contiguous().cuda()
+    kc, vc = llama._layer_cache(engine._ck, 0), llama._layer_cache(engine._cv, 0)
+    return device_ms(lambda: gqa_attention(q, kc, vc, pos))
+
+
+def mixed_halves_ms(engine, rounds: int = 5) -> dict:
+    """A mixed step's two halves alone on the idle engine: the wall ms of
+    a 256-token piece forward (the extend seam) and of one decode step of
+    the batch, each from an idle card to its end (median of ``rounds``).
+    Each is thousands of launches, more than the launch queue holds, so
+    the host's enqueue and the device's work overlap and the wall is
+    what a mixed step pays for the half."""
+    piece = engine._piece_args(0, [1] * 256, 0, 256, 256)
+    out = {}
+    for name, fn in (("piece_256", lambda: engine._extend_nosample_fn(*piece)),
+                     ("decode_step", lambda: engine._run_decode_step(1))):
+        walls = []
+        for _ in range(rounds + 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        out[name + "_wall_ms"] = statistics.median(walls[1:])
+    return out
+
+
+def divergence(engine, prompt: list, a: list, b: list, grammar) -> tuple:
+    """(leading tokens two greedy tool-call streams share, the top-2 margin
+    of the grammar-admissible logits where they part, or None)."""
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    if n == min(len(a), len(b)):
+        return n, None
+    view = grammar.view(engine.model_cfg.vocab_size, ())
+    state = view.start
+    for t in a[:n]:
+        state = view.advance(state, t)
+    seq = torch.tensor([prompt + a[:n]], dtype=torch.long, device="cuda")
+    pos = torch.arange(seq.shape[1], dtype=torch.int32, device="cuda")[None]
+    logits, _, _ = llama.forward_prefill(engine.params, engine.model_cfg, seq, pos)
+    allowed = torch.from_numpy(view.allowed(state)).to(logits.device)
+    top = torch.topk(torch.where(allowed, logits[0, -1].float(), -float("inf")), 2).values
+    return n, (top[0] - top[1]).item()
+
+
+def stall_free_spec(card: str, params) -> dict:
+    """Phase 9 (a, b) on the llama3-8b bf16 weights, then (c); returns each
+    kernel's launches from its engines' runs."""
+    cfg = get_config("llama3-8b")
+    grammar = compile_json_schema(TOOL_CALL, ByteTokenizer())
+    launches = {}
+    for label, cache in STALL_SPEC_ENGINES.items():
+        t0 = time.monotonic()
+        engines_ = {}
+        for arm, knobs in STALL_SPEC_ARMS.items():
+            engines_[arm] = InferenceEngine(cfg, EngineConfig(**cache, **knobs,
+                                                              **STALL_SPEC_GRAMMAR),
+                                            params=params, seed=0, device="cuda")
+            engines_[arm].warmup()
+        print(f"stall-free/spec {label} llama3-8b bf16 L={cfg.num_layers} {cache} arms "
+              f"{STALL_SPEC_ARMS}: init + warmup {time.monotonic() - t0:.1f}s", flush=True)
+        for name in da.LAUNCHES:
+            da.LAUNCHES[name] = 0               # counts start here
+        arr = {arm: arrivals(f"{label} arrivals {arm}", engines_[arm], cfg.vocab_size)
+               for arm in ("mixed", "plain")}
+        rep = {arm: repetition(f"{label} repetition {arm}", engines_[arm], cfg.vocab_size,
+                               grammar) for arm in ("both", "mixed")}
+        fused = repetition(f"{label} fused", engines_["both"], cfg.vocab_size, grammar,
+                           arrival=True)
+        torch.cuda.synchronize()
+        count = dict(da.LAUNCHES)
+        edition = KERNELS[label][0]
+        # Single-token pieces run at the cache end only: no piece of this
+        # traffic gets there (every prompt starts at row 0 or, for a
+        # decoder's turn 2, at row 101, and ends by row 900).
+        singles = 0
+        for start, n in ((0, ARRIVAL_TOKENS), (0, REPEAT_SPAN * REPEATS),
+                         (DECODE_PROMPT, 21)):
+            singles += sum(b == 1 for _o, _t, b in engines_["mixed"]._budget_pieces(start, n))
+            singles += sum(b == 1 for _o, _t, b in engines_["plain"]._extend_pieces(start, n))
+        if singles:
+            fail(f"phase 9 {label}: the traffic would run single-token pieces")
+        steps = (sum(r["delta"]["decode_steps"] for r in arr.values())
+                 + sum(r["delta"]["decode_steps"] for r in rep.values())
+                 + fused["delta"]["decode_steps"])
+        pieces = (arr["mixed"]["delta"]["mixed_steps"] + rep["both"]["delta"]["mixed_steps"]
+                  + rep["mixed"]["delta"]["mixed_steps"] + fused["delta"]["mixed_steps"])
+        expected = cfg.num_layers * steps
+        if count[edition] != expected:
+            fail(f"phase 9 {label}: {count[edition]} launches, expected {cfg.num_layers} x "
+                 f"{steps} decode steps (and no single-token piece) = {expected}")
+        others = {n: c for n, c in count.items() if n != edition and c}
+        if others:
+            fail(f"phase 9 {label} launched other kernels: {others}")
+        launches[label] = count[edition]
+
+        if arr["mixed"]["arrival_delta"]["interleaved_prefill_tokens"] != 2 * ARRIVAL_TOKENS:
+            fail(f"phase 9 {label}: interleaved_prefill_tokens "
+                 f"{arr['mixed']['arrival_delta']['interleaved_prefill_tokens']}, the arrivals' "
+                 f"prompts are {2 * ARRIVAL_TOKENS}")
+        if arr["plain"]["delta"]["mixed_steps"] != 0:
+            fail(f"phase 9 {label}: the prefill-first arm ran mixed steps")
+        if arr["mixed"]["decoder_tokens"] != arr["plain"]["decoder_tokens"]:
+            fail(f"phase 9 {label}: the decoders' greedy tokens differ between the "
+                 f"interleaved and the prefill-first arm")
+        on, off = rep["both"], rep["mixed"]
+        if on["delta"]["spec_accepted"] <= 0:
+            fail(f"phase 9 {label}: no proposal accepted ({on['delta']})")
+        if on["tokens"][6:] != off["tokens"][6:]:
+            fail(f"phase 9 {label}: the sampled requests' tokens differ with spec on and off")
+        if fused["fused"] < 1:
+            fail(f"phase 9 {label}: no mixed step carried a verify window")
+        for arm, r in arr.items():
+            d, a = r.pop("delta"), r.pop("arrival_delta")
+            r.pop("decoder_tokens")
+            print(f"phase 9 {label} arrivals {arm} " + json.dumps(dict(
+                card=card, **r, mixed_steps=a["mixed_steps"],
+                interleaved_prefill_tokens=a["interleaved_prefill_tokens"],
+                decode_steps_from_arrival=a["decode_steps"],
+                decode_step_ms_from_arrival=wall_decode_ms(a, a["decode_steps"]),
+                decode_steps=d["decode_steps"])), flush=True)
+        agree = [divergence(engines_["both"], p, a, b, grammar) for p, a, b in
+                 zip(repetition_prompts(cfg.vocab_size, 6), on["tokens"][:6], off["tokens"][:6])]
+        d_on, d_off = on["delta"], off["delta"]
+        print(f"phase 9 {label} repetition " + json.dumps(dict(
+            card=card, spec_proposed=d_on["spec_proposed"], spec_accepted=d_on["spec_accepted"],
+            spec_steps=d_on["spec_steps"], decode_steps_on=d_on["decode_steps"],
+            decode_steps_off=d_off["decode_steps"],
+            verify_lane_tokens_per_verify_step=on["verify_lane_tokens"] / max(d_on["spec_steps"], 1),
+            host_ms_per_standalone_verify_step=statistics.median(on["verify_ms"])
+            if on["verify_ms"] else None,
+            standalone_verify_steps=len(on["verify_ms"]),
+            tokens_per_s_on=on["tokens_per_s"], tokens_per_s_off=off["tokens_per_s"],
+            wall_s_on=on["wall_s"], wall_s_off=off["wall_s"],
+            greedy_tokens_agreeing_bf16=[n for n, _ in agree],
+            greedy_tokens_each=[len(t) for t in on["tokens"][:6]],
+            top2_margin_at_first_divergence=[m for _, m in agree],
+            verify_attention_device_ms_per_layer=verify_attention_ms(engines_["both"]),
+            mixed_step_halves=mixed_halves_ms(engines_["mixed"]),
+            fused_mixed_steps=fused["fused"], fused_spec_steps=fused["delta"]["spec_steps"],
+            fused_mixed_steps_total=fused["delta"]["mixed_steps"], launches=launches[label],
+            decode_steps_phase9=steps, single_token_pieces=singles,
+            mixed_pieces=pieces)), flush=True)
+        del engines_
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32_identity(card)
+    return launches
+
+
+def f32_identity(card: str) -> None:
+    """Phase 9 (c): llama3-1b width cut to 4 layers, f32, on the card:
+    interleaved and monolithic placement give the same greedy tokens, and
+    so do spec on and off (the repetition's greedy tool calls), on the
+    contiguous and the int8 + paged cache."""
+    cfg = get_config("llama3-1b", num_layers=4)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(9), "cuda",
+                               dtype=torch.float32)
+    rng = np.random.default_rng(95)
+    decoders = [[int(t) for t in rng.integers(0, cfg.vocab_size, 300)] for _ in range(4)]
+    late = [[int(t) for t in rng.integers(0, cfg.vocab_size, 600)] for _ in range(2)]
+    greedy = SamplingParams(temperature=0.0, max_tokens=48)
+
+    def inline(engine, kind):
+        if kind == "arrivals":
+            hs = [engine.submit(p, greedy) for p in decoders]
+            for _ in range(4):
+                engine.step()
+            hs += [engine.submit(p, greedy) for p in late]
+        else:
+            hs = [engine.submit(p, sp, grammar=g)
+                  for p, sp, g in repetition_requests(cfg.vocab_size, 6, grammar)]
+        while engine.step():
+            pass
+        return [h.collect_tokens(timeout=60)[0] for h in hs]
+
+    grammar = compile_json_schema(TOOL_CALL, ByteTokenizer())
+    out = {}
+    for label, cache in STALL_SPEC_ENGINES.items():
+        if "kv_quant" in cache:
+            # An int8 cache's fresh prefill attends its own float chunk,
+            # a piece the quantized rows: with buckets up to 256 every
+            # prompt here (300 to 600 tokens) extends in 256-row pieces
+            # on both arms.
+            cache = dict(cache, prefill_buckets=(32, 64, 128, 256))
+        engines_ = {arm: InferenceEngine(cfg, EngineConfig(dtype="float32", **cache, **knobs,
+                                                           **STALL_SPEC_GRAMMAR),
+                                         params=params, seed=0, device="cuda")
+                    for arm, knobs in STALL_SPEC_ARMS.items()}
+        got = {arm: inline(engines_[arm], "arrivals") for arm in ("mixed", "plain")}
+        if engines_["mixed"].metrics["mixed_steps"] == 0 or got["mixed"] != got["plain"]:
+            fail(f"phase 9 (c) {label}: interleaved placement's greedy tokens differ from "
+                 f"monolithic placement's in f32")
+        spec = {arm: inline(engines_[arm], "repetition") for arm in ("both", "mixed")}
+        m = engines_["both"].metrics
+        if m["spec_accepted"] == 0 or spec["both"] != spec["mixed"]:
+            fail(f"phase 9 (c) {label}: spec-on greedy tokens differ from spec-off in f32 "
+                 f"({m['spec_steps']} verify steps, {m['spec_accepted']} accepted)")
+        out[label] = dict(arrival_tokens=sum(map(len, got["mixed"])),
+                          mixed_steps=engines_["mixed"].metrics["mixed_steps"],
+                          repetition_tokens=sum(map(len, spec["both"])),
+                          spec_steps=m["spec_steps"], spec_accepted=m["spec_accepted"])
+        del engines_
+    print("phase 9 (c) f32 identity " + json.dumps(dict(
+        card=card, model="llama3-1b width, 4 layers, f32", **out)), flush=True)
 
 
 # -- phase 7 ---------------------------------------------------------------

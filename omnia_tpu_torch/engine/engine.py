@@ -22,6 +22,11 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
   instead of prefilling them (``prefix_cache.py``).
 - **Grammars** (``grammar=True``): ``submit(..., grammar=g)`` masks every
   sampled token with g's FSM, on the device.
+- **Stall-free batching** (``prefill_chunk_tokens > 0``): an arriving
+  prompt is fed in pieces, each fused with one decode step of the batch
+  (``interleave.py``).
+- **Speculative decoding** (``spec_decode > 0``): greedy slots verify
+  prompt-lookup proposals in one [B, W+1] forward (``spec_decode.py``).
 - **Terminals in the caller's enum.** ``finish_reasons`` names the enum
   class final events carry (the JAX package's, for its runtime and
   coordinator); by default the port's own.
@@ -32,7 +37,8 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
   shares the batch (``ops/sampling.py``).
 
 Layout mirrors the JAX package: programs in ``programs.py``, the
-dispatch policy in ``scheduler.py``, placement in ``placement.py``,
+dispatch policy in ``scheduler.py``, the token-budget policy in
+``interleave.py``, speculation in ``spec_decode.py``, placement in ``placement.py``,
 session residency in ``sessions.py``, the shared-prefix pool in
 ``prefix_cache.py``, the thread lifecycle in ``lifecycle.py``, the page
 pool's books in ``paged.py``; this module owns construction, submission
@@ -51,6 +57,7 @@ from typing import Optional
 import torch
 
 from omnia_tpu_torch import kernels, resolve_device
+from omnia_tpu_torch.engine.interleave import _InflightPrefill, _InterleaveMixin
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
 from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
 from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
@@ -59,6 +66,7 @@ from omnia_tpu_torch.engine.prefix_cache import PrefixPool, _PrefixCacheMixin
 from omnia_tpu_torch.engine.programs import build_programs
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
 from omnia_tpu_torch.engine.sessions import _SessionKV, _SessionMixin, _Slot
+from omnia_tpu_torch.engine.spec_decode import _SpecDecodeMixin, validate_spec_config
 from omnia_tpu_torch.engine.types import (
     MAX_DEVICE_STOP_IDS,
     EngineConfig,
@@ -78,8 +86,7 @@ logger = logging.getLogger(__name__)
 # Knobs this port does not implement yet: (field, ROADMAP item). Set
 # away from its default, each one is refused at construction.
 _UNPORTED_KNOBS = (
-    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"), ("spec_decode", "A11"),
-    ("prefill_chunk_tokens", "A11"), ("decode_ring", "A11"),
+    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"), ("decode_ring", "A item 2"),
     ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
 )
 
@@ -95,8 +102,8 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
             )
 
 
-class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
-                      _PlacementMixin, _PagedKVMixin, _LifecycleMixin):
+class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _SessionMixin,
+                      _PrefixCacheMixin, _PlacementMixin, _PagedKVMixin, _LifecycleMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
@@ -119,6 +126,7 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
         self._dtype = resolve_dtype(engine_cfg.dtype)
         self._kv_quant = validate_kv_quant(engine_cfg.kv_quant)
         validate_paged_config(engine_cfg)
+        validate_spec_config(engine_cfg)
         self._seed = seed
         self.clock = time.monotonic
         # Cross-session shared-prefix pool: host-side books here, device
@@ -143,6 +151,12 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
         self._page_copy_fn = progs.page_copy
         self._gather_pages_fn = progs.gather_pages
         self._scatter_pages_fn = progs.scatter_pages
+        self._verify_fn = progs.verify
+        self._verify_decode_fn = progs.verify_decode
+        self._mixed_fns = progs.mixed
+        self._mixed_sample_fns = progs.mixed_sample
+        self._mixed_spec_fns = progs.mixed_spec
+        self._mixed_spec_sample_fns = progs.mixed_spec_sample
 
         self.params = self._resolve_params(params, seed)
 
@@ -159,6 +173,9 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
         self._pending_releases: list[str] = []  # guarded-by: _lock
         self._pending_imports: list = []  # guarded-by: _lock
         self._inflight: collections.deque = collections.deque()
+        # The at most one placement mid-interleave (engine/interleave.py);
+        # always None with prefill_chunk_tokens = 0.
+        self._prefilling: Optional[_InflightPrefill] = None
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
         self._healthy = True
@@ -185,6 +202,22 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
             "decode_dispatch_s": 0.0,
             "decode_sync_s": 0.0,
             "prefill_dispatch_s": 0.0,
+            # Speculative decoding (spec_decode.py): acceptance rate =
+            # spec_accepted / spec_proposed; gate_state is the self-gate's
+            # decision (0 probing / 1 on / 2 off), accept_ema the
+            # engine-wide accept-rate EMA, index_bytes the n-gram
+            # indexes' estimated host bytes.
+            "spec_steps": 0,
+            "spec_proposed": 0,
+            "spec_accepted": 0,
+            "spec_gate_state": 0,
+            "spec_accept_ema": 0.0,
+            "spec_index_bytes": 0,
+            # Stall-free batching (interleave.py): fused prefill-piece +
+            # decode steps, and the prompt tokens they consumed (counted
+            # per piece, so exact under a mid-prefill abort).
+            "mixed_steps": 0,
+            "interleaved_prefill_tokens": 0,
             "requests_shed": 0,
             "deadline_exceeded": 0,
             "recoveries": 0,
@@ -405,8 +438,9 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
         """Build the kernel and run every program once at every shape a
         request can give it: each prefill bucket, an extend piece per
         bucket and of one token, an offload and a restore per restore
-        bucket, each decode chunk size. Then restore the device state and
-        the metrics warmup touched."""
+        bucket, each decode chunk size, each mixed step and the verify
+        window. Then restore the device state and the metrics warmup
+        touched."""
         if self.device.type == "cuda":
             kernels.load(edition(self._kv_quant is not None, self.cfg.kv_pages > 0))
         metrics_before = dict(self.metrics)
@@ -423,7 +457,35 @@ class InferenceEngine(_SchedulerMixin, _SessionMixin, _PrefixCacheMixin,
                              kv_device(kv_host(v), self.device), 0)
         for chunk in self._decode_fns:
             self._run_decode_step(chunk)
+        self._warm_mixed_and_verify(sp)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._init_device_state()
         self.metrics.update(metrics_before)
+
+    def _warm_mixed_and_verify(self, sp: SamplingParams) -> None:
+        """Warmup's share of the mixed and verify programs: each piece
+        bucket's mixed step in every edition, and the verify window with
+        and without its decode step, over slot 0 and an all-idle batch."""
+        decode = (self.params, self._ck, self._cv, self._tokens, self._positions, self._active,
+                  self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
+                  self._top_k)
+        g = (self._gstate, self._gtable, self._gactive) if self._gr_on else ()
+        verify = ()
+        if self._verify_fn is not None:
+            B, W = self.cfg.num_slots, self.cfg.spec_window()
+            zeros = torch.zeros((B, W + 1), dtype=torch.int32, device=self.device)
+            pos = torch.arange(W + 1, dtype=torch.int32, device=self.device).expand(B, W + 1)
+            verify = (zeros, pos.contiguous(), zeros[:, 0].contiguous(),
+                      torch.zeros(B, dtype=torch.bool, device=self.device))
+            self._prepare_slot_write(0, 0, W + 1)
+            self._verify_fn(self.params, self._ck, self._cv, *verify[:3], *g)
+            self._verify_decode_fn(*decode, *verify, *g)
+        for b in self.cfg.mixed_prefill_buckets():
+            piece = self._piece_args(0, [0] * b, 0, b, b)[3:]
+            first = (b - 1, *self._sampler_args(0, sp), *self._grammar_args(None, sp))
+            self._mixed_fns[b](*decode, *piece, *g)
+            self._mixed_sample_fns[b](*decode, *piece, *first, *g)
+            if verify:
+                self._mixed_spec_fns[b](*decode, *piece, *verify, *g)
+                self._mixed_spec_sample_fns[b](*decode, *piece, *verify, *first, *g)

@@ -68,6 +68,8 @@ class _LifecycleMixin:
             self._offload_idle_sessions()
 
     def _drain_work_left(self) -> bool:
+        # An interleaved prefill holds its _placing claim until its last
+        # piece, so it counts as work left.
         with self._lock:
             if self._waiting or self._placing > 0:
                 return True
@@ -105,6 +107,9 @@ class _LifecycleMixin:
             self._healthy = False
 
     def _fail_all(self, msg: str):
+        # A half-prefilled placement (engine/interleave.py) is neither
+        # queued nor active: fail it here or its handle would hang.
+        self._fail_prefilling(msg)
         for slot in self._slots:
             if slot.active:
                 self._push_final(slot.handle, slot.request.request_id, FinishReason.ERROR,

@@ -180,6 +180,17 @@ class _PlacementMixin:
         self.metrics["prefill_tokens"] += n - frontier
         self.metrics["prefill_steps"] += 1
 
+        if sess is not None:
+            sess.token_ids = list(prompt)
+        self._activate_slot(slot_idx, request, handle, first_tok)
+
+    def _activate_slot(self, slot_idx: int, request: Request, handle: RequestHandle,
+                       first_tok) -> None:
+        """The back half of placement, shared with the interleaved path
+        (engine/interleave.py): the slot takes the request, the device
+        takes its decode state, and the first token is emitted."""
+        n = len(request.prompt_tokens)
+        sp = request.params
         slot = self._slots[slot_idx]
         slot.request = request
         slot.handle = handle
@@ -187,6 +198,8 @@ class _PlacementMixin:
         slot.generated = 0
         slot.emitted = []
         slot.max_total = sp.max_tokens
+        if self.cfg.spec_decode:
+            slot.spec_reset(self.cfg.spec_decode, self.cfg.spec_decode_max)
         stop_ids = frozenset(sp.stop_token_ids)
         if request.grammar is not None:
             # In its accepting states a grammar view admits only its eos
@@ -194,8 +207,6 @@ class _PlacementMixin:
             # set omits it.
             stop_ids |= {request.grammar.eos_id}
         slot.stop_ids = stop_ids
-        if sess is not None:
-            sess.token_ids = list(prompt)
 
         self._tokens[slot_idx] = first_tok
         self._positions[slot_idx] = n

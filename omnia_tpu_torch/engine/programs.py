@@ -1,5 +1,5 @@
-"""The serving engine's device programs (port of the non-ring, non-spec
-programs of ``omnia_tpu/engine/programs.py``).
+"""The serving engine's device programs (port of the non-ring programs of
+``omnia_tpu/engine/programs.py``).
 
 - ``prefill_insert``: a fresh bucketed prefill whose KV chunk is written
   WHOLE into the slot's rows 0..bucket-1 (pad rows sit past every real
@@ -12,6 +12,19 @@ programs of ``omnia_tpu/engine/programs.py``).
   ``lax.scan`` becomes a Python loop over device tensors: no host sync
   inside a chunk, and stop-token / budget finishes are masked on the
   device, so a slot that finishes mid-chunk stops advancing.
+  Every decode step of every program below is the one ``_step``.
+- ``mixed[b]`` / ``mixed_sample[b]`` (``prefill_chunk_tokens > 0``): a
+  prompt piece of bucket ``b`` through the extend seam, then one decode
+  step for every active slot, enqueued together; ``mixed_sample`` also
+  samples the placed request's first token on the final piece.
+- ``verify`` / ``verify_decode`` (``spec_decode > 0``): the verify
+  window, a [B, W+1] forward whose (grammar-masked) greedy argmax is the
+  acceptance oracle of prompt-lookup proposals; ``verify_decode`` adds
+  one exact decode step for the slots that do not verify.
+  ``mixed_spec[b]`` / ``mixed_spec_sample[b]`` carry the window in the
+  mixed step. A window and a piece of more than one token run the plain
+  attention path; every T == 1 forward on the card runs the cache's
+  decode-attention kernel.
 - ``extend`` / ``extend_nosample``: one piece of an incremental prefill
   against the slot's resident rows, with or without the first-token
   sample. JAX copies the slot out, runs the forward and writes it back
@@ -79,6 +92,16 @@ class EnginePrograms:
     page_copy: Optional[Callable] = None
     gather_pages: Optional[Callable] = None
     scatter_pages: Optional[Callable] = None
+    # Speculative decoding (spec_decode > 0, else None).
+    verify: Optional[Callable] = None
+    verify_decode: Optional[Callable] = None
+    # Fused prefill-piece + decode steps, one per piece bucket
+    # (prefill_chunk_tokens > 0, else empty; the spec editions also need
+    # spec_decode > 0).
+    mixed: dict[int, Callable] = dataclasses.field(default_factory=dict)
+    mixed_sample: dict[int, Callable] = dataclasses.field(default_factory=dict)
+    mixed_spec: dict[int, Callable] = dataclasses.field(default_factory=dict)
+    mixed_spec_sample: dict[int, Callable] = dataclasses.field(default_factory=dict)
 
 
 def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
@@ -144,6 +167,52 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         _put(ck, kv_map(lambda a: a[:, None], k_rows), slot, 0)
         _put(cv, kv_map(lambda a: a[:, None], v_rows), slot, 0)
 
+    def _grammar_rows(gtable, gstate):
+        """Each slot's current [V] transition row ``gtable[b, gstate[b]]``:
+        the one gather idiom of the decode step's sampler mask and the
+        verify window's oracle mask, so the two can never diverge."""
+        rows = torch.arange(gtable.shape[0], device=gtable.device)
+        return gtable[rows, gstate.long()]                          # [B, V]
+
+    def _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g):
+        """One decode step over the fixed batch: the one source of the
+        step's ops, shared by the chunk, the mixed step and the verify
+        step's scan lane, which is what keeps their tokens equal.
+        ``state`` = (tokens, positions, active, budget, key_data, gstate),
+        gstate None without the grammar; ``g`` = () or (gtable, gactive).
+        Returns (the next state, the sampled tokens [B])."""
+        tokens, positions, active, budget, key_data, gstate = state
+        logits, _, _ = llama.forward(params, cfg, tokens[:, None], positions[:, None], ck, cv,
+                                     positions)
+        if g:
+            gtable, gactive = g
+            row = _grammar_rows(gtable, gstate)
+            bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
+            tok, key_data = sample_tokens_per_slot(logits[:, 0], key_data, temp, top_p, top_k,
+                                                   mask_bias=bias)
+            # The state advances on the sampled token, gated like the
+            # position (active at the step's start); a masked token cannot
+            # be sampled, so the max only covers inactive slots' samples.
+            nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
+            gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
+        else:
+            tok, key_data = sample_tokens_per_slot(logits[:, 0], key_data, temp, top_p, top_k)
+        # The row just written advances the position only for slots active
+        # at the step's start; deactivation applies from the next step on,
+        # as the host's finish bookkeeping does.
+        positions = torch.where(active, torch.clamp(positions + 1, max=max_seq - 1), positions)
+        budget = budget - active.to(torch.int32)
+        hit_stop = (tok[:, None] == stop_ids).any(dim=1)
+        active = active & ~hit_stop & (budget > 0)
+        tokens = torch.where(active | hit_stop, tok, tokens)
+        return (tokens, positions, active, budget, key_data, gstate), tok
+
+    def _outputs(ck, cv, state, grammar_on: bool) -> tuple:
+        """A step's state as the programs return it: (ck, cv, tokens,
+        positions, active, budget, key_data) and gstate with the grammar."""
+        out = (ck, cv) + tuple(state[:5])
+        return out + (state[5],) if grammar_on else out
+
     def make_decode(chunk: int) -> Callable:
         def decode_chunk(params, ck, cv, tokens, positions, active, budget,
                          stop_ids, key_data, temp, top_p, top_k, *g):
@@ -151,49 +220,62 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
             budget, key_data, toks [chunk, B]); with ``g = (gstate,
             gtable, gactive)`` the per-slot grammar masks every step and
             gstate rides the outputs before toks."""
+            state = (tokens, positions, active, budget, key_data, g[0] if g else None)
             toks = []
-            if g:
-                gstate, gtable, gactive = g
-                rows = torch.arange(gtable.shape[0], device=gtable.device)
             for _ in range(chunk):
-                logits, ck, cv = llama.forward(
-                    params, cfg, tokens[:, None], positions[:, None], ck, cv,
-                    positions,
-                )
-                if g:
-                    row = gtable[rows, gstate.long()]               # [B, V]
-                    bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
-                    tok, key_data = sample_tokens_per_slot(
-                        logits[:, 0], key_data, temp, top_p, top_k, mask_bias=bias
-                    )
-                    # The state advances on the sampled token, gated like
-                    # the position (active at the step's start); a masked
-                    # token cannot be sampled, so the max only covers
-                    # inactive slots' samples.
-                    nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
-                    gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
-                else:
-                    tok, key_data = sample_tokens_per_slot(
-                        logits[:, 0], key_data, temp, top_p, top_k
-                    )
-                # The row just written advances the position only for slots
-                # active at the step's start; deactivation applies from the
-                # next step on, as the host's finish bookkeeping does.
-                positions = torch.where(
-                    active, torch.clamp(positions + 1, max=max_seq - 1), positions
-                )
-                budget = budget - active.to(torch.int32)
-                hit_stop = (tok[:, None] == stop_ids).any(dim=1)
-                active = active & ~hit_stop & (budget > 0)
-                tokens = torch.where(active | hit_stop, tok, tokens)
+                state, tok = _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g[1:])
                 toks.append(tok)
-            out = (ck, cv, tokens, positions, active, budget, key_data)
-            if g:
-                out += (gstate,)
-            return out + (torch.stack(toks),)
+            return _outputs(ck, cv, state, bool(g)) + (torch.stack(toks),)
 
         decode_chunk.__name__ = f"decode_chunk_{chunk}"
         return decode_chunk
+
+    def _verify_window(params, ck, cv, vtoks, vpos, vwstart, g):
+        """The speculative verify half: one forward over [B, W+1] tokens
+        (each slot's last token and its proposals) written at per-slot
+        rows ``vwstart``; the greedy argmax at every position is the
+        acceptance oracle. Rejected proposals leave garbage rows at or
+        past the slot's new frontier, which the next writes overwrite.
+
+        With ``g = (gstate, gtable, gactive)`` the oracle is the masked
+        argmax: each position's grammar row masks as the sampler does,
+        and the state walks along the PROPOSED stream, so every oracle
+        token within the accepted prefix is admissible. A masked proposal
+        makes the states after it garbage, but it also disagrees with the
+        oracle at its own position, so acceptance stops there."""
+        logits, _, _ = llama.forward(params, cfg, vtoks, vpos, ck, cv, vwstart)
+        if not g:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        state, gtable, gactive = g
+        T = vtoks.shape[1]
+        cols = []
+        for t in range(T):
+            row = _grammar_rows(gtable, state)
+            bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
+            cols.append(torch.argmax(logits[:, t] + bias, dim=-1).to(torch.int32))
+            if t + 1 < T:
+                nxt = torch.gather(row, 1, vtoks[:, t + 1, None].long())[:, 0]
+                state = torch.where(gactive, nxt.clamp_min(0), state)
+        return torch.stack(cols, dim=1)
+
+    def _vmasked_decode_step(params, ck, cv, tokens, positions, active, budget,
+                             stop_ids, key_data, temp, top_p, top_k, vmask, vshift: int, g):
+        """One ``_step`` with the verify-lane slots masked out: they run
+        inactive (frozen sampler state; the host sets their tokens and
+        positions after acceptance) and their unavoidable garbage row is
+        parked ``vshift`` rows past their frontier, one row beyond the
+        window they just wrote, past any frontier acceptance can reach.
+        The scan-lane slots take the exact chunk step."""
+        state = (tokens, torch.where(vmask, positions + vshift, positions), active & ~vmask,
+                 budget, key_data, g[0] if g else None)
+        (o_tok, o_pos, o_act, o_bud, o_kd, o_gs), tok = _step(
+            params, ck, cv, state, stop_ids, temp, top_p, top_k, g[1:])
+        # Verify-lane slots ran inactive, so their FSM state passed
+        # through the step unchanged.
+        out = (torch.where(vmask, tokens, o_tok), torch.where(vmask, positions, o_pos),
+               torch.where(vmask, active, o_act), torch.where(vmask, budget, o_bud),
+               torch.where(vmask[:, None], key_data, o_kd), o_gs)
+        return _outputs(ck, cv, out, bool(g)), tok[None]
 
     progs = dict(
         prefill_insert=prefill_insert,
@@ -203,6 +285,78 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         offload=offload,
         restore=restore,
     )
+    if ecfg.spec_decode > 0:
+        def verify(params, ck, cv, tokens, positions, write_start, *g):
+            """The bare verify window, for batches without a scan-lane slot
+            → greedy [B, W+1]."""
+            return _verify_window(params, ck, cv, tokens, positions, write_start, g)
+
+        def verify_decode(params, ck, cv, tokens, positions, active, budget, stop_ids,
+                          key_data, temp, top_p, top_k, vtoks, vpos, vwstart, vmask, *g):
+            """The verify window, then one exact decode step for the
+            scan-lane slots (sampled, or first token not through) →
+            decode_chunk's outputs at K = 1, then greedy [B, W+1]."""
+            greedy = _verify_window(params, ck, cv, vtoks, vpos, vwstart, g)
+            out, toks = _vmasked_decode_step(params, ck, cv, tokens, positions, active,
+                                             budget, stop_ids, key_data, temp, top_p, top_k,
+                                             vmask, vtoks.shape[1], g)
+            return out + (toks, greedy)
+
+        progs.update(verify=verify, verify_decode=verify_decode)
+    if ecfg.prefill_chunk_tokens > 0:
+        def make_mixed(bucket: int, sample: bool, spec: bool) -> Callable:
+            def mixed_step(params, ck, cv, tokens, positions, active, budget, stop_ids,
+                           key_data, temp, top_p, top_k, ptoks, ppos, pslot: int, pwrite,
+                           *rest):
+                """A prompt piece through the one-slot extend seam, then
+                one decode step for every active slot, in one enqueue.
+                ``rest`` = [vtoks, vpos, vwstart, vmask] (spec), then
+                [plast, pkd, ptemp, ptop_p, ptop_k, *pg] (sample), then
+                [gstate, gtable, gactive] (grammar). The placing slot is
+                inactive in the decode half; the engine parks its frozen
+                row at the piece's end, where the next piece (or the
+                first real decode write) overwrites the garbage. Returns
+                decode_chunk's outputs at K = 1, then (first token, new
+                key_data) when sampling, then greedy [B, W+1] with spec."""
+                rest = list(rest)
+                g = tuple(rest[-3:]) if grammar_on else ()
+                if grammar_on:
+                    del rest[-3:]
+                if spec:
+                    vtoks, vpos, vwstart, vmask = rest[:4]
+                    del rest[:4]
+                plogits = extend_nosample(params, ck, cv, ptoks, ppos, pslot, pwrite)
+                extra = ()
+                if sample:
+                    plast, pkd, ptemp, ptop_p, ptop_k = rest[:5]
+                    extra = _sample_one(plogits[:, plast], pkd, ptemp, ptop_p, ptop_k,
+                                        tuple(rest[5:]))
+                if spec:
+                    # The verify window after the piece (the placing
+                    # slot's garbage window parks at the piece's end),
+                    # then the decode step with the verify lane masked.
+                    greedy = _verify_window(params, ck, cv, vtoks, vpos, vwstart, g)
+                    out, toks = _vmasked_decode_step(
+                        params, ck, cv, tokens, positions, active, budget, stop_ids,
+                        key_data, temp, top_p, top_k, vmask, vtoks.shape[1], g)
+                    return out + (toks,) + extra + (greedy,)
+                state, tok = _step(params, ck, cv,
+                                   (tokens, positions, active, budget, key_data,
+                                    g[0] if g else None),
+                                   stop_ids, temp, top_p, top_k, g[1:])
+                return _outputs(ck, cv, state, grammar_on) + (tok[None],) + extra
+
+            mixed_step.__name__ = (f"mixed_{'spec_' if spec else ''}"
+                                   f"{'sample_' if sample else ''}{bucket}")
+            return mixed_step
+
+        grammar_on = bool(ecfg.grammar)
+        for key, sample, spec in (("mixed", False, False), ("mixed_sample", True, False),
+                                  ("mixed_spec", False, True),
+                                  ("mixed_spec_sample", True, True)):
+            if spec and ecfg.spec_decode <= 0:
+                continue
+            progs[key] = {b: make_mixed(b, sample, spec) for b in ecfg.mixed_prefill_buckets()}
     if ecfg.prefix_cache_slots > 0 and not paged:
         def _slot_rows(c, idx: int, rows: int):
             """Rows [0, rows) of batch row ``idx`` as [L, 1, rows, H, D]."""

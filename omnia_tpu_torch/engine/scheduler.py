@@ -1,9 +1,11 @@
-"""Decode scheduler (port of the prefill-first policy of
-``omnia_tpu/engine/scheduler.py``, without speculation, the decode ring
-and the token-budget interleave).
+"""Decode scheduler (port of ``omnia_tpu/engine/scheduler.py``, without
+the decode ring).
 
 Each step applies queued session releases and imports, places the first
-waiting request that can take a slot, then decodes all active slots. Up to
+waiting request that can take a slot, then decodes all active slots.
+With ``prefill_chunk_tokens > 0`` the step is the token-budget policy of
+engine/interleave.py instead, and with ``spec_decode > 0`` a step whose
+greedy slots have proposals verifies them (engine/spec_decode.py). Up to
 ``decode_pipeline`` chunks stay in flight: chunk N+1 is enqueued before
 chunk N's tokens are read. PyTorch launches are asynchronous, so the
 analog of reading a JAX future is a copy of the chunk's ``[K, B]`` tokens
@@ -76,6 +78,9 @@ class _SchedulerMixin:
         """Request ids still queued or decoding."""
         with self._lock:
             waiting = {req.request_id for req, _h in self._waiting}
+        pf = self._prefilling
+        if pf is not None:
+            waiting.add(pf.request.request_id)  # mid-interleave placement
         return waiting | {s.request.request_id for s in self._slots if s.active}
 
     def _push_final(self, handle, rid: str, reason: FinishReason, **fields) -> None:
@@ -92,6 +97,8 @@ class _SchedulerMixin:
         self._drain_prefix_regs()
         self._reap_cancelled()
         self._reap_deadlines()
+        if self._mixed_enabled():
+            return self._step_mixed()
         did = False
         with self._lock:
             queued = bool(self._waiting)
@@ -106,6 +113,11 @@ class _SchedulerMixin:
         if any(s.active for s in self._slots):
             with self._lock:
                 queued = bool(self._waiting)
+            # Greedy slots verify their proposals while the others take
+            # the exact decode step in the same enqueue; the plan falls
+            # through to the plain lane when speculation would not pay.
+            if self._spec_step():
+                return True
             if self._inflight and not self._dispatch_ahead_useful():
                 self._process_oldest_chunk()
             else:
@@ -210,6 +222,9 @@ class _SchedulerMixin:
         for i, slot in enumerate(self._slots):
             if slot.active and slot.handle.cancelled:
                 self._finish_slot(i, FinishReason.CANCELLED)
+        pf = self._prefilling
+        if pf is not None and pf.handle.cancelled:
+            self._abort_prefilling(FinishReason.CANCELLED)
         with self._lock:
             still = []
             for req, handle in self._waiting:
@@ -229,6 +244,13 @@ class _SchedulerMixin:
                     and now >= slot.request.deadline_at):
                 self.metrics["deadline_exceeded"] += 1
                 self._finish_slot(i, FinishReason.DEADLINE)
+        pf = self._prefilling
+        if (pf is not None and pf.request.deadline_at is not None
+                and now >= pf.request.deadline_at):
+            # Mid-prefill: the consumed pieces were counted as they ran
+            # and their rows stay valid for the session.
+            self.metrics["deadline_exceeded"] += 1
+            self._abort_prefilling(FinishReason.DEADLINE)
         with self._lock:
             still = []
             for req, handle in self._waiting:

@@ -25,8 +25,8 @@ from omnia_tpu_torch.models.kv_quant import as_quant_kv, kv_device, kv_host
 
 class _Slot:
     __slots__ = ("request", "handle", "length", "generated", "max_total",
-                 "stop_ids", "session_id", "emitted", "seeded_from",
-                 "gr_view", "gr_state")
+                 "stop_ids", "session_id", "emitted", "spec_index", "spec_ema",
+                 "spec_k", "spec_cool", "seeded_from", "gr_view", "gr_state")
 
     def __init__(self):
         self.request: Optional[Request] = None
@@ -37,6 +37,13 @@ class _Slot:
         self.stop_ids: frozenset[int] = frozenset()
         self.session_id: Optional[str] = None  # pinned session (may be idle)
         self.emitted: list[int] = []
+        # Speculative decoding (spec_decode.py): the request's n-gram
+        # index (built on first use), the accept-rate EMA, the proposal
+        # depth it drives and the re-probe cooldown once that depth is 0.
+        self.spec_index = None
+        self.spec_ema = 0.0
+        self.spec_k = 0
+        self.spec_cool = 0
         # Shared-prefix entry a sessionless request seeded from: pins it
         # until the finish (a session's seed pins through _SessionKV).
         self.seeded_from: Optional[int] = None
@@ -51,9 +58,25 @@ class _Slot:
         self.length = 0
         self.generated = 0
         self.emitted = []
+        self.spec_index = None
+        self.spec_ema = 0.0
+        self.spec_k = 0
+        self.spec_cool = 0
         self.seeded_from = None
         self.gr_view = None
         self.gr_state = 0
+
+    def spec_reset(self, spec_decode: int, spec_decode_max: int) -> None:
+        """Arm the depth controller for a newly placed request: depth
+        starts at the configured base and the EMA where that depth sits
+        on the curve."""
+        if spec_decode_max > 0:
+            self.spec_k = min(spec_decode, spec_decode_max)
+            self.spec_ema = self.spec_k / spec_decode_max
+        else:
+            self.spec_k = spec_decode
+            self.spec_ema = 1.0
+        self.spec_cool = 0
 
     @property
     def active(self) -> bool:

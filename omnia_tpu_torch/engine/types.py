@@ -160,7 +160,11 @@ class EngineConfig:
     kv_page_tokens rows (page 0 reserved) behind per-slot page tables;
     prefix_cache_slots > 0 keeps a pool of prefixes shared across
     sessions (engine/prefix_cache.py), and grammar=True lets a request
-    carry a grammar whose FSM masks every sampled token."""
+    carry a grammar whose FSM masks every sampled token;
+    prefill_chunk_tokens > 0 feeds an arriving prompt to the batch in
+    pieces fused with decode steps (engine/interleave.py), and
+    spec_decode > 0 verifies prompt-lookup proposals for greedy slots
+    (engine/spec_decode.py)."""
 
     num_slots: int = 8
     max_seq: int = 1024
@@ -198,6 +202,25 @@ class EngineConfig:
     warmup_threads: int = 0
     flight_events: int = 0
     decode_ring: int = 0
+
+    def spec_window(self) -> int:
+        """Speculative verify window W: the most proposals any slot may
+        submit per verify step (the verify forward is [num_slots, W + 1]).
+        0 while speculation is off."""
+        if not self.spec_decode:
+            return 0
+        return max(self.spec_decode, self.spec_decode_max)
+
+    def mixed_prefill_buckets(self) -> tuple[int, ...]:
+        """Prefill-piece buckets of the fused prefill + decode steps:
+        every usable bucket a budget-sized piece can land in, plus the
+        1-token degrade bucket used at the cache end. () while
+        interleaving is off."""
+        usable = self.usable_buckets()
+        if self.prefill_chunk_tokens <= 0 or not usable:
+            return ()
+        cap = self.bucket_for(min(self.prefill_chunk_tokens, max(usable)))
+        return tuple(sorted({b for b in usable if b <= cap} | {1}))
 
     def chunk_variants(self) -> tuple[int, ...]:
         """Decode-chunk sizes, descending, always containing decode_chunk

@@ -381,5 +381,5 @@ def test_provider_spec_and_errors_match_jax():
                                 device="cpu", coldstart=object())
     with pytest.raises(ValueError, match="ROADMAP"):
         tproviders.build_engine(tproviders.ProviderSpec(name="s", model="test-tiny",
-                                                        options={"spec_decode": 2}),
+                                                        options={"watchdog_s": 5.0}),
                                 device="cpu")
