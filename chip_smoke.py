@@ -119,12 +119,33 @@ Phases, each failing loudly (exit code != 0, no result line):
    fresh prefill there attends its float chunk, a piece the quantized
    rows).
 
+10. Mixtral MoE, after phase 7 (every llama weight freed). (a) One MoE
+   layer at Mixtral width (D 4096, F 14336, E 8, K 2) on the card
+   against the CPU on the same inputs, at 8 rows (all experts) and 1024
+   (capacity dispatch) with a skewed router that drops assignments: at
+   f32 (TF32 off) equal routing and kept assignments and outputs within
+   1e-4 of the largest; at bf16 equal routing where no tie lies within a
+   bf16 step, outputs within 2^-6 of the largest. (b) mixtral-8x7b at
+   full width cut to 24 of its 32 layers (the bf16 model is 93.41 GB),
+   bf16 random seeded weights drawn on the card: params' device bytes
+   equal to the reckoned 70,185,263,104, the first prefill's logits
+   finite, the 12-request burst on the default engine (K1; then a traced
+   decode window) and on the int8 + paged one (K4), each kernel
+   launching exactly 24 x decode steps, beside the step's weight-read
+   bound. (c) The 8 inline greedy requests give the same tokens on a
+   paged bf16 engine (K3, 24 x decode steps launches) as on (b)'s
+   contiguous one, and every page ends free. (d) A 1-layer Mixtral-width
+   checkpoint written by save_params and built by build_engine gives
+   the in-memory tree bit for bit and the same greedy tokens.
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
-lines for phase 8, ``phase 9`` lines, a ``kernels`` JSON line
-(launches: each kernel's count over its engine's burst and session runs,
-phase 7's bursts for K1 and K4, phase 8's runs for K1, K4 and K2, and
-phase 9's llama3-8b runs for K1 and K4), then the card's name and power
-limit, then as its last line {"ok": true, "device": {...}}.
+lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
+for phase 10, a ``kernels`` JSON line (launches: each kernel's count
+over its engine's burst and session runs, phase 7's bursts for K1 and
+K4, phase 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1
+and K4, and phase 10's runs for K1, K3 and K4; times at the llama3-8b
+decode shape, and at the llama3-70b one beside them), then the card's
+name and power limit, then as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -235,6 +256,16 @@ STALL_SPEC_ARMS = {"both": STALL_SPEC, "mixed": dict(prefill_chunk_tokens=256),
 STALL_SPEC_GRAMMAR = dict(grammar=True, grammar_max_states=128)
 DECODERS, DECODE_TOKENS, DECODE_PROMPT, ARRIVAL_TOKENS = 6, 128, 100, 900
 REPEAT_SPAN, REPEATS, REPEAT_TOKENS = 48, 8, 96
+# Phase 10: Mixtral-8x7B at full width cut to 24 of its 32 layers (the
+# bf16 model is 93.41 GB; 24 layers hold 70.19 GB of the card's 80), the
+# checkpoint of the provider path cut to 1 layer, the rows of the
+# card-vs-CPU MoE check (all-expert and dispatch) and the mean of its
+# activations' features (with a positive router column 0, most rows rank
+# expert 0 first, so it overflows its capacity at 1024 rows).
+MOE_LAYERS, MOE_PARAM_BYTES = 24, 70_185_263_104
+MOE_CKPT_LAYERS, MOE_CKPT_BYTES = 1, 3_426_836_480
+MOE_ROWS = (8, 1024)
+MOE_H_MEAN = 0.05
 
 
 def fail(msg: str) -> None:
@@ -600,6 +631,28 @@ def burst(vocab: int, n: int) -> list:
     return reqs
 
 
+def checked_launches(label: str, engine, fn, run: str = ""):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: the engine's kernel (``label``) must have launched num_layers x
+    its decode steps and no other. Returns (fn's result, the launches)."""
+    run = run or f"{label} {engine.model_cfg.name}"
+    for name in da.LAUNCHES:
+        da.LAUNCHES[name] = 0
+    steps0 = engine.metrics["decode_steps"]
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    edition = KERNELS[label][0]
+    layers, steps = engine.model_cfg.num_layers, engine.metrics["decode_steps"] - steps0
+    if launches[edition] != layers * steps or steps == 0:
+        fail(f"{run} launched {launches[edition]} times, expected {layers} x {steps} decode "
+             f"steps = {layers * steps}")
+    others = {n: c for n, c in launches.items() if n != edition and c}
+    if others:
+        fail(f"{run} launched other kernels: {others}")
+    return out, launches[edition]
+
+
 def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
     """The engine serves a burst through submit() from its own thread;
     launch counts are set to 0 just before and read just after. ``label``
@@ -608,11 +661,8 @@ def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
     cfg = engine.model_cfg
     reqs = burst(cfg.vocab_size, n_requests)
     engine.start()
-    for name in da.LAUNCHES:
-        da.LAUNCHES[name] = 0               # counts start here
     steps0 = engine.metrics["decode_steps"]
     torch.cuda.reset_peak_memory_stats()
-    t_start = time.monotonic()
     results = [None] * len(reqs)
 
     def consume(i, handle, t_submit):
@@ -624,19 +674,22 @@ def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
             if ev.is_final:
                 results[i] = (toks, ev, t_submit, times)
 
-    threads = []
-    for i, (prompt, sp) in enumerate(reqs):
-        t_submit = time.monotonic()
-        h = engine.submit(prompt, sp)
-        th = threading.Thread(target=consume, args=(i, h, t_submit))
-        th.start()
-        threads.append(th)
-    for th in threads:
-        th.join(timeout=900)
-    wall = time.monotonic() - t_start
-    engine.stop()
-    torch.cuda.synchronize()
-    launches = dict(da.LAUNCHES)
+    def run_burst() -> float:
+        t_start = time.monotonic()
+        threads = []
+        for i, (prompt, sp) in enumerate(reqs):
+            t_submit = time.monotonic()
+            h = engine.submit(prompt, sp)
+            th = threading.Thread(target=consume, args=(i, h, t_submit))
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.monotonic() - t_start
+        engine.stop()
+        return wall
+
+    wall, launches = checked_launches(label, engine, run_burst, run)
     decode_steps = engine.metrics["decode_steps"] - steps0
 
     for i, r in enumerate(results):
@@ -651,14 +704,6 @@ def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
             fail(f"{run}: request {i}: token id out of range")
     if not results[0][0] == results[-1][0]:
         fail(f"{run}: the repeated greedy prompt gave different tokens")
-    edition = KERNELS[label][0]
-    expected = cfg.num_layers * decode_steps
-    if launches[edition] != expected or expected == 0:
-        fail(f"{run} launched {launches[edition]} times on its engine run, expected "
-             f"{cfg.num_layers} x {decode_steps} decode steps = {expected}")
-    others = {n: c for n, c in launches.items() if n != edition and c}
-    if others:
-        fail(f"{run} engine run launched other kernels: {others}")
     m = engine.metrics
     if engine.cfg.kv_pages and m["kv_pages_free"] != m["kv_pages_total"]:
         fail(f"{run}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free after the run")
@@ -671,7 +716,7 @@ def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
         kv_quant=engine.cfg.kv_quant,
         kv_pages=engine.cfg.kv_pages, kv_page_tokens=engine.cfg.kv_page_tokens,
         requests=len(results), generated_tokens=generated,
-        decode_steps=decode_steps, launches=launches[edition],
+        decode_steps=decode_steps, launches=launches,
         ttft_p50_s=statistics.median(ttft), wall_s=wall,
         tokens_per_s=generated / wall,
         per_request_decode_tokens_per_s_p50=statistics.median(per_req),
@@ -684,7 +729,7 @@ def serve(label: str, engine, card: str, n_requests: int, run: str = "") -> int:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     print(f"engine {run} " + json.dumps(summary), flush=True)
-    return launches[edition]
+    return launches
 
 
 def greedy_inline(engine) -> list:
@@ -1662,6 +1707,15 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def leaves(tree, path=""):
+    """(path, tensor) of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
 def quantized_param_bytes(cfg) -> int:
     """Device bytes of a tree with int8 matmul weights, reckoned from the
     configuration: int8 projections and lm_head, their f32 scales, bf16
@@ -1801,13 +1855,6 @@ def provider_path(card: str) -> None:
     memory = InferenceEngine(built.model_cfg, EngineConfig(quant="int8"), params=params,
                              device="cuda")
 
-    def leaves(tree, path=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                yield from leaves(v, f"{path}/{k}")
-        else:
-            yield path, tree
-
     mem = dict(leaves(memory.params))
     for path, t in leaves(built.params):
         if t.dtype != mem[path].dtype or not torch.equal(t, mem[path]):
@@ -1822,6 +1869,223 @@ def provider_path(card: str) -> None:
         checkpoint_bytes=disk, save_s=save_s, build_s=build_s,
         params_device_bytes=tree_bytes(built.params), greedy_tokens=sum(map(len, a)),
         trees_equal=True, tokens_equal=True)), flush=True)
+
+
+# -- phase 10 --------------------------------------------------------------
+
+def kept(top_i: np.ndarray, num_experts: int, capacity: int) -> np.ndarray:
+    """Which (row, k) assignments of a capacity dispatch keep their
+    expert: stable by row within each expert, the first ``capacity``."""
+    flat = top_i.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=num_experts)
+    pos = np.empty_like(flat)
+    pos[order] = np.arange(flat.size) - (np.cumsum(counts) - counts)[flat[order]]
+    return (pos < capacity).reshape(top_i.shape)
+
+
+def moe_check(card: str) -> None:
+    """Phase 10 (a): one MoE layer at Mixtral width (D 4096, F 14336, E 8,
+    K 2) on the card against the CPU on the same inputs, at 8 rows (all
+    experts) and 1024 (capacity dispatch, drops). f32 with TF32 off:
+    top experts and kept assignments equal, outputs within 1e-4 of the
+    largest. bf16: routing equal on the rows whose K-th and (K+1)-th
+    logits are more than one bf16 step apart, and outputs within 2^-6 of
+    the largest on the rows whose experts and kept assignments agree."""
+    from omnia_tpu_torch.ops import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mixtral-8x7b")
+    D, F_, E, K = cfg.hidden_size, cfg.ffn_hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
+
+    layer = {"router": normal(D, E), "wg": normal(E, D, F_), "wu": normal(E, D, F_),
+             "wd": normal(E, F_, D)}
+    layer["router"][:, 0].abs_()
+    rows = []
+    for n in MOE_ROWS:
+        h = torch.randn((1, n, D), generator=gen, device="cuda").add_(MOE_H_MEAN)
+        capacity = max(1, int(-(-n * K * 2.0 // E)))
+        for dtype in (torch.float32, torch.bfloat16):
+            p = {k: v.to(dtype) for k, v in layer.items()}
+            x = h.to(dtype)
+            t0 = time.monotonic()
+            card_out = moe.moe_mlp(x, p, K).float().cpu()
+            card_i = moe.route_sparse(x, p["router"], K)[1].cpu().numpy()[0]
+            torch.cuda.synchronize()
+            card_s = time.monotonic() - t0
+            cpu_p = {k: v.cpu() for k, v in p.items()}
+            t0 = time.monotonic()
+            cpu_out = moe.moe_mlp(x.cpu(), cpu_p, K).float()
+            cpu_s = time.monotonic() - t0
+            cpu_i = moe.route_sparse(x.cpu(), cpu_p["router"], K)[1].numpy()[0]
+            logits = torch.sort(torch.matmul(x.cpu(), cpu_p["router"]).float()[0], dim=-1,
+                                descending=True).values
+            what = f"moe {n} rows {dtype}"
+            dispatch = n >= moe.DISPATCH_MIN_TOKENS
+            cpu_kept = kept(cpu_i, E, capacity) if dispatch else np.ones_like(cpu_i, bool)
+            card_kept = kept(card_i, E, capacity) if dispatch else np.ones_like(card_i, bool)
+            drops = int((~cpu_kept).sum())
+            if dispatch and drops == 0:
+                fail(f"{what}: the skewed router dropped no assignment")
+            if not dispatch and drops:
+                fail(f"{what}: the all-expert path dropped {drops} assignments")
+            scale = cpu_out.abs().max().item()
+            if dtype == torch.float32:
+                clear = np.ones(n, bool)
+                if not (np.array_equal(card_i, cpu_i) and np.array_equal(card_kept, cpu_kept)):
+                    fail(f"{what}: routing or kept assignments differ between card and CPU")
+                same, tol = clear, 1e-4
+            else:
+                step = 2.0 ** -7 * logits[:, K - 1:K + 1].abs().max(dim=-1).values
+                clear = (logits[:, K - 1] - logits[:, K] > step).numpy()
+                if not np.array_equal(card_i[clear], cpu_i[clear]):
+                    fail(f"{what}: routing differs on rows with no tie within a bf16 step")
+                same = (card_i == cpu_i).all(-1) & (card_kept == cpu_kept).all(-1)
+                tol = 2.0 ** -6
+            sel = torch.from_numpy(same)
+            rel = ((card_out[0][sel] - cpu_out[0][sel]).abs().max() / scale).item()
+            if not torch.isfinite(card_out).all() or rel > tol:
+                fail(f"{what}: card vs CPU max error {rel} of the largest output (tolerance {tol})")
+            row = dict(card=card, rows=n, dtype=str(dtype).removeprefix("torch."),
+                       path="dispatch" if dispatch else "all-expert", capacity=capacity,
+                       dropped_assignments=drops, rows_compared=int(same.sum()),
+                       rows_without_tie=int(clear.sum()), max_err_of_largest=rel,
+                       tolerance=tol, card_s=card_s, cpu_s=cpu_s)
+            rows.append(row)
+            print("moe check " + json.dumps(row), flush=True)
+    del layer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_provider_path(card: str) -> None:
+    """Phase 10 (d): a Mixtral-width checkpoint cut to 1 layer, written by
+    save_params in 1 GiB shards and built by build_engine, gives the
+    in-memory bf16 tree bit for bit and the same greedy tokens."""
+    cfg = get_config("mixtral-8x7b", num_layers=MOE_CKPT_LAYERS)
+    if ckpt_io.expected_param_bytes(cfg) != MOE_CKPT_BYTES:
+        fail(f"mixtral 1 layer: {ckpt_io.expected_param_bytes(cfg)} bytes reckoned, "
+             f"expected {MOE_CKPT_BYTES}")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(8), "cuda")
+    tmp = tempfile.mkdtemp(prefix="omnia_moe_ckpt_")
+    try:
+        t0 = time.monotonic()
+        ckpt_io.save_params(params, cfg, tmp, max_shard_bytes=2**30)
+        save_s = time.monotonic() - t0
+        files = sorted(f for f in os.listdir(tmp) if f.endswith(".safetensors"))
+        disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+        spec = ProviderSpec(name="moe-ckpt", model="mixtral-8x7b-1l",
+                            options={"checkpoint_path": tmp})
+        t0 = time.monotonic()
+        built = build_engine(spec, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    memory = InferenceEngine(built.model_cfg, EngineConfig(), params=params, device="cuda")
+
+    mem = dict(leaves(params))
+    got = dict(leaves(built.params))
+    if set(got) != set(mem):
+        fail(f"moe provider path: leaves {sorted(got)} != {sorted(mem)}")
+    for path, t in got.items():
+        if t.dtype != mem[path].dtype or not torch.equal(t, mem[path]):
+            fail(f"moe provider path: {path} of the checkpoint-built tree differs from the "
+                 f"in-memory one")
+    a, b = greedy_inline(built), greedy_inline(memory)
+    if a != b:
+        fail("moe provider path: greedy tokens of the checkpoint-built engine differ from the "
+             "in-memory engine's")
+    print("moe provider path " + json.dumps(dict(
+        card=card, model=built.model_cfg.name, layers=cfg.num_layers, shards=len(files),
+        checkpoint_bytes=disk, params_bytes=tree_bytes(built.params),
+        params_reckoned_bytes=MOE_CKPT_BYTES, save_s=save_s, build_s=build_s,
+        greedy_tokens=sum(map(len, a)), trees_equal=True, tokens_equal=True)), flush=True)
+    del built, memory, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mixtral(card: str) -> dict:
+    """Phase 10: the MoE layer on the card against the CPU (a);
+    mixtral-8x7b at full width, 24 layers, bf16 random weights drawn on
+    the card, serving the burst on the default engine (K1) and the int8 +
+    paged one (K4) (b); the paged bf16 engine's (K3) greedy tokens equal
+    to the contiguous one's (c); the provider path (d). Returns each
+    kernel's launches."""
+    moe_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mixtral-8x7b", num_layers=MOE_LAYERS)
+    want = ckpt_io.expected_param_bytes(cfg)
+    if want != MOE_PARAM_BYTES or cfg.num_params() * 2 != want:
+        fail(f"mixtral L={MOE_LAYERS}: reckoned {want} and {cfg.num_params() * 2} bytes, "
+             f"expected {MOE_PARAM_BYTES}")
+    t0 = time.monotonic()
+    engine = InferenceEngine(cfg, EngineConfig(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    got = tree_bytes(engine.params)
+    if got != want:
+        fail(f"mixtral L={MOE_LAYERS} params hold {got} device bytes, reckoned {want}")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 17)))
+    logits, _, _ = llama.forward_prefill(engine.params, cfg, prompt.cuda(),
+                                         torch.arange(17, dtype=torch.int32, device="cuda")[None])
+    if not torch.isfinite(logits).all():
+        fail("mixtral: the first prefill's logits are not finite")
+    del logits
+    t0 = time.monotonic()
+    engine.warmup()
+    # A decode step reads every weight but the embedding (one row per slot).
+    step_bytes = got - engine.params["embed"].numel() * engine.params["embed"].element_size()
+    setup = dict(card=card, layers=cfg.num_layers, params_device_bytes=got,
+                 params_reckoned_bytes=want, decode_step_weight_bytes=step_bytes,
+                 decode_step_weight_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                 kv_device_bytes=engine.metrics["kv_quant_device_bytes"], init_s=init_s,
+                 warmup_s=time.monotonic() - t0,
+                 peak_mem_gb_after_warmup=torch.cuda.max_memory_allocated() / 1e9,
+                 card_mem_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    print("engine K1 mixtral-8x7b setup " + json.dumps(setup), flush=True)
+    run = f"mixtral-8x7b L={cfg.num_layers}"
+    launches = {"K1": serve("K1", engine, card, 12, run=f"K1 {run}")}
+    decode_profile(f"K1 {run}", engine, card)
+    contiguous = greedy_inline(engine)
+    params = engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paged = InferenceEngine(cfg, EngineConfig(**PAGED), params=params, seed=0, device="cuda")
+    tokens, launches["K3"] = checked_launches("K3", paged, lambda: greedy_inline(paged))
+    m = paged.metrics
+    if m["kv_pages_free"] != m["kv_pages_total"]:
+        fail(f"K3 {run}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free")
+    if tokens != contiguous:
+        fail(f"{run}: greedy tokens of the K3 (paged) engine differ from the K1 (contiguous) "
+             "engine's")
+    print(f"greedy equality: {run} paged (K3) == contiguous (K1), "
+          f"{sum(map(len, tokens))} tokens", flush=True)
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    engine = InferenceEngine(cfg, EngineConfig(kv_quant="int8", **PAGED), params=params, seed=0,
+                             device="cuda")
+    engine.warmup()
+    print(f"engine K4 {run} kv_quant=int8 {PAGED}: init + warmup "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    launches["K4"] = serve("K4", engine, card, 12, run=f"K4 {run}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_provider_path(card)
+    return launches
 
 
 def main() -> None:
@@ -1852,8 +2116,11 @@ def main() -> None:
     launches["K1"] += serve_70b(card)
     launches["K4"] += serve_w8a8(card)
     provider_path(card)
+    for label, n in mixtral(card).items():
+        launches[label] += n
 
-    main_case = cases[0]   # llama3-8b bf16: the engines' shape
+    # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
+    main_case, case_70b = cases[0], cases[-1]
     entries = []
     for label, (edition, kname, replaces) in KERNELS.items():
         c = main_case[label]
@@ -1863,6 +2130,9 @@ def main() -> None:
             max_abs_err=max(cs[label]["max_abs_err"] for cs in cases),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
+            ms_llama3_70b=case_70b[label]["ms"], plain_ms_llama3_70b=case_70b[label]["plain_ms"],
+            bound_ms_llama3_70b=case_70b[label]["bound_ms"],
+            library_ms_llama3_70b=case_70b[label]["library_ms"],
         ))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -121,8 +121,6 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             raise ValueError("grammar_max_states must be >= 2 with grammar on")
         if engine_cfg.max_seq > model_cfg.max_seq_len:
             raise ValueError("engine max_seq exceeds model max_seq_len")
-        if model_cfg.is_moe:
-            raise ValueError(f"{model_cfg.name}: MoE is not ported yet (ROADMAP A12)")
         self._dtype = resolve_dtype(engine_cfg.dtype)
         self._kv_quant = validate_kv_quant(engine_cfg.kv_quant)
         validate_paged_config(engine_cfg)

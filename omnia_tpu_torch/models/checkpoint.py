@@ -1,7 +1,7 @@
 """HF-layout checkpoint I/O: safetensors ⇄ the port's stacked param tree
 (port of ``omnia_tpu/models/checkpoint.py``).
 
-Reads HuggingFace-layout llama checkpoints (``config.json`` +
+Reads HuggingFace-layout llama and mixtral checkpoints (``config.json`` +
 ``*.safetensors`` [+ ``model.safetensors.index.json``]) into the stacked
 ``[L, ...]`` tree that ``models/llama.py`` consumes, and writes it back.
 
@@ -16,6 +16,10 @@ Reads HuggingFace-layout llama checkpoints (``config.json`` +
   quantized on the device as it is placed (scales are per layer and
   output channel, so the tree is the same bit for bit as quantizing the
   whole leaf). Host memory holds about one layer, never the model.
+- **Mixtral**: the router (``block_sparse_moe.gate``, ``[E, D]`` on
+  disk) and each expert's ``w1`` / ``w3`` / ``w2`` stack into ``router
+  [L, D, E]``, ``wg`` / ``wu [L, E, D, F]`` and ``wd [L, E, F, D]``, and
+  stay full precision under ``quant``, as in the JAX loader.
 - **Convention**: PyTorch ``nn.Linear`` stores ``[out, in]``; this tree
   right-multiplies activations, so projections transpose on load. RoPE is
   the rotate-half convention transformers uses for llama: no head
@@ -248,7 +252,7 @@ class _ShardReader:
 
 
 # ---------------------------------------------------------------------------
-# Tensor name mapping (HF llama layout)
+# Tensor name mapping (HF llama / mixtral layout)
 # ---------------------------------------------------------------------------
 
 _ATTN = {
@@ -264,9 +268,12 @@ _DENSE_MLP = {
 }
 
 
-def _refuse_moe(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise CheckpointError(f"{cfg.name}: MoE checkpoints are not ported yet (ROADMAP A12)")
+_MOE = {
+    "router": "model.layers.{i}.block_sparse_moe.gate.weight",
+    "wg": "model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+    "wu": "model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
+    "wd": "model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +305,7 @@ def load_params(
     quant: Optional[str] = None,
     progress_cb=None,
 ) -> dict:
-    """Load an HF-layout llama checkpoint into the stacked tree on
+    """Load an HF-layout llama or mixtral checkpoint into the stacked tree on
     ``device`` (the card unless the caller names another).
 
     Every leaf is allocated once on the device and filled layer by layer
@@ -313,7 +320,6 @@ def load_params(
     ``expected_param_bytes`` counts), so it ends at exactly 100%.
     """
     cfg = cfg or read_config(path)
-    _refuse_moe(cfg)
     quant_mod.validate_mode(quant)
     device = resolve_device(device)
     total_bytes = expected_param_bytes(cfg, dtype)
@@ -359,6 +365,14 @@ def load_params(
             place(leaf, i, fetch(tmpl.format(i=i), shape, transpose))
         return leaf
 
+    def stacked_experts(tmpl: str, shape: tuple):
+        E = cfg.num_experts
+        leaf = empty((L, E, *shape), False)
+        for i in range(L):
+            for e in range(E):
+                leaf[i, e].copy_(fetch(tmpl.format(i=i, e=e), shape, True))
+        return leaf
+
     q = quant is not None
     attn = {
         "wq": stacked(_ATTN["wq"], (D, cfg.q_dim), q),
@@ -366,11 +380,19 @@ def load_params(
         "wv": stacked(_ATTN["wv"], (D, cfg.kv_dim), q),
         "wo": stacked(_ATTN["wo"], (cfg.q_dim, D), q),
     }
-    mlp = {
-        "wg": stacked(_DENSE_MLP["wg"], (D, F), q),
-        "wu": stacked(_DENSE_MLP["wu"], (D, F), q),
-        "wd": stacked(_DENSE_MLP["wd"], (F, D), q),
-    }
+    if cfg.is_moe:
+        mlp = {
+            "router": stacked(_MOE["router"], (D, cfg.num_experts), quantized=False),
+            "wg": stacked_experts(_MOE["wg"], (D, F)),
+            "wu": stacked_experts(_MOE["wu"], (D, F)),
+            "wd": stacked_experts(_MOE["wd"], (F, D)),
+        }
+    else:
+        mlp = {
+            "wg": stacked(_DENSE_MLP["wg"], (D, F), q),
+            "wu": stacked(_DENSE_MLP["wu"], (D, F), q),
+            "wd": stacked(_DENSE_MLP["wd"], (F, D), q),
+        }
     params = {
         "embed": single("model.embed_tokens.weight", (V, D)),
         "layers": {
@@ -414,7 +436,6 @@ def save_params(
             "int8-quantized trees are a serving format — load with "
             "load_params(quant=...) instead of persisting them"
         )
-    _refuse_moe(cfg)
 
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -431,8 +452,14 @@ def save_params(
             yield f"model.layers.{i}.post_attention_layernorm.weight", host(lay["ln2"][i])
             for key, tmpl in _ATTN.items():
                 yield tmpl.format(i=i), host(lay["attn"][key][i].T)
-            for key, tmpl in _DENSE_MLP.items():
-                yield tmpl.format(i=i), host(lay["mlp"][key][i].T)
+            if cfg.is_moe:
+                yield _MOE["router"].format(i=i), host(lay["mlp"]["router"][i].T)
+                for e in range(cfg.num_experts):
+                    for key in ("wg", "wu", "wd"):
+                        yield _MOE[key].format(i=i, e=e), host(lay["mlp"][key][i, e].T)
+            else:
+                for key, tmpl in _DENSE_MLP.items():
+                    yield tmpl.format(i=i), host(lay["mlp"][key][i].T)
         yield "model.norm.weight", host(params["final_norm"])
         if not cfg.tie_embeddings:
             yield "lm_head.weight", host(params["lm_head"].T)

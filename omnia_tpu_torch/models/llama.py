@@ -1,5 +1,5 @@
-"""Llama-family dense transformer in PyTorch (port of the dense path of
-``omnia_tpu/models/llama.py``).
+"""Llama-family transformer in PyTorch, dense MLP or Mixtral-style MoE
+(port of ``omnia_tpu/models/llama.py``).
 
 - **Params keep the JAX layout**: a plain dict with every layer stacked
   on a leading [L] axis and projections stored [in, out], so converting
@@ -15,8 +15,12 @@
   quantized tree (``models/quant.py``) serves with no other change; the
   embedding gather and the tied-embedding logits stay full precision.
 
-MoE is not ported yet and raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+- **MoE** (``cfg.num_experts > 0``): the MLP is ``ops/moe.py::moe_mlp``,
+  all experts below 64 rows of a forward (B·T) and capacity dispatch
+  from 64 on, so a program gives the JAX package's tokens when it calls
+  the forward with the JAX program's (B, T) and pad rows. The router
+  ``[L, D, E]`` and the experts ``[L, E, D, F]`` / ``[L, E, F, D]`` stay
+  full precision under int8 weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,15 +41,9 @@ from omnia_tpu_torch.models.kv_quant import (
 from omnia_tpu_torch.models.paged_kv import PagedKV, flat_rows, is_paged, scatter_rows
 from omnia_tpu_torch.models.quant import is_quantized, qdot
 from omnia_tpu_torch.ops.attention import gqa_attention
+from omnia_tpu_torch.ops.moe import moe_mlp
 from omnia_tpu_torch.ops.norms import rms_norm
 from omnia_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-
-
-def _refuse_moe(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported yet (ROADMAP A12)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +57,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     by tensor directly in ``dtype`` on ``device`` (the generator's device),
     so no f32 copy of the model ever exists. Same shapes and stds as the
     JAX package; not the same numbers."""
-    _refuse_moe(cfg)
     L, D, F_, V = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
 
     def normal(shape, std=0.02):
@@ -70,6 +67,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.ones(shape, device=device, dtype=dtype)
 
     out_std = 0.02 / (2 * L) ** 0.5
+    if cfg.is_moe:
+        E = cfg.num_experts
+        mlp = {
+            "router": normal((L, D, E)),
+            "wg": normal((L, E, D, F_)),
+            "wu": normal((L, E, D, F_)),
+            "wd": normal((L, E, F_, D), std=out_std),
+        }
+    else:
+        mlp = {
+            "wg": normal((L, D, F_)),
+            "wu": normal((L, D, F_)),
+            "wd": normal((L, F_, D), std=out_std),
+        }
     params = {
         "embed": normal((V, D)),
         "layers": {
@@ -81,11 +92,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "wv": normal((L, D, cfg.kv_dim)),
                 "wo": normal((L, cfg.q_dim, D), std=out_std),
             },
-            "mlp": {
-                "wg": normal((L, D, F_)),
-                "wu": normal((L, D, F_)),
-                "wd": normal((L, F_, D), std=out_std),
-            },
+            "mlp": mlp,
         },
         "final_norm": ones((D,)),
     }
@@ -121,6 +128,13 @@ def _dense_mlp(h, p):
     return qdot(F.silu(gate) * up, p["wd"])
 
 
+def _moe_mlp(h, p, cfg: ModelConfig):
+    """Mixtral MoE: routing and dispatch live in ops/moe.py; decode-sized
+    forwards take the all-expert path, prefill-sized ones capacity
+    dispatch."""
+    return moe_mlp(h, p, cfg.num_experts_per_tok)
+
+
 def _write_index(cache, start: torch.Tensor, T: int):
     """Where a forward's [B, T] rows land in an engine-level cache: the
     same for every layer and for k and v, so computed once per forward.
@@ -151,7 +165,8 @@ def _write_kv(cache, new: torch.Tensor, index) -> None:
 
 
 def _layer_weight(w, i: int):
-    """Layer i of a stacked weight; a quantized leaf member by member."""
+    """Layer i of a stacked weight (a view: ``[L, E, D, F]`` experts are
+    read in place); a quantized leaf member by member."""
     if is_quantized(w):
         return {k: v[i] for k, v in w.items()}
     return w[i]
@@ -187,7 +202,10 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index):
     attn = gqa_attention(q, ck_eff, cv_eff, q_positions)
     x = x + qdot(attn.reshape(B, T, -1), p["attn"]["wo"])
     h2 = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    x = x + _dense_mlp(h2, p["mlp"])
+    if cfg.is_moe:
+        x = x + _moe_mlp(h2, p["mlp"], cfg)
+    else:
+        x = x + _dense_mlp(h2, p["mlp"])
     return x, k, v
 
 
@@ -208,7 +226,6 @@ def forward_prefill(params, cfg: ModelConfig, tokens, q_positions):
 
     tokens, q_positions: int [B, T] → (logits [B, T, V] f32,
     k_chunk, v_chunk [L, B, T, Hkv, D]) for the engine to place."""
-    _refuse_moe(cfg)
     x = params["embed"][tokens]
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
@@ -239,7 +256,6 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
     arrays; here the cache is the one allocation) and returned for
     symmetry with the JAX signature.
     Returns (logits [B, T, V] f32, cache_k, cache_v)."""
-    _refuse_moe(cfg)
     x = params["embed"][tokens]
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)

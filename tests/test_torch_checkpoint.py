@@ -3,11 +3,11 @@ and provider builder (``omnia_tpu_torch/runtime/providers.py``) held
 against the JAX package on the CPU (oracle: tests/test_checkpoint.py):
 checkpoints written by the JAX ``save_params`` load to trees bit-identical
 to the JAX ``load_params``' (f32 and bf16, single file and sharded,
-quant None / int8 / int8-dynamic); the port's ``save_params`` reads back
-through the JAX loader bit for bit; the port's safetensors reader agrees
-with the ``safetensors`` package; logits from a ``transformers`` llama
-match within 1e-5; and ``build_engine`` serves the JAX builder's greedy
-tokens."""
+quant None / int8 / int8-dynamic), llama and mixtral; the port's
+``save_params`` reads back through the JAX loader bit for bit; the port's
+safetensors reader agrees with the ``safetensors`` package; logits from
+a ``transformers`` llama and mixtral match within 1e-5; and
+``build_engine`` serves the JAX builder's greedy tokens."""
 
 from __future__ import annotations
 
@@ -274,11 +274,42 @@ def test_lm_head_fallback_ties_to_embed(tmp_path):
     assert torch.equal(plain["lm_head"], plain["embed"].T)
 
 
-def test_moe_checkpoint_is_refused(tmp_path):
-    cfg, _ = _jax_checkpoint(tmp_path, cfg=jget_config("test-tiny-moe"))
-    with pytest.raises(tck.CheckpointError, match="A12"):
-        tck.load_params(str(tmp_path), device="cpu")
-    assert tck.read_config(str(tmp_path)).is_moe
+# ---------------------------------------------------------------------------
+# Mixtral (MoE) checkpoints
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("dtype", sorted(JDTYPES))
+def test_moe_load_bit_identical_to_jax(tmp_path, dtype, sharded, quant):
+    """A JAX-written test-tiny-moe checkpoint: the router [L, D, E] and
+    the stacked experts [L, E, ...] equal the JAX loader's bit for bit;
+    with quant the attention and lm_head quantize, the MoE MLP does not."""
+    cfg, _ = _jax_checkpoint(tmp_path, dtype, sharded, cfg=jget_config("test-tiny-moe"))
+    want = _np_tree(jck.load_params(str(tmp_path), cfg, dtype=JDTYPES[dtype], quant=quant))
+    got = tck.load_params(str(tmp_path), dtype=TDTYPES[dtype], device="cpu", quant=quant)
+    _assert_trees_equal(got, want)
+    mlp = got["layers"]["mlp"]
+    assert mlp["router"].shape == (cfg.num_layers, cfg.hidden_size, cfg.num_experts)
+    assert all(isinstance(v, torch.Tensor) for v in mlp.values())
+    assert isinstance(got["layers"]["attn"]["wq"], dict) is (quant is not None)
+
+
+@pytest.mark.parametrize("dtype", sorted(JDTYPES))
+def test_moe_port_save_reads_back_through_jax(tmp_path, dtype):
+    cfg = jget_config("test-tiny-moe")
+    jparams = jllama.init_params(cfg, jax.random.key(4), dtype=JDTYPES[dtype])
+    tparams = params_from_jax(_np_tree(jparams), "cpu")
+    tck.save_params(tparams, get_config("test-tiny-moe"), str(tmp_path),
+                    max_shard_bytes=64 * 1024)
+    back = jck.load_params(str(tmp_path), dtype=JDTYPES[dtype])
+    for a, b in zip(jax.tree.leaves(_np_tree(back)), jax.tree.leaves(_np_tree(jparams))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert jck.read_config(str(tmp_path)) == dataclasses.replace(cfg, name=tmp_path.name)
+    assert tck.expected_param_bytes(get_config("test-tiny-moe"), TDTYPES[dtype]) == \
+        jck.expected_param_bytes(cfg, JDTYPES[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +348,33 @@ def test_logits_match_transformers(tmp_path, rope_scaling):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+def test_moe_logits_match_transformers(tmp_path):
+    """A transformers MixtralForCausalLM (E = 4, K = 2) saved with
+    save_pretrained: the port's prefill logits at 2 x 12 rows (the
+    all-expert path, which drops nothing, as transformers does not)
+    agree to f32 round-off."""
+    from transformers import MixtralConfig, MixtralForCausalLM
+
+    hf = MixtralConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                       num_local_experts=4, num_experts_per_tok=2, rope_theta=10000.0,
+                       rms_norm_eps=1e-5, tie_word_embeddings=False,
+                       max_position_embeddings=256, router_jitter_noise=0.0)
+    torch.manual_seed(0)
+    model = MixtralForCausalLM(hf).eval()
+    model.save_pretrained(str(tmp_path), safe_serialization=True)
+    cfg = tck.read_config(str(tmp_path))
+    assert (cfg.num_experts, cfg.num_experts_per_tok) == (4, 2)
+    params = tck.load_params(str(tmp_path), cfg, dtype=torch.float32, device="cpu")
+    T = 12
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, T)))
+    with torch.no_grad():
+        ref = model(toks).logits
+    pos = torch.arange(T, dtype=torch.int32).expand(2, T)
+    got, _, _ = tllama.forward_prefill(params, cfg, toks, pos)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # Provider builder
 # ---------------------------------------------------------------------------
@@ -343,6 +401,23 @@ def test_build_engine_from_checkpoint_matches_jax(tmp_path, quant):
     assert teng.model_cfg == dataclasses.replace(get_config("test-tiny"), name="tiny-ckpt")
     _assert_trees_equal(teng.params, _np_tree(jeng.params))
     assert _greedy(teng, SamplingParams) == _greedy(jeng, JSamplingParams)
+
+
+def test_build_engine_from_moe_checkpoint_matches_jax(tmp_path):
+    _, params = _jax_checkpoint(tmp_path, seed=12, cfg=jget_config("test-tiny-moe"))
+    options = {"checkpoint_path": str(tmp_path), "num_slots": 2, "max_seq": 128,
+               "prefill_buckets": [16, 64], "dtype": "float32", "seed": 3,
+               "max_sessions": 0}
+    jspec = jproviders.ProviderSpec(name="moe", type="tpu", model="tiny-moe-ckpt",
+                                    options=options)
+    tspec = tproviders.ProviderSpec.from_dict(dataclasses.asdict(jspec))
+    jeng = jproviders.build_engine(jspec)
+    teng = tproviders.build_engine(tspec, device="cpu")
+    assert teng.model_cfg == dataclasses.replace(get_config("test-tiny-moe"),
+                                                 name="tiny-moe-ckpt")
+    _assert_trees_equal(teng.params, _np_tree(jeng.params))
+    prompts = ((1, 2, 3), tuple(range(40, 60)), tuple(range(100, 170)))
+    assert _greedy(teng, SamplingParams, prompts) == _greedy(jeng, JSamplingParams, prompts)
 
 
 def test_build_engine_from_preset_honours_seed():
