@@ -138,14 +138,58 @@ Phases, each failing loudly (exit code != 0, no result line):
    checkpoint written by save_params and built by build_engine gives
    the in-memory tree bit for bit and the same greedy tokens.
 
+11. The operations layer, after phase 10 (every earlier weight freed),
+   on llama3-8b at full width and depth started from a checkpoint: random
+   seeded bf16 weights drawn on the card and written by save_params
+   (16,060,522,496 bytes; the phase fails unless the disk has 20 GB
+   free), then read back from the page cache by build_engine with
+   flight_events=4096 and watchdog_s=2.0. (a) Two cold starts as the
+   runtime's bring-up makes them (a ColdStartTracker, backend_init begun,
+   build_engine(coldstart=), warmup(), start(), mark_ready()), with
+   warmup_threads 0 and then 2, each building K1's library anew into an
+   empty build directory, as a host that never built it does: each
+   phase's seconds, submit-to-ready and the kernel build's seconds; the
+   weights' bytes loaded, their total and the params' device bytes all
+   equal to the reckoned count; every warmup program done; the second
+   start finds the first's warmup manifest for every program (bookkeeping
+   only: the port keeps no per-shape artifact); at 0 no side thread runs
+   and the build runs in warmup, at 2 the param-free side thread runs the
+   build and lies inside weights_load (its own start and end stamped);
+   the 8 inline greedy requests give the same tokens after either start.
+   (b) The 2-thread
+   engine (K1) and an int8 + paged one (K4, 129 pages) built the same way
+   serve the 12-request burst: submit and terminal events equal
+   requests_submitted and requests_finished, every request's queue +
+   placement + decode within 5% of its wall, only the closed vocabulary,
+   a Chrome export that parses; the TTFT split (queue, placement,
+   prefill) at p50 and p99, the recorder's own time as a share of the
+   burst's wall (each note_* call timed), and host ms per decode step
+   with the recorder on and off, and with the watchdog on and off (K1;
+   alternating windows over three engines on the same weights, three
+   windows each), beside the host microseconds of one chunk read through
+   the watchdog's drainer and through the direct wait.
+   (c) On each engine a FaultPlan (a 4 s hang once, two flaky submits)
+   under 8 greedy submits: exactly 2 submits raise, one watchdog trip
+   between watchdog_s and watchdog_s + 0.5 s after the read began, one
+   recovery (its ms printed: K1 reallocates 1,073,741,824 bytes of KV),
+   the requests in flight end ERROR with their streamed token counts, the
+   rest are served, health returns, every page is free, and the inline
+   greedy requests give the tokens they gave before the fault; and a
+   freed pinned buffer is not reused while its non-blocking copy is
+   queued (the check fails if the copy had already run). Each kernel launches num_layers x decode steps over every run
+   of the phase and no other kernel launches.
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
-for phase 10, a ``kernels`` JSON line (launches: each kernel's count
-over its engine's burst and session runs, phase 7's bursts for K1 and
-K4, phase 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1
-and K4, and phase 10's runs for K1, K3 and K4; times at the llama3-8b
-decode shape, and at the llama3-70b one beside them), then the card's
-name and power limit, then as its last line {"ok": true, "device": {...}}.
+for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
+11, each phase's seconds (``phase N took``) and the whole run's, a
+``kernels`` JSON line (launches: each kernel's count over its
+engine's burst and session runs, phase 7's bursts for K1 and K4, phase
+8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
+phase 10's runs for K1, K3 and K4, and phase 11's runs for K1 and K4;
+times at the llama3-8b decode shape, and at the llama3-70b one beside
+them), then the card's name and power limit, then as its last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -162,6 +206,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -169,7 +214,11 @@ import torch.nn.functional as F
 
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.engine import EngineConfig, FinishReason, InferenceEngine, SamplingParams
+from omnia_tpu_torch.engine.coldstart import ColdStartTracker
+from omnia_tpu_torch.engine.faults import FaultPlan, WatchdogTimeout
+from omnia_tpu_torch.engine.flight import EVENTS, to_chrome_trace
 from omnia_tpu_torch.engine.grammar import compile_json_schema
+from omnia_tpu_torch.engine.scheduler import _InflightChunk
 from omnia_tpu_torch.engine.tokenizer import ByteTokenizer
 from omnia_tpu_torch.models import checkpoint as ckpt_io
 from omnia_tpu_torch.models import get_config, llama, quant
@@ -266,6 +315,25 @@ MOE_LAYERS, MOE_PARAM_BYTES = 24, 70_185_263_104
 MOE_CKPT_LAYERS, MOE_CKPT_BYTES = 1, 3_426_836_480
 MOE_ROWS = (8, 1024)
 MOE_H_MEAN = 0.05
+# Phase 11: the operations layer on llama3-8b started from a checkpoint:
+# its bf16 bytes, the free disk the write needs, the knobs of every
+# engine of the phase, the warmup threads of the two starts, the fault
+# plan (a hang twice the watchdog, two flaky submits), the bound on the
+# trip's lateness and the K1 engine's KV bytes the recovery reallocates.
+OPS_CKPT_BYTES = 16_060_522_496
+OPS_MIN_FREE_DISK = 20e9
+OPS = dict(flight_events=4096, watchdog_s=2.0)
+OPS_STARTS = (0, 2)
+OPS_FAULTS = dict(hang_dispatch_s=4.0, hang_count=1, flaky_submit=2)
+OPS_TRIP_LATE_S = 0.5
+OPS_KV_BYTES = 1_073_741_824
+
+
+def lap(label: str, t0: float) -> float:
+    """Print the seconds since t0 under label; returns now."""
+    now = time.monotonic()
+    print(f"{label} took {now - t0:.1f}s", flush=True)
+    return now
 
 
 def fail(msg: str) -> None:
@@ -979,7 +1047,9 @@ def sessions(label: str, engine, card: str) -> dict:
 
 def engines(card: str) -> dict:
     """Phases 5 and 6: the four engine runs, their session runs and the
-    greedy equalities; returns each kernel's launch count from its runs."""
+    greedy equalities; then phases 8 and 9 on the same weights. Returns
+    each kernel's launch count from its runs."""
+    t = time.monotonic()
     cfg = get_config("llama3-8b")
     params, launches, greedy, session_tokens = None, {}, {}, {}
     for label, (fields, n_requests) in ENGINES.items():
@@ -1014,10 +1084,13 @@ def engines(card: str) -> dict:
           f"{sum(map(len, greedy['K1']))} and {sum(map(len, greedy['K2']))} tokens; "
           f"session turns {sum(len(t) for per in session_tokens['K1'] for t in per)} and "
           f"{sum(len(t) for per in session_tokens['K2'] for t in per)} tokens", flush=True)
+    t = lap("phases 5-6", t)
     for label, n in agent(card, params).items():
         launches[label] += n
+    t = lap("phase 8", t)
     for label, n in stall_free_spec(card, params).items():
         launches[label] += n
+    lap("phase 9", t)
     return launches
 
 
@@ -2088,7 +2161,418 @@ def mixtral(card: str) -> dict:
     return launches
 
 
+# -- phase 11 --------------------------------------------------------------
+
+def ops_spec(ckpt: str, threads: int, **fields) -> ProviderSpec:
+    return ProviderSpec(name="ops", model="llama3-8b",
+                        options=dict(checkpoint_path=ckpt, warmup_threads=threads, **OPS,
+                                     **fields))
+
+
+def cold_start(ckpt: str, threads: int, card: str, cold_build: bool = False, **fields):
+    """One start through the provider path, as the runtime's bring-up
+    does it: the engine and its tracker, its seconds per phase and from
+    backend_init to ready. With ``cold_build`` K1's library is built
+    anew into an empty build directory during the start. The param-free
+    side thread's own start and end, and each kernel build's thread and
+    seconds, are stamped. Returns the engine and submit-to-ready."""
+    lib = KERNELS["K1"][0]
+    stamps, builds = {}, []
+    paramfree, build, build_dir = InferenceEngine._warmup_paramfree, kernels.build, \
+        kernels.BUILD_DIR
+
+    def stamped(self):
+        stamps["start"] = time.monotonic()
+        try:
+            paramfree(self)
+        finally:
+            stamps["end"] = time.monotonic()
+
+    def timed_build(name):
+        t0 = time.monotonic()
+        out = build(name)
+        builds.append(dict(name=name, thread=threading.current_thread().name,
+                           start=t0, seconds=time.monotonic() - t0))
+        return out
+
+    if cold_build:
+        kernels.BUILD_DIR = Path(tempfile.mkdtemp(prefix="omnia_ops_build_"))
+        kernels._loaded.pop(lib, None)
+    built_before = kernels.library_path(lib).is_file()
+    InferenceEngine._warmup_paramfree, kernels.build = stamped, timed_build
+    tracker = ColdStartTracker()
+    try:
+        t0 = time.monotonic()
+        tracker.begin_phase("backend_init")
+        engine = build_engine(ops_spec(ckpt, threads, **fields), device="cuda",
+                              coldstart=tracker)
+        engine.warmup()
+        engine.start()
+        tracker.mark_ready()
+        ready_s = time.monotonic() - t0
+    finally:
+        InferenceEngine._warmup_paramfree, kernels.build = paramfree, build
+        if cold_build:
+            shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
+            kernels.BUILD_DIR = build_dir
+    engine.stop()
+    snap = tracker.snapshot()
+    m = engine.metrics
+    run = f"cold start N={threads}"
+    if not m["weights_bytes_loaded"] == m["weights_bytes_total"] == OPS_CKPT_BYTES:
+        fail(f"{run}: weights {m['weights_bytes_loaded']} of "
+             f"{m['weights_bytes_total']} bytes loaded, expected {OPS_CKPT_BYTES}")
+    if m["warmup_programs_done"] != m["warmup_programs_total"] or not m["warmup_programs_total"]:
+        fail(f"{run}: {m['warmup_programs_done']} of "
+             f"{m['warmup_programs_total']} warmup programs done")
+    load = engine._flight.events("weights_load")[-1]
+    load_span = (load.mono - load.attrs["seconds"], load.mono)
+    side_inside = bool(stamps) and load_span[0] <= stamps["start"] <= stamps["end"] <= load_span[1]
+    if bool(stamps) != (threads > 0) or (threads > 0 and not side_inside):
+        fail(f"{run}: the param-free side thread ran {stamps or 'not at all'}, "
+             f"weights_load {load_span}")
+    if cold_build:
+        where = "omnia-warmup-overlap" if threads > 0 else "MainThread"
+        if built_before or [(b["name"], b["thread"]) for b in builds] != [(lib, where)]:
+            fail(f"{run}: K1's library built before the start: {built_before}; "
+                 f"builds {builds}, expected one of {lib} on {where}")
+    print("cold start " + json.dumps(dict(
+        card=card, warmup_threads=threads, fields=fields, phases_s=snap["phases_s"],
+        submit_to_ready_s=ready_s, programs=m["warmup_programs_total"],
+        manifest_hits=m["warmup_manifest_hits"], manifest_misses=m["warmup_manifest_misses"],
+        kernel_library_built_before_start=built_before,
+        kernel_builds=[dict(name=b["name"], thread=b["thread"], seconds=b["seconds"],
+                            after_weights_load_began_s=b["start"] - load_span[0])
+                       for b in builds],
+        side_thread_s=stamps["end"] - stamps["start"] if stamps else None,
+        side_thread_inside_weights_load=side_inside,
+        weights_bytes=m["weights_bytes_loaded"],
+        params_device_bytes=tree_bytes(engine.params),
+        checkpoint_read_from="the page cache: the file was written just before")), flush=True)
+    return engine, ready_s
+
+
+def flight_checks(run: str, engine, burst_wall_s: float, recorder_s: float,
+                  card: str) -> None:
+    """Phase 11 (b) on one engine after its burst: the event ledger equals
+    the engine's books, every request's stages tile its wall within 5%,
+    only the closed vocabulary occurs and the ring's Chrome export parses;
+    prints the TTFT split and the recorder's own share of the wall."""
+    rec, m = engine._flight, engine.metrics
+    evs = rec.events()
+    if rec.stats()["dropped"]:
+        fail(f"{run}: the flight ring dropped {rec.stats()['dropped']} events")
+    kinds = {e.kind for e in evs}
+    if not kinds <= EVENTS:
+        fail(f"{run}: flight kinds outside the vocabulary: {sorted(kinds - EVENTS)}")
+    submits, terms = rec.events("submit"), rec.events("terminal")
+    if len(submits) != m["requests_submitted"] or len(terms) != m["requests_finished"]:
+        fail(f"{run}: {len(submits)} submit and {len(terms)} terminal events against "
+             f"{m['requests_submitted']} submitted and {m['requests_finished']} finished")
+    sub_at = {e.request_id: e.mono for e in submits}
+    worst = 0.0
+    for e in terms:
+        bd = e.attrs["breakdown"]
+        wall = e.mono - sub_at[e.request_id]
+        staged = bd["queue_s"] + bd["placement_s"] + bd["decode_s"]
+        worst = max(worst, abs(staged - wall) / wall)
+    if worst > 0.05:
+        fail(f"{run}: a request's queue + placement + decode is {worst:.1%} off its wall")
+    doc = json.loads(json.dumps(to_chrome_trace(evs)))
+    if not doc["traceEvents"] or any("ph" not in ev for ev in doc["traceEvents"]):
+        fail(f"{run}: the Chrome-trace export is malformed")
+    burst = [e.attrs["breakdown"] for e in terms[-12:]]
+
+    def split(key):
+        vals = [b[key] * 1e3 for b in burst]
+        return {"p50": float(np.percentile(vals, 50)), "p99": float(np.percentile(vals, 99))}
+
+    print(f"flight {run} " + json.dumps(dict(
+        card=card, events=len(evs), kinds=sorted(kinds), terminals=len(terms),
+        worst_tiling_error=worst, ttft_ms=split("ttft_s"), queue_ms=split("queue_s"),
+        placement_ms=split("placement_s"), prefill_ms=split("prefill_s"),
+        recorder_s=recorder_s, burst_wall_s=burst_wall_s,
+        recorder_share_of_wall=recorder_s / burst_wall_s,
+        chrome_trace_events=len(doc["traceEvents"]))), flush=True)
+
+
+def timed_recorder(rec) -> dict:
+    """Wrap every note_* of one recorder with a timer, as the JAX bench
+    does: the recorder's own time, summed per call."""
+    acc = {"s": 0.0, "calls": 0}
+    for name in dir(rec):
+        if name.startswith("note_"):
+            def wrapped(*a, _orig=getattr(rec, name), **k):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    acc["s"] += time.perf_counter() - t0
+                    acc["calls"] += 1
+
+            setattr(rec, name, wrapped)
+    return acc
+
+
+def chunk_read_us(engine, reads: int = 2000) -> float:
+    """Host microseconds of one decode-chunk read through the engine's
+    seam, on a chunk whose copy has already run: the watchdog's drainer
+    hand-off with watchdog_s set, the direct wait without it."""
+    toks = torch.zeros((engine.cfg.decode_chunk, engine.cfg.num_slots), dtype=torch.int32,
+                       device="cuda")
+    ch = _InflightChunk(toks, [], 0.0)
+    torch.cuda.synchronize()
+    engine._sync_chunk_host(ch)           # the drainer thread is up
+    t0 = time.perf_counter()
+    for _ in range(reads):
+        engine._sync_chunk_host(ch)
+    return (time.perf_counter() - t0) / reads * 1e6
+
+
+def pinned_reuse_check() -> None:
+    """Fails unless the caching host allocator keeps a freed pinned
+    buffer from reuse while a non-blocking copy into it is still queued
+    (what makes recovery's drop of in-flight chunks safe), or if the copy
+    had already run when the buffer was freed (the check then shows
+    nothing)."""
+    src = torch.zeros(1 << 20, dtype=torch.int32, device="cuda")
+    torch.cuda._sleep(40 * SPIN_CYCLES)
+    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    host.copy_(src, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    first = host.data_ptr()
+    del host
+    again = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    queued = not copied.query()
+    reused_early = again.data_ptr() == first
+    torch.cuda.synchronize()
+    if not queued:
+        fail("pinned-buffer check: the copy had run before the buffer was freed")
+    if reused_early:
+        fail("a freed pinned buffer was reused while its non-blocking copy was queued")
+    print("pinned host buffer kept from reuse while its copy was queued: True", flush=True)
+
+
+def fault_run(run: str, engine, label: str, want_greedy: list, card: str) -> int:
+    """Phase 11 (c): with the fault plan set, 8 greedy submits, of which 2
+    raise; the one hang trips the watchdog between watchdog_s and
+    watchdog_s + OPS_TRIP_LATE_S after the read began, the requests in
+    flight end ERROR with their streamed counts, recovery reallocates
+    the KV caches and health returns; then the inline greedy requests
+    give the tokens they gave before. Returns the kernel's launches."""
+    plan = FaultPlan(**OPS_FAULTS)
+    engine._fault_plan = plan
+    trips, recover_s = [], []
+    sync, recover = engine._sync_chunk_host, engine._recover
+
+    def timed_sync(ch):
+        t0 = time.monotonic()
+        try:
+            return sync(ch)
+        except WatchdogTimeout:
+            trips.append(time.monotonic() - t0)
+            raise
+
+    def timed_recover(msg):
+        t0 = time.monotonic()
+        recover(msg)
+        recover_s.append(time.monotonic() - t0)
+
+    engine._sync_chunk_host, engine._recover = timed_sync, timed_recover
+    m0 = dict(engine.metrics)
+    rng = np.random.default_rng(13)
+
+    def serve_faulted():
+        engine.start()
+        raised, handles = 0, []
+        for n in (17, 64, 130, 300, 511, 700, 45, 900):
+            try:
+                handles.append(engine.submit(
+                    [int(t) for t in rng.integers(0, engine.model_cfg.vocab_size, n)],
+                    SamplingParams(temperature=0.0, max_tokens=48)))
+            except RuntimeError:
+                raised += 1
+        results = [h.collect_tokens(timeout=120) for h in handles]
+        deadline = time.monotonic() + 10
+        while not engine.healthy() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        engine.stop()
+        return raised, results
+
+    (raised, results), launches = checked_launches(label, engine, serve_faulted, run)
+    engine._fault_plan = None
+    engine._sync_chunk_host, engine._recover = sync, recover
+    m = engine.metrics
+    errors = 0
+    for toks, fin in results:
+        if fin.finish_reason == FinishReason.ERROR:
+            errors += 1
+            if fin.num_generated_tokens != len(toks):
+                fail(f"{run}: an ERROR partial counts {fin.num_generated_tokens} tokens, "
+                     f"streamed {len(toks)}")
+        elif fin.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP):
+            fail(f"{run}: a request ended {fin.finish_reason}")
+    trips_n = m["watchdog_trips"] - m0["watchdog_trips"]
+    recoveries = m["recoveries"] - m0["recoveries"]
+    if raised != OPS_FAULTS["flaky_submit"] or plan.fired["submit_faults"] != raised:
+        fail(f"{run}: {raised} submits raised, plan fired {plan.fired}")
+    if trips_n != 1 or recoveries != 1 or plan.fired["hangs"] != 1 or errors < 1:
+        fail(f"{run}: {trips_n} trips, {recoveries} recoveries, {errors} ERROR requests, "
+             f"plan fired {plan.fired}")
+    if not engine.healthy():
+        fail(f"{run}: the engine is not healthy after the recovery")
+    wd = engine.cfg.watchdog_s
+    if not (len(trips) == 1 and wd <= trips[0] <= wd + OPS_TRIP_LATE_S):
+        fail(f"{run}: the trip came {trips} s after the read began (watchdog_s {wd})")
+    if m["requests_finished"] != m["requests_submitted"]:
+        fail(f"{run}: {m['requests_finished']} finished of {m['requests_submitted']} submitted")
+    if engine.cfg.kv_pages and m["kv_pages_free"] != m["kv_pages_total"]:
+        fail(f"{run}: {m['kv_pages_free']} of {m['kv_pages_total']} pages free after recovery")
+    greedy, n = checked_launches(label, engine, lambda: greedy_inline(engine), run)
+    if greedy != want_greedy:
+        fail(f"{run}: greedy tokens after the recovery differ from before the fault")
+    print(f"faults {run} " + json.dumps(dict(
+        card=card, submits_raised=raised, trips=trips_n, trip_after_s=trips[0],
+        watchdog_s=wd, recoveries=recoveries, error_requests=errors,
+        served_requests=len(results) - errors, recovery_ms=recover_s[0] * 1e3,
+        kv_device_bytes=m["kv_quant_device_bytes"], healthy=engine.healthy(),
+        plan_fired=plan.fired, greedy_tokens_equal=True)), flush=True)
+    return launches + n
+
+
+def ops_layer(card: str) -> dict:
+    """Phase 11: llama3-8b at full width and depth started from a
+    checkpoint through build_engine with the operations layer on. (a)
+    Two cold starts, warmup_threads 0 then 2; (b) the flight recorder
+    over the burst on K1 and on int8 + paged (K4), the recorder's cost;
+    (c) the watchdog and faults on each. Returns each kernel's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3-8b")
+    want = ckpt_io.expected_param_bytes(cfg)
+    if want != OPS_CKPT_BYTES or cfg.num_params() * 2 != want:
+        fail(f"llama3-8b: reckoned {want} and {cfg.num_params() * 2} bytes, "
+             f"expected {OPS_CKPT_BYTES}")
+    tmp = tempfile.mkdtemp(prefix="omnia_ops_ckpt_")
+    manifests = tempfile.mkdtemp(prefix="omnia_ops_manifest_")
+    os.environ["OMNIA_WARMUP_MANIFEST_DIR"] = manifests
+    launches = {"K1": 0, "K4": 0}
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < OPS_MIN_FREE_DISK:
+            fail(f"phase 11 needs {OPS_MIN_FREE_DISK / 1e9:.0f} GB of free disk for the "
+                 f"checkpoint, {tmp} has {free / 1e9:.1f} GB")
+        params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
+        t0 = time.monotonic()
+        ckpt_io.save_params(params, cfg, tmp, max_shard_bytes=4 * 2**30)
+        print(f"ops checkpoint llama3-8b bf16: {want} bytes saved in "
+              f"{time.monotonic() - t0:.1f}s to a disk with {free / 1e9:.1f} GB free",
+              flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) Two starts, each building K1's library anew: the build in
+        # warmup, then on the side thread beside the weights' stream.
+        greedy, ready = [], []
+        for threads in OPS_STARTS:
+            engine, ready_s = cold_start(tmp, threads, card, cold_build=True)
+            ready.append(ready_s)
+            out, n = checked_launches("K1", engine, lambda: greedy_inline(engine),
+                                      f"K1 start N={threads}")
+            greedy.append(out)
+            launches["K1"] += n
+            if threads != OPS_STARTS[-1]:
+                del engine
+                gc.collect()
+                torch.cuda.empty_cache()
+        if engine.metrics["warmup_manifest_misses"] or not engine.metrics["warmup_manifest_hits"]:
+            fail("the second start did not find the first's warmup manifest: "
+                 f"{engine.metrics['warmup_manifest_misses']} misses")
+        if greedy[0] != greedy[1]:
+            fail("the two starts' inline greedy tokens differ")
+        print("cold start overlap " + json.dumps(dict(
+            card=card, warmup_threads=OPS_STARTS, submit_to_ready_s=ready,
+            saved_s=ready[0] - ready[1])), flush=True)
+
+        # (b) The flight recorder over the burst, and its cost and the
+        # watchdog's: decode windows in turns on this engine (recorder
+        # and watchdog), one with the watchdog only, and one with neither.
+        acc = timed_recorder(engine._flight)
+        t0 = time.monotonic()
+        launches["K1"] += serve("K1", engine, card, 12, run="K1 llama3-8b ops")
+        flight_checks("K1", engine, time.monotonic() - t0, acc["s"], card)
+        arms = {"both": engine}
+        for key, ecfg in (("watchdog", EngineConfig(watchdog_s=OPS["watchdog_s"])),
+                          ("neither", EngineConfig())):
+            arms[key] = InferenceEngine(engine.model_cfg, ecfg, params=engine.params, seed=0,
+                                        device="cuda")
+            arms[key].warmup()
+        step_ms = {key: [] for key in arms}
+        wd = arms["watchdog"]
+        reads, sync = [0], wd._sync_chunk_host
+
+        def counted(ch):
+            reads[0] += 1
+            return sync(ch)
+
+        wd._sync_chunk_host, steps0 = counted, wd.metrics["decode_steps"]
+        for key in ("both", "watchdog", "neither", "neither", "watchdog", "both",
+                    "watchdog", "both", "neither"):
+            e = arms[key]
+            ms, n = checked_launches("K1", e, lambda: decode_window(e), f"K1 window {key}")
+            step_ms[key].append(ms)
+            launches["K1"] += n
+        wd._sync_chunk_host = sync
+        reads_per_step = reads[0] / (wd.metrics["decode_steps"] - steps0)
+        # The seam alone, in turns: the hand-off against the direct wait.
+        read_us = {"watchdog": [], "neither": []}
+        for key in ("watchdog", "neither", "neither", "watchdog", "watchdog", "neither"):
+            read_us[key].append(chunk_read_us(arms[key]))
+        del arms, e, wd
+        med = {key: statistics.median(v) for key, v in step_ms.items()}
+        handoff_us = statistics.median(read_us["watchdog"]) - statistics.median(read_us["neither"])
+        print("flight recorder and watchdog decode windows " + json.dumps(dict(
+            card=card, ms_per_step=step_ms, median_ms_per_step=med,
+            recorder_ms_per_step=med["both"] - med["watchdog"],
+            watchdog_ms_per_step=med["watchdog"] - med["neither"],
+            spread_ms={key: max(v) - min(v) for key, v in step_ms.items()},
+            chunk_read_us=read_us, watchdog_handoff_us_per_read=handoff_us,
+            chunk_reads_per_decode_step=reads_per_step,
+            watchdog_handoff_ms_per_step=handoff_us * reads_per_step / 1e3)), flush=True)
+
+        # (c) The watchdog and faults on K1; the pinned-buffer rule.
+        pinned_reuse_check()
+        launches["K1"] += fault_run("K1 llama3-8b ops", engine, "K1", greedy[0], card)
+        if engine.metrics["kv_quant_device_bytes"] != OPS_KV_BYTES:
+            fail(f"K1 KV bytes {engine.metrics['kv_quant_device_bytes']}, "
+                 f"expected {OPS_KV_BYTES}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) and (c) on int8 + paged (K4), built the same way.
+        engine, _ = cold_start(tmp, OPS_STARTS[-1], card, kv_quant="int8", **PAGED)
+        acc = timed_recorder(engine._flight)
+        t0 = time.monotonic()
+        launches["K4"] += serve("K4", engine, card, 12, run="K4 llama3-8b ops")
+        flight_checks("K4", engine, time.monotonic() - t0, acc["s"], card)
+        before, n = checked_launches("K4", engine, lambda: greedy_inline(engine), "K4 ops")
+        launches["K4"] += n
+        launches["K4"] += fault_run("K4 llama3-8b ops", engine, "K4", before, card)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(manifests, ignore_errors=True)
+        os.environ.pop("OMNIA_WARMUP_MANIFEST_DIR", None)
+    return launches
+
+
 def main() -> None:
+    t_script = time.monotonic()
     card = device_line()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -2102,23 +2586,32 @@ def main() -> None:
     for src in built:
         print(f"ptxas {src}: {ptxas_summary(src)}", flush=True)
 
+    t = time.monotonic()
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     cases = [kernel_cases(m, dt, flush) for m in ("llama3-8b", "llama3-1b")
              for dt in (torch.bfloat16, torch.float32)]
     cases.append(kernel_cases("llama3-70b", torch.bfloat16, flush))
     del flush
+    t = lap("phase 3", t)
     reference_check()
     qdot_check()
+    t = lap("phase 4", t)
 
     launches = engines(card)
+    t = time.monotonic()
 
     qdot_times(card)
     launches["K1"] += serve_70b(card)
     launches["K4"] += serve_w8a8(card)
     provider_path(card)
+    t = lap("phase 7", t)
     for label, n in mixtral(card).items():
         launches[label] += n
-
+    t = lap("phase 10", t)
+    for label, n in ops_layer(card).items():
+        launches[label] += n
+    lap("phase 11", t)
+    lap("phases 1-11", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
     main_case, case_70b = cases[0], cases[-1]
     entries = []

@@ -30,6 +30,14 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
 - **Terminals in the caller's enum.** ``finish_reasons`` names the enum
   class final events carry (the JAX package's, for its runtime and
   coordinator); by default the port's own.
+- **Operations** (``warmup.py``, ``coldstart.py``, ``flight.py``,
+  ``faults.py``, ``devloop.py``): warmup runs every program shape before
+  readiness, in order (``warmup_threads > 0`` only overlaps the
+  param-free tasks with the weights loader); a ``coldstart=`` tracker records the bring-up
+  phases; ``flight_events > 0`` keeps a ring of lifecycle events and
+  per-request latency breakdowns; ``watchdog_s`` bounds a decode chunk's
+  host read, and a trip fails the requests in flight and reallocates the
+  device state.
 - **Everything stays on the device.** Sampled tokens feed the next step
   as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
   cross to the host, for streaming and stop logic.
@@ -41,8 +49,8 @@ dispatch policy in ``scheduler.py``, the token-budget policy in
 ``interleave.py``, speculation in ``spec_decode.py``, placement in ``placement.py``,
 session residency in ``sessions.py``, the shared-prefix pool in
 ``prefix_cache.py``, the thread lifecycle in ``lifecycle.py``, the page
-pool's books in ``paged.py``; this module owns construction, submission
-and warmup.
+pool's books in ``paged.py``, warmup in ``warmup.py``; this module owns
+construction and submission.
 """
 
 from __future__ import annotations
@@ -56,7 +64,11 @@ from typing import Optional
 
 import torch
 
-from omnia_tpu_torch import kernels, resolve_device
+from omnia_tpu_torch import resolve_device
+from omnia_tpu_torch.engine.coldstart import PHASE_CODES, ColdStartTracker, build_cache_dir
+from omnia_tpu_torch.engine.devloop import DevLoopState
+from omnia_tpu_torch.engine.faults import FaultPlan
+from omnia_tpu_torch.engine.flight import FlightRecorder
 from omnia_tpu_torch.engine.interleave import _InflightPrefill, _InterleaveMixin
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
 from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
@@ -67,6 +79,7 @@ from omnia_tpu_torch.engine.programs import build_programs
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
 from omnia_tpu_torch.engine.sessions import _SessionKV, _SessionMixin, _Slot
 from omnia_tpu_torch.engine.spec_decode import _SpecDecodeMixin, validate_spec_config
+from omnia_tpu_torch.engine.warmup import _WarmupMixin
 from omnia_tpu_torch.engine.types import (
     MAX_DEVICE_STOP_IDS,
     EngineConfig,
@@ -77,8 +90,7 @@ from omnia_tpu_torch.engine.types import (
     resolve_dtype,
 )
 from omnia_tpu_torch.models import ModelConfig, llama, quant
-from omnia_tpu_torch.models.kv_quant import cache_bytes, kv_device, kv_host, validate_kv_quant
-from omnia_tpu_torch.ops.decode_attention import edition
+from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
 
 logger = logging.getLogger(__name__)
@@ -87,7 +99,6 @@ logger = logging.getLogger(__name__)
 # away from its default, each one is refused at construction.
 _UNPORTED_KNOBS = (
     ("dp", "A13"), ("tp", "A13"), ("sp", "A13"), ("decode_ring", "A item 2"),
-    ("flight_events", "A11"), ("watchdog_s", "A11"), ("warmup_threads", "A11"),
 )
 
 
@@ -103,19 +114,27 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
 
 
 class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _SessionMixin,
-                      _PrefixCacheMixin, _PlacementMixin, _PagedKVMixin, _LifecycleMixin):
+                      _PrefixCacheMixin, _PlacementMixin, _PagedKVMixin, _LifecycleMixin,
+                      _WarmupMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig = EngineConfig(),
-                 params=None, seed: int = 0, device=None, finish_reasons=None):
+                 params=None, seed: int = 0, device=None, finish_reasons=None,
+                 coldstart: Optional[ColdStartTracker] = None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
+        # Bring-up phases, weight bytes and warmup progress. A caller that
+        # measures the backend's bring-up (the runtime server) passes its
+        # own tracker with backend_init begun; construction closes it.
+        self._coldstart = coldstart or ColdStartTracker()
         # The enum class final events carry; any enum with the same
         # values (the JAX package's FinishReason) may be passed.
         self._finish_reasons = finish_reasons or FinishReason
         _refuse_unported(engine_cfg)
+        if engine_cfg.warmup_threads < 0:
+            raise ValueError("warmup_threads must be >= 0")
         self._gr_on = bool(engine_cfg.grammar)
         if self._gr_on and engine_cfg.grammar_max_states < 2:
             raise ValueError("grammar_max_states must be >= 2 with grammar on")
@@ -135,6 +154,19 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             self._prefix_pool = PrefixPool(engine_cfg.prefix_cache_slots,
                                            engine_cfg.prefix_cache_host_entries,
                                            clock=lambda: self.clock())
+
+        # The flight recorder (flight.py): None with flight_events = 0, so
+        # every seam is one None check. It keeps its own monotonic clock,
+        # never self.clock. Made before the weights load so that the
+        # init phases have somewhere to land.
+        self._flight: Optional[FlightRecorder] = (
+            FlightRecorder(engine_cfg.flight_events) if engine_cfg.flight_events > 0 else None
+        )
+        # The runtime sets its tracer here: submits that carry a
+        # trace_ctx then open an omnia.engine.request span (flight on).
+        self.tracer = None
+        # Fault injection (faults.py); None outside tests and smoke runs.
+        self._fault_plan: Optional[FaultPlan] = None
 
         progs = build_programs(model_cfg, engine_cfg)
         self._prefill_insert_fn = progs.prefill_insert
@@ -156,6 +188,14 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._mixed_spec_fns = progs.mixed_spec
         self._mixed_spec_sample_fns = progs.mixed_spec_sample
 
+        if self.device.type == "cuda":
+            # The CUDA context and the caching allocator's first block.
+            torch.empty(1, device=self.device)
+        backend_init_s = self._coldstart.end_phase("backend_init")
+        if self._flight is not None:
+            self._flight.note_init_phase("backend_init", {
+                "backend": self.device.type, "seconds": backend_init_s,
+            })
         self.params = self._resolve_params(params, seed)
 
         B = engine_cfg.num_slots
@@ -174,6 +214,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # The at most one placement mid-interleave (engine/interleave.py);
         # always None with prefill_chunk_tokens = 0.
         self._prefilling: Optional[_InflightPrefill] = None
+        # The drainer behind the watchdog (devloop.py); None, and no
+        # thread, without watchdog_s.
+        self._devloop: Optional[DevLoopState] = (
+            DevLoopState() if engine_cfg.watchdog_s is not None else None
+        )
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
         self._healthy = True
@@ -218,6 +263,8 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             "interleaved_prefill_tokens": 0,
             "requests_shed": 0,
             "deadline_exceeded": 0,
+            # Hung-dispatch watchdog firings (each one also recovers).
+            "watchdog_trips": 0,
             "recoveries": 0,
             "decode_stall_steps": 0,
             # Grammars: compile_hits/misses read this package's compile
@@ -243,10 +290,26 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             "kv_pages_free": 0,
             "kv_page_fragmentation": 0.0,
             "kv_page_cow_copies": 0,
+            "flight_enabled": 1 if self._flight is not None else 0,
+            # Cold start (coldstart.py): whether the persistent build
+            # cache is writable (this package's analog of the compile
+            # cache), the PHASE_CODES index of the bring-up (0 idle → 5
+            # ready), warmup progress, the manifest's verdict, and the
+            # weights streamed by a loader.
+            "compile_cache_enabled": 1 if build_cache_dir() else 0,
+            "warmup_phase": PHASE_CODES[self._coldstart.current_phase()],
+            "warmup_programs_total": 0,
+            "warmup_programs_done": 0,
+            "warmup_manifest_hits": 0,
+            "warmup_manifest_misses": 0,
+            "weights_bytes_total": 0,
+            "weights_bytes_loaded": 0,
         }
         self._gr_mask_sum = 0.0
         self._gr_mask_steps = 0
         self._init_device_state()
+        # A loader streamed its weights before the metrics existed.
+        self._sync_coldstart_metrics()
 
     def _resolve_params(self, params, seed: int):
         """The engine's weights under ``EngineConfig.quant``: a loader
@@ -256,9 +319,9 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         params with ``quant`` set are quantized on their device."""
         qmode = quant.validate_mode(self.cfg.quant)
         if callable(params):
-            # A streaming checkpoint loader (runtime/providers.py);
-            # overlapping it with warmup is ROADMAP A11.
-            params = params()
+            # A streaming checkpoint loader (runtime/providers.py), under
+            # the weights_load phase (warmup.py).
+            params = self._load_params_overlapped(params)
         if params is not None and quant.params_quantized(params):
             # Its mode is authoritative: a silent w8/w8d mismatch would
             # serve the wrong arithmetic.
@@ -282,6 +345,15 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             return quant.quantize_params(params, self.model_cfg, qmode)
         return params
 
+    def _alloc_kv_state(self):
+        """Fresh slot caches (ck, cv) at the engine's layout and
+        representation: the allocation half of ``_init_device_state``,
+        also the loader overlap's scratch state. Touches no books."""
+        if self.cfg.kv_pages > 0:
+            return self._alloc_paged_kv()
+        return llama.init_kv_cache(self.model_cfg, self.cfg.num_slots, self.cfg.max_seq,
+                                   self.device, dtype=self._dtype, kv_quant=self._kv_quant)
+
     def _init_device_state(self):
         """(Re)allocate the KV caches (and the page books) and per-slot
         device state."""
@@ -292,10 +364,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             # One page pool serves the slots and the prefix entries.
             self._init_paged_state()
         else:
-            self._ck, self._cv = llama.init_kv_cache(
-                self.model_cfg, B, self.cfg.max_seq, dev, dtype=self._dtype,
-                kv_quant=self._kv_quant,
-            )
+            self._ck, self._cv = self._alloc_kv_state()
             if self._prefix_pool is not None:
                 # The pool [L, P, R, H, D] in the cache's representation;
                 # device entries died with the old one, host-tier entries
@@ -365,7 +434,10 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         the one hard limit is the cache (max_seq - 2). With a grammar
         (either package's compiled grammar; grammar=True) every sampled
         token is FSM-masked on the device and EOS is admissible only in
-        accepting states."""
+        accepting states. With a trace_ctx (a W3C traceparent) and the
+        flight recorder on, the request's span joins that trace."""
+        if self._fault_plan is not None and self._fault_plan.take_submit_fault():
+            raise RuntimeError("injected flaky submit (FaultPlan)")
         rid = f"req-{next(self._req_counter)}"
         handle = RequestHandle(rid)
         request = Request(rid, list(prompt_tokens), params, session_id=session_id,
@@ -384,6 +456,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             else:
                 self._waiting.append((request, handle))
                 self.metrics["requests_submitted"] += 1
+                if self._flight is not None:
+                    # Inside the admission critical section: the engine
+                    # thread cannot claim the request before its submit
+                    # event is recorded.
+                    self._flight.note_submit(rid, len(prompt_tokens), trace_ctx, self.tracer)
                 return handle
             self.metrics["requests_shed"] += 1
         self._push_final(handle, rid, FinishReason.OVERLOADED, error=shed_why)
@@ -429,61 +506,6 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         return self.active_slots()
 
     def healthy(self) -> bool:
-        """False once recovery itself failed (the readiness signal)."""
+        """The readiness signal: false from a watchdog trip until the
+        recovery has run on the device, and once a recovery failed."""
         return self._healthy
-
-    def warmup(self):
-        """Build the kernel and run every program once at every shape a
-        request can give it: each prefill bucket, an extend piece per
-        bucket and of one token, an offload and a restore per restore
-        bucket, each decode chunk size, each mixed step and the verify
-        window. Then restore the device state and the metrics warmup
-        touched."""
-        if self.device.type == "cuda":
-            kernels.load(edition(self._kv_quant is not None, self.cfg.kv_pages > 0))
-        metrics_before = dict(self.metrics)
-        sp = SamplingParams(temperature=0.0)
-        for bucket in self.cfg.usable_buckets():
-            self._fresh_prefill(0, [0] * bucket, sp)
-        for b in sorted(set(self.cfg.usable_buckets()) | {1}):
-            self._extend_fn(*self._piece_args(0, [0] * b, 0, b, b), b - 1,
-                            *self._sampler_args(0, sp), *self._grammar_args(None, sp))
-        for rows in self.cfg.restore_buckets():
-            self._prepare_slot_write(0, 0, rows)
-            k, v = self._offload_fn(self._ck, self._cv, 0, rows)
-            self._restore_fn(self._ck, self._cv, kv_device(kv_host(k), self.device),
-                             kv_device(kv_host(v), self.device), 0)
-        for chunk in self._decode_fns:
-            self._run_decode_step(chunk)
-        self._warm_mixed_and_verify(sp)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._init_device_state()
-        self.metrics.update(metrics_before)
-
-    def _warm_mixed_and_verify(self, sp: SamplingParams) -> None:
-        """Warmup's share of the mixed and verify programs: each piece
-        bucket's mixed step in every edition, and the verify window with
-        and without its decode step, over slot 0 and an all-idle batch."""
-        decode = (self.params, self._ck, self._cv, self._tokens, self._positions, self._active,
-                  self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
-                  self._top_k)
-        g = (self._gstate, self._gtable, self._gactive) if self._gr_on else ()
-        verify = ()
-        if self._verify_fn is not None:
-            B, W = self.cfg.num_slots, self.cfg.spec_window()
-            zeros = torch.zeros((B, W + 1), dtype=torch.int32, device=self.device)
-            pos = torch.arange(W + 1, dtype=torch.int32, device=self.device).expand(B, W + 1)
-            verify = (zeros, pos.contiguous(), zeros[:, 0].contiguous(),
-                      torch.zeros(B, dtype=torch.bool, device=self.device))
-            self._prepare_slot_write(0, 0, W + 1)
-            self._verify_fn(self.params, self._ck, self._cv, *verify[:3], *g)
-            self._verify_decode_fn(*decode, *verify, *g)
-        for b in self.cfg.mixed_prefill_buckets():
-            piece = self._piece_args(0, [0] * b, 0, b, b)[3:]
-            first = (b - 1, *self._sampler_args(0, sp), *self._grammar_args(None, sp))
-            self._mixed_fns[b](*decode, *piece, *g)
-            self._mixed_sample_fns[b](*decode, *piece, *first, *g)
-            if verify:
-                self._mixed_spec_fns[b](*decode, *piece, *verify, *g)
-                self._mixed_spec_sample_fns[b](*decode, *piece, *verify, *first, *g)

@@ -1,0 +1,665 @@
+"""Engine flight recorder: step-level tracing and latency decomposition
+(port of ``omnia_tpu/engine/flight.py``).
+
+The serving engine's black-box answer to "where did this request's
+300 ms go?". A :class:`FlightRecorder` is a lock-disciplined, fixed-size
+ring buffer of structured :class:`FlightEvent` rows recorded at every
+request-lifecycle seam — submit, claim, placement (incl. prefix-pool
+seeding), each prefill piece / mixed step / decode chunk with the
+host-side dispatch-vs-sync wall split, each speculative verify step
+with its proposed/accepted counts, grammar attach, session
+offload/restore, coordinator failover/resubmit/shed, terminal — plus a
+per-request :class:`LatencyBreakdown` (queue_s, placement_s, prefill_s,
+ttft_s, per-token decode_s, stall_steps) attached to terminal events.
+
+Design constraints, in order:
+
+- **Strictly host-side.** Every timestamp is ``time.monotonic()`` taken
+  on the host between enqueues; nothing here touches a device tensor,
+  and the module imports no torch, so the dump CLI runs on any box.
+- **Bounded.** The ring holds ``capacity`` events; older events are
+  overwritten (counted in ``dropped``). Per-request open state lives in
+  a dict keyed by request id and is deleted at the terminal, so a
+  recorder on a long-lived engine cannot grow without bound.
+- **Cheap when off.** ``EngineConfig.flight_events=0`` means the engine
+  holds no recorder at all (``self._flight is None``); every engine seam
+  is a single ``is not None`` check.
+- **Trace-continuous.** ``note_submit`` accepts a W3C ``traceparent``
+  (from the runtime's llm span, propagated by the coordinator through
+  failover/resubmit) and opens a child ``omnia.engine.request`` span in
+  the engine's tracer (a duck type: anything with
+  ``start_span(name, traceparent=, attrs=)``, such as the runtime's
+  ``Tracer``); the terminal closes it with the breakdown stamped on, so
+  one trace id covers facade, runtime and engine.
+
+Export: ``dump_jsonl`` writes one JSON object per event;
+``to_chrome_trace`` converts a dump (or a live snapshot) into
+Chrome-trace/Perfetto JSON: ``python -m omnia_tpu_torch.engine.flight
+<dump.jsonl> [-o trace.json]`` from the command line, then load the
+result in Perfetto/``chrome://tracing``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from omnia_tpu_torch.utils.metrics import Histogram
+
+#: The engine request span's name, the runtime tracer's ``SPAN_ENGINE``
+#: (kept here as a string: this package imports nothing of the runtime).
+SPAN_ENGINE = "omnia.engine.request"
+
+#: The event vocabulary: the stable kind set every recorder (engine,
+#: mock, coordinator) draws from, the JAX package's set exactly. This
+#: package's engine records no coordinator kinds and no ``ring_drain``
+#: (the decode ring is not ported).
+EVENTS = frozenset({
+    "submit",          # request accepted into the queue
+    "claim",           # scheduler claimed it from the queue
+    "placement",       # slot activated (attrs: slot, reuse, seeded, ...)
+    "prefill_piece",   # one monolithic prefill/extend piece dispatched
+    "mixed_step",      # fused prefill+decode dispatch (interleaving)
+    "decode_chunk",    # one decode chunk: dispatch_s + sync_s wall split
+    "spec_verify",     # one speculative verify dispatch: proposed/accepted
+    "grammar_attach",  # grammar table attached to a slot
+    "offload",         # session KV rows paged device→host
+    "restore",         # session KV rows paged host→device
+    "failover",        # coordinator moved work off a failing worker
+    "resubmit",        # coordinator re-placed a zero-token death
+    "shed",            # coordinator shed before routing (fleet saturated)
+    "migrate",         # scale-down moved a session to a survivor (or
+                       # booked its fresh-prefill fallback)
+    "handoff",         # disaggregated first-turn handoff: session left
+                       # its prefill worker for the decode tier (attrs:
+                       # src/dest ids, export_s/import_s split, reprefill
+                       # on the counted fresh-prefill fallback)
+    "drain",           # one worker's graceful drain finished (attrs:
+                       # worker, seconds — slow-drain attribution)
+    "ring_drain",      # token-ring buffer(s) drained on the drainer
+                       # thread (engine/devloop.py; attrs: buffers,
+                       # tokens, seconds — async readback attribution)
+    "terminal",        # request finished (attrs carry the breakdown)
+    # Cold-start phases (engine/coldstart.py): the submit-to-ready
+    # bring-up seams, so an accelerator hang is attributed to a PHASE
+    # (backend init vs weight streaming vs compile) instead of one
+    # opaque timeout. Recorded once per engine bring-up, request_id "".
+    "backend_init",    # accelerator backend observed up (engine built)
+    "weights_load",    # checkpoint streaming finished (attrs: bytes, seconds)
+    "warmup_compile",  # AOT program set compiled (attrs: programs, threads)
+    "warmup_restore",  # post-warmup pristine-state restore finished
+})
+
+#: The init-phase subset of EVENTS (``note_init_phase`` accepts only
+#: these; the Chrome export renders their ``seconds`` attr as duration).
+INIT_EVENTS = frozenset({
+    "backend_init", "weights_load", "warmup_compile", "warmup_restore",
+})
+
+# Microsecond-scale buckets for the per-dispatch histograms (host
+# dispatch/sync of one compiled step — µs on-box, ms over a tunnel).
+_US_BUCKETS = (50, 100, 250, 500, 1000, 2500, 5000, 10000, 25000,
+               50000, 100000, 250000, 1000000)
+_S_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+              1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+@dataclasses.dataclass(slots=True)
+class FlightEvent:
+    """One recorded lifecycle event.
+
+    ``ts`` is wall-clock unix seconds (cross-process correlation);
+    ``mono`` is ``time.monotonic()`` seconds — all duration/timeline
+    math uses it, so an NTP step cannot corrupt a breakdown. Slotted,
+    unfrozen dataclass: events are created on the decode hot path, and
+    a frozen dataclass pays object.__setattr__ per field there.
+    Float attrs are stored raw and rounded only at export."""
+
+    seq: int
+    ts: float
+    mono: float
+    kind: str
+    request_id: str = ""
+    attrs: dict = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return {
+            "seq": self.seq, "ts": round(self.ts, 6),
+            "mono": round(self.mono, 6), "kind": self.kind,
+            "request_id": self.request_id,
+            "attrs": {
+                k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in self.attrs.items()
+            },
+        }
+
+
+@dataclasses.dataclass
+class LatencyBreakdown:
+    """Where one request's wall time went, stage by stage.
+
+    ``queue_s`` (submit→claim) + ``placement_s`` (claim→slot active,
+    prefill included) + ``decode_s`` (first token→terminal) sum to the
+    request's wall time up to the tiny claim/activate bookkeeping gaps
+    (tests pin the sum within 5%). ``prefill_s`` is the host dispatch
+    wall spent inside placement on prefill/extend/seed programs (a
+    subset of ``placement_s``); ``ttft_s`` is submit→first token;
+    ``decode_s_per_token`` is the mean inter-token gap; ``stall_steps``
+    counts engine decode-stall steps observed during this request's
+    lifetime (prefill-first dispatches that idled live decode)."""
+
+    queue_s: float = 0.0
+    placement_s: float = 0.0
+    prefill_s: float = 0.0
+    ttft_s: float = 0.0
+    decode_s: float = 0.0
+    decode_s_per_token: float = 0.0
+    tokens: int = 0
+    stall_steps: int = 0
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        return {
+            k: (round(v, 6) if isinstance(v, float) else v)
+            for k, v in d.items()
+        }
+
+
+class _Open:
+    """Per-request open state (recorder-private, guarded by the
+    recorder's lock): the stage timestamps the terminal breakdown is
+    computed from, plus the request's engine span when tracing is on.
+
+    Deliberately NO per-token state: the emit hot path never touches
+    the recorder — first-token time arrives at the terminal from the
+    handle's own ``first_token_at`` stamp (same monotonic domain)."""
+
+    __slots__ = ("submitted", "claimed", "placed", "prefill_s",
+                 "stall_base", "span")
+
+    def __init__(self, now: float, stall_base: int, span) -> None:
+        self.submitted = now
+        self.claimed: Optional[float] = None
+        self.placed: Optional[float] = None
+        self.prefill_s = 0.0
+        self.stall_base = stall_base
+        self.span = span
+
+
+class FlightRecorder:
+    """Fixed-size ring of lifecycle events + per-request latency books.
+
+    Thread-safe: submits arrive on caller threads, step events on the
+    engine thread, terminals on either (drain) — every mutation runs
+    under one internal lock, held only for O(1) bookkeeping (no RPCs,
+    no device syncs, no I/O)."""
+
+    def __init__(self, capacity: int, clock: Callable[[], float] = time.monotonic):
+        if capacity <= 0:
+            raise ValueError("FlightRecorder needs capacity > 0; use "
+                             "flight_events=0 to disable recording")
+        self.capacity = capacity
+        self._clock = clock
+        # Wall timestamps derive from one base pair (wall@construction,
+        # mono@construction): the hot path then pays ONE clock read per
+        # event instead of two. An NTP step after construction shifts
+        # exported ts uniformly — durations come from mono regardless.
+        self._wall_base = time.time()
+        self._mono_base = clock()
+        self._lock = threading.Lock()
+        self._ring: "deque[FlightEvent]" = deque(maxlen=capacity)  # guarded-by: _lock
+        self._seq = 0  # guarded-by: _lock
+        self._open: dict[str, _Open] = {}  # guarded-by: _lock
+        self._stalls = 0  # guarded-by: _lock
+        self._recorded = 0  # guarded-by: _lock
+        self._dropped = 0  # guarded-by: _lock
+        # Step-timing histograms: Prometheus-shaped, registered into a
+        # utils.metrics Registry by bind_engine_metrics (the names are
+        # the engine family's stable exposition surface).
+        self.hist = {
+            "ttft": Histogram("omnia_engine_ttft_seconds", buckets=_S_BUCKETS),
+            "inter_token": Histogram(
+                "omnia_engine_inter_token_seconds", buckets=_S_BUCKETS),
+            "queue_wait": Histogram(
+                "omnia_engine_queue_wait_seconds", buckets=_S_BUCKETS),
+            "dispatch_us": Histogram(
+                "omnia_engine_dispatch_us", buckets=_US_BUCKETS),
+            "sync_us": Histogram("omnia_engine_sync_us", buckets=_US_BUCKETS),
+        }
+
+    # -- recording core -------------------------------------------------
+
+    def _record(self, kind: str, request_id: str, attrs: dict) -> None:
+        """Append one event to the ring (self-locking: the per-request
+        stage books and the ring are updated in separate tiny critical
+        sections — each event row is internally consistent, and the
+        ring's seq/mono are stamped at append time)."""
+        assert kind in EVENTS, f"unknown flight event kind {kind!r}"
+        ev_mono = self._clock()
+        ev_ts = self._wall_base + (ev_mono - self._mono_base)
+        with self._lock:
+            if len(self._ring) == self.capacity:
+                self._dropped += 1
+            self._ring.append(FlightEvent(
+                self._seq, ev_ts, ev_mono, kind, request_id, attrs,
+            ))
+            self._seq += 1
+            self._recorded += 1
+
+    # -- lifecycle seams ------------------------------------------------
+
+    def note_submit(self, request_id: str, n_prompt: int,
+                    trace_ctx: Optional[str] = None, tracer=None) -> None:
+        """Request accepted. Opens the per-request books and, when a
+        tracer and remote context are wired, the child engine span —
+        sampling follows the remote decision (an unsampled parent yields
+        a no-op span that exports nothing)."""
+        span = None
+        if tracer is not None and trace_ctx:
+            span = tracer.start_span(
+                SPAN_ENGINE, traceparent=trace_ctx,
+                attrs={"request.id": request_id,
+                       "llm.prompt_tokens": n_prompt},
+            )
+        with self._lock:
+            self._open[request_id] = _Open(self._clock(), self._stalls, span)
+        self._record("submit", request_id, {
+            "n_prompt": n_prompt, "traced": span is not None,
+        })
+
+    def note_claim(self, request_id: str) -> None:
+        wait = None
+        with self._lock:
+            o = self._open.get(request_id)
+            if o is not None:
+                o.claimed = self._clock()
+                wait = o.claimed - o.submitted
+        self._record("claim", request_id, {})
+        if wait is not None:
+            self.hist["queue_wait"].observe(wait)
+
+    def note_placement(self, request_id: str, slot: int, n_prompt: int,
+                       reuse: int = 0, seeded: int = 0,
+                       prefill_s: float = 0.0, stalled: bool = False) -> None:
+        with self._lock:
+            o = self._open.get(request_id)
+            if o is not None:
+                o.placed = self._clock()
+                o.prefill_s += prefill_s
+        self._record("placement", request_id, {
+            "slot": slot, "n_prompt": n_prompt, "reuse": reuse,
+            "seeded": seeded, "prefill_s": prefill_s,
+            "stalled": stalled,
+        })
+
+    def note_prefill_piece(self, request_id: str, take: int, bucket: int,
+                           dispatch_s: float) -> None:
+        self._record("prefill_piece", request_id, {
+            "take": take, "bucket": bucket, "dispatch_s": dispatch_s,
+        })
+
+    def note_mixed_step(self, request_id: str, take: int, bucket: int,
+                        dispatch_s: float) -> None:
+        with self._lock:
+            o = self._open.get(request_id)
+            if o is not None:
+                o.prefill_s += dispatch_s
+        self._record("mixed_step", request_id, {
+            "take": take, "bucket": bucket, "dispatch_s": dispatch_s,
+        })
+
+    def note_decode_chunk(self, chunk: int, dispatch_s: float,
+                          sync_s: float, active: int,
+                          drained: bool = False) -> None:
+        """One decode chunk fully processed: the host wall split between
+        DISPATCH (async program submit) and SYNC (waiting on outputs) —
+        the roofline evidence, now per chunk instead of only cumulative.
+        ``drained=True`` means the readback ran on the drainer thread
+        (engine/devloop.py): sync_s is then only the residual wait the
+        dispatch path paid, and the real link time was already observed
+        into sync_us by ``note_ring_drain`` — skipping the observation
+        here keeps the dispatch/sync split honest under async drain."""
+        self._record("decode_chunk", "", {
+            "chunk": chunk, "dispatch_s": dispatch_s,
+            "sync_s": sync_s, "active": active, "drained": drained,
+        })
+        self.hist["dispatch_us"].observe(dispatch_s * 1e6)
+        if not drained:
+            self.hist["sync_us"].observe(sync_s * 1e6)
+
+    def note_ring_drain(self, buffers: int, tokens: int,
+                        drain_s: float) -> None:
+        """Token-ring buffer(s) drained (engine/devloop.py): recorded
+        FROM the drainer thread — the thread that actually blocked on
+        the device→host link — so sync_us attribution follows the
+        blocking, not the dispatch path. ``seconds`` makes it a
+        duration row in the Chrome export."""
+        self._record("ring_drain", "", {
+            "buffers": buffers, "tokens": tokens, "seconds": drain_s,
+        })
+        self.hist["sync_us"].observe(drain_s * 1e6)
+
+    def note_spec_verify(self, proposed: int, accepted: int,
+                         dispatch_s: float, sync_s: float,
+                         slots: int) -> None:
+        """One speculative verify dispatch fully processed (standalone,
+        decode-fused, or riding a mixed step): per-step proposal and
+        acceptance counts plus the dispatch-vs-sync wall split — verify
+        steps are synchronous, so their sync share is the latency-triage
+        signal for whether speculation is paying on this link."""
+        self._record("spec_verify", "", {
+            "proposed": proposed, "accepted": accepted,
+            "dispatch_s": dispatch_s, "sync_s": sync_s, "slots": slots,
+        })
+        self.hist["dispatch_us"].observe(dispatch_s * 1e6)
+        self.hist["sync_us"].observe(sync_s * 1e6)
+
+    def note_init_phase(self, kind: str, attrs: Optional[dict] = None) -> None:
+        """One cold-start phase completed (engine/coldstart.py seams):
+        ``seconds`` in attrs becomes the phase's duration row in the
+        Chrome export, so bring-up reads as a timeline next to the
+        request lifecycle instead of a silent gap before event 0."""
+        assert kind in INIT_EVENTS, f"not an init-phase event kind {kind!r}"
+        self._record(kind, "", dict(attrs or {}))
+
+    def note_grammar_attach(self, request_id: str, num_states: int) -> None:
+        self._record("grammar_attach", request_id, {"num_states": num_states})
+
+    def note_offload(self, session_id: str, rows: int) -> None:
+        self._record("offload", "", {"session_id": session_id, "rows": rows})
+
+    def note_restore(self, session_id: str, slot: int) -> None:
+        self._record("restore", "", {"session_id": session_id, "slot": slot})
+
+    def note_stall(self, steps: int = 1) -> None:
+        """A prefill dispatch idled live decode slots (the prefill-first
+        cost); feeds per-request ``stall_steps`` attribution."""
+        with self._lock:
+            self._stalls += steps
+
+    def note_failover(self, request_id: str = "", worker: int = -1) -> None:
+        self._record("failover", request_id, {"worker": worker})
+
+    def note_resubmit(self, request_id: str = "", worker: int = -1,
+                      reason: str = "death") -> None:
+        """Transparent zero-token re-placement. ``reason`` keeps the
+        trail reconcilable against the SPLIT metric books: "death" rows
+        count under `resubmits`, "retirement" rows (a submit that raced
+        remove_worker) under `retirement_relays`."""
+        self._record("resubmit", request_id, {
+            "worker": worker, "reason": reason,
+        })
+
+    def note_shed(self, reason: str = "") -> None:
+        self._record("shed", "", {"reason": reason})
+
+    def note_migrate(self, session_id: str, src: int, dest: int,
+                     fallback: bool = False) -> None:
+        """Scale-down moved one session off a retiring worker: carried
+        to ``dest`` (imported KV), or — with ``fallback`` — dropped to
+        a counted fresh-prefill recovery (``dest`` is -1)."""
+        self._record("migrate", "", {
+            "session_id": session_id, "src": src, "dest": dest,
+            "fallback": fallback,
+        })
+
+    def note_handoff(self, session_id: str, src: int, dest: int,
+                     export_s: float = 0.0, import_s: float = 0.0,
+                     reprefill: bool = False) -> None:
+        """Disaggregated serving (engine/disagg.py) moved one freshly
+        prefilled session from its prefill-tier worker to the decode
+        tier at first-turn completion. The export-vs-import wall split
+        is kept separate so a slow handoff is attributable to the
+        source's export or the destination's import; ``reprefill``
+        books the counted fresh-prefill fallback (``dest`` is -1)."""
+        self._record("handoff", "", {
+            "session_id": session_id, "src": src, "dest": dest,
+            "export_s": export_s, "import_s": import_s,
+            "seconds": export_s + import_s, "reprefill": reprefill,
+        })
+
+    def note_drain(self, worker: int, seconds: float) -> None:
+        """One worker's graceful drain completed, ``seconds`` after it
+        began — recorded per worker so a slow-drain worker in the
+        overlapped fleet drain is attributable instead of reading as a
+        wedged fleet."""
+        self._record("drain", "", {"worker": worker, "seconds": seconds})
+
+    def note_terminal(self, request_id: str, reason: str,
+                      tokens: int = 0, error: Optional[str] = None,
+                      first_token_at: Optional[float] = None) -> None:
+        """Request finished (any reason). Computes the breakdown, emits
+        the terminal event, closes the engine span, and drops the open
+        books — the exactly-one-terminal seam mirrors the engine's
+        ``requests_finished`` semantics, so the two reconcile exactly.
+
+        ``first_token_at`` is the handle's first-token stamp in the
+        recorder's clock domain (``RequestHandle.first_token_at`` —
+        ``time.monotonic``, the recorder's default clock): the emit hot
+        path deliberately never calls into the recorder, so ttft /
+        inter-token arrive HERE, once per request."""
+        span = None
+        with self._lock:
+            o = self._open.pop(request_id, None)
+            now = self._clock()
+            bd = LatencyBreakdown(tokens=tokens)
+            if o is not None:
+                span = o.span
+                if o.claimed is not None:
+                    bd.queue_s = o.claimed - o.submitted
+                    end = o.placed if o.placed is not None else now
+                    bd.placement_s = max(end - o.claimed, 0.0)
+                else:
+                    # Never claimed (queue-reaped deadline/cancel/drain
+                    # shed): the WHOLE lifetime was queue wait — exactly
+                    # the requests that prove queue pressure, so an
+                    # all-zero breakdown here would blind the runbook.
+                    bd.queue_s = max(now - o.submitted, 0.0)
+                bd.prefill_s = o.prefill_s
+                if first_token_at is not None:
+                    bd.ttft_s = max(first_token_at - o.submitted, 0.0)
+                    bd.decode_s = max(now - first_token_at, 0.0)
+                    if bd.tokens > 1:
+                        bd.decode_s_per_token = bd.decode_s / (bd.tokens - 1)
+                bd.stall_steps = self._stalls - o.stall_base
+            attrs = {"reason": reason, "breakdown": bd.to_dict()}
+            if error:
+                attrs["error"] = error
+        self._record("terminal", request_id, attrs)
+        if o is not None and first_token_at is not None:
+            self.hist["ttft"].observe(bd.ttft_s)
+            if bd.tokens > 1:
+                # Mean inter-token gap, once per request (per-token
+                # observes would tax the emit hot path).
+                self.hist["inter_token"].observe(bd.decode_s_per_token)
+        if span is not None:
+            span.add_finish_reason(reason)
+            span.set_attr("llm.completion_tokens", bd.tokens)
+            for k, v in bd.to_dict().items():
+                span.set_attr(f"engine.{k}", v)
+            if error:
+                span.record_error(RuntimeError(error))
+            span.end()
+
+    # -- reading / export ------------------------------------------------
+
+    def events(self, kind: Optional[str] = None) -> list[FlightEvent]:
+        with self._lock:
+            evs = list(self._ring)
+        return [e for e in evs if kind is None or e.kind == kind]
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "recorded": self._recorded, "dropped": self._dropped,
+                "retained": len(self._ring), "open_requests": len(self._open),
+                "stall_steps": self._stalls,
+            }
+
+    def dump_jsonl(self, path: str) -> int:
+        """Write the retained window, one JSON object per line; returns
+        the number of events written."""
+        evs = self.events()
+        with open(path, "w", encoding="utf-8") as f:
+            for e in evs:
+                f.write(json.dumps(e.to_dict()) + "\n")
+        return len(evs)
+
+
+# -- dump → Chrome trace / Perfetto -------------------------------------
+
+
+def load_jsonl(path: str) -> list[dict]:
+    out = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out
+
+
+def to_chrome_trace(events: list) -> dict:
+    """Convert flight events (dicts or :class:`FlightEvent`) into the
+    Chrome trace event format (loadable in Perfetto / chrome://tracing).
+
+    Layout: tid 0 is the engine's step row (decode chunks, mixed steps,
+    prefill pieces, offload/restore, failover/resubmit markers); each
+    request gets its own named thread row with ``queue`` → ``placement``
+    → ``decode`` complete events reconstructed from its lifecycle
+    events, and an instant at the terminal carrying the breakdown."""
+    evs = [e.to_dict() if isinstance(e, FlightEvent) else dict(e)
+           for e in events]
+    evs.sort(key=lambda e: e["seq"])
+    if not evs:
+        return {"traceEvents": []}
+    # Duration events are recorded at their END (mono) — the head of a
+    # ring-overwritten dump can be one, and its computed START must not
+    # land at a negative ts. Base on the earliest computed start.
+    def start_of(e: dict) -> float:
+        attrs = e.get("attrs", {})
+        if e["kind"] in INIT_EVENTS or e["kind"] in (
+            "drain", "handoff", "ring_drain"
+        ):
+            # Init-phase, drain, handoff, and ring-drain events are
+            # recorded at their END with the wall in `seconds` — the
+            # longest durations in any cold-start or scale-down dump,
+            # so the base must account for them.
+            return e["mono"] - attrs.get("seconds", 0.0)
+        return e["mono"] - attrs.get("dispatch_s", 0.0) - attrs.get("sync_s", 0.0)
+
+    base = min(start_of(e) for e in evs)
+
+    def us(mono: float) -> float:
+        return round((mono - base) * 1e6, 1)
+
+    out: list[dict] = [
+        {"ph": "M", "pid": 1, "tid": 0, "name": "thread_name",
+         "args": {"name": "engine steps"}},
+        {"ph": "M", "pid": 1, "name": "process_name",
+         "args": {"name": "omnia-engine"}},
+    ]
+    tids: dict[str, int] = {}
+    per_req: dict[str, dict[str, dict]] = {}
+
+    def tid_for(rid: str) -> int:
+        if rid not in tids:
+            tids[rid] = len(tids) + 1
+            out.append({"ph": "M", "pid": 1, "tid": tids[rid],
+                        "name": "thread_name", "args": {"name": rid}})
+        return tids[rid]
+
+    for e in evs:
+        kind, rid, attrs = e["kind"], e["request_id"], e.get("attrs", {})
+        if kind in ("decode_chunk", "mixed_step", "prefill_piece",
+                    "spec_verify"):
+            dur = attrs.get("dispatch_s", 0.0) + attrs.get("sync_s", 0.0)
+            out.append({
+                "ph": "X", "pid": 1, "tid": 0, "name": kind,
+                "ts": us(e["mono"] - dur), "dur": round(dur * 1e6, 1),
+                "args": attrs,
+            })
+        elif kind in INIT_EVENTS or kind in ("drain", "handoff", "ring_drain"):
+            dur = attrs.get("seconds", 0.0)
+            out.append({
+                # ring_drain renders on its own lane (tid 1): the work
+                # happened on the drainer thread, not the dispatch path.
+                "ph": "X", "pid": 1, "tid": 1 if kind == "ring_drain" else 0,
+                "name": kind,
+                "ts": us(e["mono"] - dur), "dur": round(dur * 1e6, 1),
+                "args": attrs,
+            })
+        elif kind in ("offload", "restore", "failover", "resubmit", "shed",
+                      "migrate"):
+            out.append({"ph": "i", "pid": 1, "tid": 0, "name": kind,
+                        "ts": us(e["mono"]), "s": "p", "args": attrs})
+        elif rid:
+            per_req.setdefault(rid, {})[kind] = e
+
+    for rid, stages in per_req.items():
+        tid = tid_for(rid)
+        sub, claim = stages.get("submit"), stages.get("claim")
+        placed, term = stages.get("placement"), stages.get("terminal")
+        if sub is not None and claim is not None:
+            out.append({
+                "ph": "X", "pid": 1, "tid": tid, "name": "queue",
+                "ts": us(sub["mono"]),
+                "dur": round((claim["mono"] - sub["mono"]) * 1e6, 1),
+            })
+        if claim is not None and placed is not None:
+            out.append({
+                "ph": "X", "pid": 1, "tid": tid, "name": "placement",
+                "ts": us(claim["mono"]),
+                "dur": round((placed["mono"] - claim["mono"]) * 1e6, 1),
+                "args": placed.get("attrs", {}),
+            })
+        if placed is not None and term is not None:
+            out.append({
+                "ph": "X", "pid": 1, "tid": tid, "name": "decode",
+                "ts": us(placed["mono"]),
+                "dur": round((term["mono"] - placed["mono"]) * 1e6, 1),
+            })
+        if term is not None:
+            out.append({
+                "ph": "i", "pid": 1, "tid": tid,
+                "name": f"finish:{term.get('attrs', {}).get('reason', '?')}",
+                "ts": us(term["mono"]), "s": "t",
+                "args": term.get("attrs", {}),
+            })
+        if "grammar_attach" in stages:
+            g = stages["grammar_attach"]
+            out.append({"ph": "i", "pid": 1, "tid": tid,
+                        "name": "grammar_attach", "ts": us(g["mono"]),
+                        "s": "t", "args": g.get("attrs", {})})
+    return {"traceEvents": out}
+
+
+def main(argv: Optional[list] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m omnia_tpu_torch.engine.flight",
+        description="Convert a flight-recorder jsonl dump into "
+        "Chrome-trace/Perfetto JSON.",
+    )
+    parser.add_argument("dump", help="jsonl dump (FlightRecorder.dump_jsonl)")
+    parser.add_argument("-o", "--out", default=None,
+                        help="output path (default: <dump>.trace.json)")
+    args = parser.parse_args(argv)
+    events = load_jsonl(args.dump)
+    trace = to_chrome_trace(events)
+    out_path = args.out or (args.dump + ".trace.json")
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(trace, f)
+    terminals = sum(1 for e in events if e.get("kind") == "terminal")
+    print(f"{len(events)} events ({terminals} terminals) -> {out_path} "
+          f"(open in Perfetto / chrome://tracing)")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - module CLI
+    sys.exit(main())

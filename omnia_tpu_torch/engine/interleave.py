@@ -51,6 +51,8 @@ class _InflightPrefill:
     pieces: list                    # [(offset, real_len, bucket)]
     next_piece: int = 0
     frontier: int = 0               # rows known valid (reuse / seed + consumed)
+    reuse: int = 0                  # session-LCP rows (flight-recorder attrs)
+    seeded: int = 0                 # rows seeded from the prefix pool (same)
 
     @property
     def prompt(self) -> list[int]:
@@ -168,7 +170,7 @@ class _InterleaveMixin:
             self._prefilling = _InflightPrefill(
                 slot_idx=slot_idx, request=request, handle=handle, sess=sess,
                 pieces=self._budget_pieces(frontier, len(prompt) - frontier),
-                frontier=frontier,
+                frontier=frontier, reuse=reuse, seeded=seeded,
             )
         except Exception:
             self._fail_placement(slot_idx, request, handle, "prefill failed")
@@ -245,14 +247,17 @@ class _InterleaveMixin:
         self.metrics["mixed_steps"] += 1
         self.metrics["interleaved_prefill_tokens"] += take
         self.metrics["prefill_tokens"] += take
+        if self._flight is not None:
+            self._flight.note_mixed_step(pf.request.request_id, take, bucket, dispatch_s)
         # The decode half rides the pipeline like a chunk of one step.
         self._inflight.append(_InflightChunk(dtoks, active, dispatch_s))
         if plan is not None:
             t_sync = time.monotonic()
             g = greedy.cpu().numpy()
-            self.metrics["decode_sync_s"] += time.monotonic() - t_sync
+            sync_s = time.monotonic() - t_sync
+            self.metrics["decode_sync_s"] += sync_s
             self.metrics["spec_steps"] += 1
-            self._spec_accept(plan, g)
+            self._spec_accept(plan, g, dispatch_s, sync_s)
         pf.next_piece += 1
         pf.frontier = off + take
         if pf.sess is not None:
@@ -279,7 +284,9 @@ class _InterleaveMixin:
         self._prefilling = None
         with self._lock:
             self._placing -= 1
-        self._activate_slot(slot_idx, pf.request, pf.handle, first_tok)
+        # The mixed steps already counted the prefill's time.
+        self._activate_slot(slot_idx, pf.request, pf.handle, first_tok, reuse=pf.reuse,
+                            seeded=pf.seeded)
 
     # -- abort / failure -------------------------------------------------------
 
@@ -293,6 +300,8 @@ class _InterleaveMixin:
         self._push_final(pf.handle, pf.request.request_id, reason,
                          num_prompt_tokens=len(pf.prompt))
         self.metrics["requests_finished"] += 1
+        if self._flight is not None:
+            self._flight.note_terminal(pf.request.request_id, reason.value)
         quiesce_row = 0
         if pf.sess is not None:
             quiesce_row = len(pf.sess.token_ids)

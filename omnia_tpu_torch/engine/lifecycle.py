@@ -1,13 +1,23 @@
 """Engine thread lifecycle (port of ``omnia_tpu/engine/lifecycle.py``):
 the step loop, graceful drain (which pages idle sessions to host), and
-the recovery that turns a failed step into failed handles plus fresh
-device state instead of a dead engine."""
+the recovery that turns a failed (or watchdog-tripped) step into failed
+handles plus fresh device state instead of a dead engine.
+
+On the card a recovery counts as done only once the stream has run it:
+after a watchdog trip, health returns when an event recorded after the
+new caches completes within ``watchdog_s``. An injected (host-side) hang
+recovers so. On a stream wedged for real the reallocation's pageable
+copies wait for the stream, so the recovery waits with health false,
+for good if it never drains, and the operator replaces the pod
+(ROADMAP §C)."""
 
 from __future__ import annotations
 
 import logging
 import threading
 import time
+
+import torch
 
 from omnia_tpu_torch.engine.types import FinishReason
 
@@ -61,11 +71,19 @@ class _LifecycleMixin:
                                  error="engine draining: drain window elapsed while queued",
                                  num_prompt_tokens=len(req.prompt_tokens))
                 self.metrics["requests_finished"] += 1
+                if self._flight is not None:
+                    self._flight.note_terminal(req.request_id, FinishReason.OVERLOADED.value,
+                                               error="drain window elapsed while queued")
             if not wedged and any(s.active for s in self._slots):
                 self._fail_all("engine stopped: drain window elapsed mid-request")
         if drain and not wedged and self._healthy:
             # The loop has joined, so device state is this caller's.
             self._offload_idle_sessions()
+        if self._devloop is not None:
+            # A poisoned drainer's thread is stuck in the hung read that
+            # tripped the watchdog: stop() does not wait for it. A later
+            # start() builds a fresh one at its first read.
+            self._devloop.stop()
 
     def _drain_work_left(self) -> bool:
         # An interleaved prefill holds its _placing claim until its last
@@ -90,6 +108,9 @@ class _LifecycleMixin:
         that raised mid-chunk leaves the caches and slot state half
         written."""
         self._fail_all(msg)
+        # The chunks' pinned host buffers may still have copies queued:
+        # the caching host allocator records an event for each
+        # non-blocking copy and reuses no block before it completes.
         self._inflight.clear()
         # Device-resident session rows die with the caches; host-paged
         # sessions keep theirs.
@@ -101,10 +122,27 @@ class _LifecycleMixin:
         try:
             self._init_device_state()
             self.metrics["recoveries"] += 1
-            self._healthy = True
+            self._healthy = self._stream_ran_recovery()
         except Exception:
             logger.exception("engine recovery failed; marking unhealthy")
             self._healthy = False
+
+    def _stream_ran_recovery(self) -> bool:
+        """With the watchdog on the card: whether an event recorded after
+        the reallocation completes within ``watchdog_s`` (its kernels are
+        only enqueued when it returns). True otherwise."""
+        if self._devloop is None or self.device.type != "cuda":
+            return True
+        done = torch.cuda.Event()
+        done.record()
+        deadline = time.monotonic() + self.cfg.watchdog_s
+        while not done.query():
+            if time.monotonic() >= deadline:
+                logger.error("the stream did not run the recovery within watchdog_s=%s; "
+                             "staying unhealthy", self.cfg.watchdog_s)
+                return False
+            time.sleep(0.001)
+        return True
 
     def _fail_all(self, msg: str):
         # A half-prefilled placement (engine/interleave.py) is neither
@@ -116,5 +154,10 @@ class _LifecycleMixin:
                                  error=msg, num_prompt_tokens=len(slot.request.prompt_tokens),
                                  num_generated_tokens=slot.generated)
                 self.metrics["requests_finished"] += 1
+                if self._flight is not None:
+                    self._flight.note_terminal(
+                        slot.request.request_id, FinishReason.ERROR.value,
+                        tokens=slot.generated, error=msg,
+                        first_token_at=slot.handle.first_token_at)
                 self._release_slot_seed(slot)
                 slot.clear()

@@ -109,6 +109,8 @@ class _PlacementMixin:
         slot = self._slots[slot_idx]
         slot.gr_view = view
         slot.gr_state = view.start  # _emit_token advances past first_tok
+        if self._flight is not None:
+            self._flight.note_grammar_attach(request.request_id, view.num_states)
 
     def _prepare_session_slot(self, slot_idx: int, request: Request):
         """The session half of placement: find or create the session,
@@ -168,27 +170,34 @@ class _PlacementMixin:
         else:
             first_tok = self._chunked_extend(slot_idx, prompt, frontier, sp, request)
         if stalled:
-            self.metrics["decode_stall_steps"] += max(self.metrics["extend_steps"] - ext0, 1)
+            stall_steps = max(self.metrics["extend_steps"] - ext0, 1)
+            self.metrics["decode_stall_steps"] += stall_steps
+            if self._flight is not None:
+                self._flight.note_stall(stall_steps)
         self._maybe_publish_prefix(slot_idx, prompt)
         # Paged pool: the bucket-padded writes covered rows past the
         # prompt; return that slack now (a publish above already shares
         # the prefix pages). The next decode write gets its page in the
         # pre-dispatch preallocation.
         self._trim_slot_pages(slot_idx, n)
-        self.metrics["prefill_dispatch_s"] += time.monotonic() - t_prefill
+        prefill_s = time.monotonic() - t_prefill
+        self.metrics["prefill_dispatch_s"] += prefill_s
         self.metrics["prefix_reuse_tokens"] += reuse
         self.metrics["prefill_tokens"] += n - frontier
         self.metrics["prefill_steps"] += 1
 
         if sess is not None:
             sess.token_ids = list(prompt)
-        self._activate_slot(slot_idx, request, handle, first_tok)
+        self._activate_slot(slot_idx, request, handle, first_tok, reuse=reuse, seeded=seeded,
+                            prefill_s=prefill_s, stalled=stalled)
 
     def _activate_slot(self, slot_idx: int, request: Request, handle: RequestHandle,
-                       first_tok) -> None:
+                       first_tok, reuse: int = 0, seeded: int = 0, prefill_s: float = 0.0,
+                       stalled: bool = False) -> None:
         """The back half of placement, shared with the interleaved path
         (engine/interleave.py): the slot takes the request, the device
-        takes its decode state, and the first token is emitted."""
+        takes its decode state, and the first token is emitted. The
+        keywords are the placement's flight-recorder attributes."""
         n = len(request.prompt_tokens)
         sp = request.params
         slot = self._slots[slot_idx]
@@ -228,6 +237,12 @@ class _PlacementMixin:
         self._stop_ids[slot_idx] = torch.tensor(ids, dtype=torch.int32)
         first = int(first_tok)
         self._attach_grammar(slot_idx, request, first)
+        if self._flight is not None:
+            # Just before the first token's emit, so that queue (submit →
+            # claim) + placement (claim → here) + decode (first token →
+            # terminal) tile the request's wall.
+            self._flight.note_placement(request.request_id, slot_idx, n, reuse=reuse,
+                                        seeded=seeded, prefill_s=prefill_s, stalled=stalled)
         self._emit_token(slot_idx, first)
 
     def _fresh_prefill(self, slot_idx: int, prompt: list[int], sp: SamplingParams,
@@ -240,6 +255,7 @@ class _PlacementMixin:
         # Paged pool: the prefill writes the whole bucket, so exclusive
         # pages must cover it before dispatch (PoolExhausted otherwise).
         self._prepare_slot_write(slot_idx, 0, bucket)
+        t0 = time.monotonic()
         first_tok, new_kd = self._prefill_insert_fn(
             self.params, self._ck, self._cv,
             torch.from_numpy(toks).to(self.device),
@@ -247,6 +263,9 @@ class _PlacementMixin:
             slot_idx, n - 1, *self._sampler_args(slot_idx, sp),
             *self._grammar_args(request, sp),
         )
+        if self._flight is not None and request is not None:
+            self._flight.note_prefill_piece(request.request_id, n, bucket,
+                                            time.monotonic() - t0)
         self._key_data[slot_idx] = new_kd
         return first_tok
 
@@ -288,12 +307,20 @@ class _PlacementMixin:
         """Incremental prefill of prompt[reuse:] against the slot's
         resident (or seeded) rows; only the last piece samples."""
         pieces = self._extend_pieces(reuse, len(prompt) - reuse)
+        rid = request.request_id if request is not None else ""
         for off, take, b in pieces[:-1]:
-            self._extend_nosample_fn(*self._piece_args(slot_idx, prompt, off, take, b))
+            args = self._piece_args(slot_idx, prompt, off, take, b)
+            t0 = time.monotonic()
+            self._extend_nosample_fn(*args)
+            if self._flight is not None and rid:
+                self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
         off, take, b = pieces[-1]
-        first_tok, new_kd = self._extend_fn(
-            *self._piece_args(slot_idx, prompt, off, take, b), take - 1,
-            *self._sampler_args(slot_idx, sp), *self._grammar_args(request, sp))
+        args = self._piece_args(slot_idx, prompt, off, take, b)
+        t0 = time.monotonic()
+        first_tok, new_kd = self._extend_fn(*args, take - 1, *self._sampler_args(slot_idx, sp),
+                                            *self._grammar_args(request, sp))
+        if self._flight is not None and rid:
+            self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
         self._key_data[slot_idx] = new_kd
         self.metrics["extend_steps"] += len(pieces)
         return first_tok

@@ -13,6 +13,12 @@ into pinned host memory, enqueued right after the chunk, and a CUDA
 event to wait on when the tokens are needed; the wait never covers
 chunks enqueued later. While requests queue, the pipeline drains and
 single steps are taken so a waiting prefill never sits out a full chunk.
+
+With ``watchdog_s`` set, that wait runs on the engine's one drainer
+thread (devloop.py) and the engine thread waits for it with a timeout: a
+read that outlives ``watchdog_s`` raises :class:`WatchdogTimeout`, and the
+loop's recovery fails the requests in flight and reallocates the device
+state, so a hung device bounds a client's wait.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from omnia_tpu_torch.engine.faults import WatchdogTimeout
 from omnia_tpu_torch.engine.types import FinishReason, SamplingParams, StreamEvent
 
 
@@ -45,6 +52,10 @@ class _InflightChunk:
             self.event.record()
 
     def read(self) -> np.ndarray:
+        """The tokens [K, B] on the host, waiting for the chunk's copy.
+        The CUDA event's wait releases the interpreter lock, so the
+        drainer thread can block here while the engine thread's timed
+        wait runs."""
         if self.event is None:
             return self.toks.numpy()
         self.event.synchronize()
@@ -152,6 +163,8 @@ class _SchedulerMixin:
             except ValueError:
                 return None, None  # reaped meanwhile
             self._placing += 1
+        if self._flight is not None:
+            self._flight.note_claim(cand[0].request_id)
         return cand, slot_idx
 
     # Requests older than this keep strict FIFO priority whatever their
@@ -208,6 +221,8 @@ class _SchedulerMixin:
         self._push_final(handle, request.request_id, FinishReason.ERROR, error=msg,
                          num_prompt_tokens=len(request.prompt_tokens))
         self.metrics["requests_finished"] += 1
+        if self._flight is not None:
+            self._flight.note_terminal(request.request_id, FinishReason.ERROR.value, error=msg)
         self._drop_session(request.session_id)
         self._slots[slot_idx].session_id = None
         self._release_slot_seed(self._slots[slot_idx])
@@ -225,15 +240,22 @@ class _SchedulerMixin:
         pf = self._prefilling
         if pf is not None and pf.handle.cancelled:
             self._abort_prefilling(FinishReason.CANCELLED)
+        reaped = []
         with self._lock:
             still = []
             for req, handle in self._waiting:
                 if handle.cancelled:
                     self._push_final(handle, req.request_id, FinishReason.CANCELLED)
                     self.metrics["requests_finished"] += 1
+                    reaped.append(req.request_id)
                 else:
                     still.append((req, handle))
             self._waiting = still
+        if self._flight is not None:
+            # A terminal ends the request's span (tracer I/O): never
+            # under the engine lock.
+            for rid in reaped:
+                self._flight.note_terminal(rid, FinishReason.CANCELLED.value)
 
     def _reap_deadlines(self):
         """Queued requests past their deadline shed with DEADLINE; active
@@ -251,6 +273,7 @@ class _SchedulerMixin:
             # and their rows stay valid for the session.
             self.metrics["deadline_exceeded"] += 1
             self._abort_prefilling(FinishReason.DEADLINE)
+        reaped = []
         with self._lock:
             still = []
             for req, handle in self._waiting:
@@ -259,9 +282,44 @@ class _SchedulerMixin:
                                      num_prompt_tokens=len(req.prompt_tokens))
                     self.metrics["deadline_exceeded"] += 1
                     self.metrics["requests_finished"] += 1
+                    reaped.append(req.request_id)
                 else:
                     still.append((req, handle))
             self._waiting = still
+        if self._flight is not None:
+            for rid in reaped:
+                self._flight.note_terminal(rid, FinishReason.DEADLINE.value)
+
+    def _fault_sleep_s(self) -> float:
+        """Injected hang / slow-sync seconds for the next chunk read
+        (faults.py), taken where the read starts: inline, or on the
+        drainer thread, where a hang looks to the watchdog exactly like a
+        hung device."""
+        fault = self._fault_plan
+        if fault is None:
+            return 0.0
+        return fault.take_hang_s() + fault.slow_sync_s
+
+    def _sync_chunk_host(self, ch: _InflightChunk) -> np.ndarray:
+        """A decode chunk's tokens on the host. Without ``watchdog_s`` the
+        read is the direct wait, on this thread. With it the read rides
+        the engine's one drainer thread, and a read that outlives
+        ``watchdog_s`` counts a trip, marks the engine unhealthy and
+        raises WatchdogTimeout (the loop's recovery takes it)."""
+        wd = self.cfg.watchdog_s
+        if wd is None:
+            sleep_s = self._fault_sleep_s()
+            if sleep_s > 0.0:
+                time.sleep(sleep_s)
+            return ch.read()
+        drainer = self._devloop.get_drainer()
+        entry = drainer.submit(ch.read, pre_sleep_s=self._fault_sleep_s())
+        host = drainer.wait(entry, timeout=wd)
+        if host is None:
+            self.metrics["watchdog_trips"] += 1
+            self._healthy = False  # until recovery has reallocated
+            raise WatchdogTimeout(f"decode chunk host sync exceeded watchdog_s={wd}")
+        return host
 
     def _run_decode_step(self, chunk: int) -> torch.Tensor:
         """Enqueue one decode chunk; device state advances to its outputs
@@ -329,8 +387,12 @@ class _SchedulerMixin:
     def _process_oldest_chunk(self):
         ch = self._inflight.popleft()
         t_sync = time.monotonic()
-        host_tokens = ch.read()  # [K, B]
-        self.metrics["decode_sync_s"] += time.monotonic() - t_sync
+        host_tokens = self._sync_chunk_host(ch)  # [K, B]
+        sync_s = time.monotonic() - t_sync
+        self.metrics["decode_sync_s"] += sync_s
+        if self._flight is not None:
+            self._flight.note_decode_chunk(int(host_tokens.shape[0]), ch.dispatch_s, sync_s,
+                                           len(ch.active))
         for k in range(host_tokens.shape[0]):
             stepped = False
             for i, rid in ch.active:
@@ -417,3 +479,6 @@ class _SchedulerMixin:
         self._push_final(handle, rid, reason, num_prompt_tokens=n_prompt,
                          num_generated_tokens=generated)
         self.metrics["requests_finished"] += 1
+        if self._flight is not None:
+            self._flight.note_terminal(rid, reason.value, tokens=generated,
+                                       first_token_at=handle.first_token_at)

@@ -155,6 +155,8 @@ class _SessionMixin:
             sess.host_k = kv_host(k)
             sess.host_v = kv_host(v)
             self.metrics["session_offloads"] += 1
+            if self._flight is not None:
+                self._flight.note_offload(sess.session_id, rows)
         self._free_slot_pages(slot_idx)
         sess.slot = None
         self._slots[slot_idx].session_id = None
@@ -169,6 +171,8 @@ class _SessionMixin:
         sess.slot = slot_idx
         self._slots[slot_idx].session_id = sess.session_id
         self.metrics["session_restores"] += 1
+        if self._flight is not None:
+            self._flight.note_restore(sess.session_id, slot_idx)
 
     def _drop_session(self, sid: Optional[str]) -> None:
         """Forget a session. An idle slot it held is unpinned and its

@@ -443,7 +443,7 @@ class _SpecDecodeMixin:
         self.metrics["spec_steps"] += 1
         if dtoks is not None:
             self.metrics["decode_steps"] += 1
-        self._spec_accept(plan, g)
+        self._spec_accept(plan, g, dispatch_s, sync_s)
         if host_toks is not None:
             # The scan lane's emission: the chunk reader's loop at K = 1.
             for i, rid in plan.scan:
@@ -453,11 +453,14 @@ class _SpecDecodeMixin:
                 slot.length += 1
                 self._emit_token(i, int(host_toks[0, i]))
 
-    def _spec_accept(self, plan: _SpecPlan, g: np.ndarray) -> None:
+    def _spec_accept(self, plan: _SpecPlan, g: np.ndarray, dispatch_s: float,
+                     sync_s: float) -> None:
         """Acceptance and emission for the verify lane: the proposal
         prefix the oracle agrees with, then the oracle's next token; then
-        the per-slot depth and EMA updates and the books."""
+        the per-slot depth and EMA updates and the books. The enqueue and
+        wait seconds go to the flight recorder."""
         W = self.cfg.spec_window()
+        step_prop = step_acc = 0
         for i, (prop, real) in plan.proposals.items():
             s = self._slots[i]
             if not s.active:
@@ -471,6 +474,8 @@ class _SpecDecodeMixin:
             # The books count genuine proposals only (a padding zero that
             # matches is still emitted: it is the model's own choice).
             acc_real = min(accepted, real)
+            step_prop += real
+            step_acc += acc_real
             self.metrics["spec_proposed"] += real
             self.metrics["spec_accepted"] += acc_real
             if real > 0:
@@ -500,3 +505,6 @@ class _SpecDecodeMixin:
                     self._gstate[i] = s.gr_state
         self.metrics["spec_index_bytes"] = _ENTRY_BYTES * sum(
             s.spec_index.entries() for s in self._slots if s.spec_index is not None)
+        if self._flight is not None:
+            self._flight.note_spec_verify(step_prop, step_acc, dispatch_s, sync_s,
+                                          len(plan.proposals))

@@ -196,10 +196,17 @@ class EngineConfig:
     grammar: bool = False
     # submit() sheds OVERLOADED once this many requests wait; 0 = unbounded.
     max_queue: int = 0
+    # A decode chunk's host read longer than this many seconds trips the
+    # watchdog: the requests in flight fail and device state reallocates.
     watchdog_s: Optional[float] = None
     grammar_max_states: int = 2560
     prefill_chunk_tokens: int = 0
+    # Warmup runs in order on the engine's caches whatever this is (the
+    # JAX engine's compile pool has nothing to overlap here); N > 0 runs
+    # the param-free tasks on a side thread while a weights loader streams,
+    # holding one scratch KV cache meanwhile.
     warmup_threads: int = 0
+    # Flight-recorder ring capacity in events; 0 keeps no recorder.
     flight_events: int = 0
     decode_ring: int = 0
 

@@ -52,7 +52,8 @@ class ProviderSpec:
 
 
 # The EngineConfig fields a spec's options may set (the JAX builder's
-# list). Knobs this port does not implement yet are refused by the engine.
+# list). Knobs this port does not implement yet (dp, tp) are refused by
+# the engine.
 _ENGINE_OPTIONS = frozenset({
     "num_slots", "max_seq", "prefill_buckets", "dtype",
     "dp", "tp", "decode_chunk", "decode_pipeline",
@@ -74,16 +75,15 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
     """Instantiate the engine for a provider spec, on ``device`` (the card
     unless the caller names another). ``finish_reasons`` is the enum class
     the engine's final events carry (the JAX runtime's own, to serve
-    under it). Only type ``"tpu"`` is ported: the mock engine and
-    cold-start tracking raise ``ProviderError``."""
+    under it); ``coldstart`` a ColdStartTracker that records the build's
+    phases and the checkpoint's byte progress (either package's: the
+    engine calls only its methods). Only type ``"tpu"`` is ported: the
+    mock engine raises ``ProviderError``."""
     if spec.type == "mock":
         raise ProviderError("provider type 'mock' is not ported to omnia_tpu_torch "
                             "yet (ROADMAP A7)")
     if spec.type != "tpu":
         raise ProviderError(f"unknown provider type {spec.type!r}")
-    if coldstart is not None:
-        raise ProviderError("coldstart tracking is not ported to omnia_tpu_torch yet "
-                            "(ROADMAP A11)")
     eng_kwargs = {k: v for k, v in spec.options.items() if k in _ENGINE_OPTIONS}
     if "prefill_buckets" in eng_kwargs:
         eng_kwargs["prefill_buckets"] = tuple(eng_kwargs["prefill_buckets"])
@@ -98,10 +98,11 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
         cfg = ckpt_io.read_config(ckpt, name=spec.model or None)
         dtype = resolve_dtype(ecfg.dtype)
 
-        # The engine calls the loader once, after validating its config.
-        def params():
+        # The engine calls the loader once, after validating its config,
+        # under its weights_load phase with byte progress.
+        def params(progress_cb=None):
             return ckpt_io.load_params(ckpt, cfg, dtype=dtype, device=device,
-                                       quant=ecfg.quant)
+                                       quant=ecfg.quant, progress_cb=progress_cb)
     else:
         if spec.model not in PRESETS:
             raise ProviderError(
@@ -109,7 +110,8 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
             )
         cfg = get_config(spec.model)
     engine = InferenceEngine(cfg, ecfg, params=params, seed=spec.options.get("seed", 0),
-                             device=device, finish_reasons=finish_reasons)
+                             device=device, finish_reasons=finish_reasons,
+                             coldstart=coldstart)
     if warmup:
         engine.warmup()
     return engine

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from omnia_tpu.engine import SamplingParams as JSamplingParams
+from omnia_tpu.engine.coldstart import ColdStartTracker
 from omnia_tpu.models import checkpoint as jck
 from omnia_tpu.models import get_config as jget_config
 from omnia_tpu.models import llama as jllama
@@ -451,10 +452,14 @@ def test_provider_spec_and_errors_match_jax():
         assert str(te.value) == str(je.value)
     with pytest.raises(tproviders.ProviderError, match="mock"):
         tproviders.build_engine(tproviders.ProviderSpec(name="m", type="mock"), device="cpu")
-    with pytest.raises(tproviders.ProviderError, match="coldstart"):
-        tproviders.build_engine(tproviders.ProviderSpec(name="c", model="test-tiny"),
-                                device="cpu", coldstart=object())
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tproviders.build_engine(tproviders.ProviderSpec(name="s", model="test-tiny",
-                                                        options={"watchdog_s": 5.0}),
-                                device="cpu")
+    # A cold-start tracker (the runtime's, the JAX package's) and the
+    # watchdog are taken: the tracker records the build's phases, the
+    # knob reaches the engine.
+    tracker = ColdStartTracker()
+    tracker.begin_phase("backend_init")
+    eng = tproviders.build_engine(tproviders.ProviderSpec(
+        name="s", model="test-tiny", options={"watchdog_s": 5.0, "num_slots": 2,
+                                              "max_seq": 64, "dtype": "float32"}),
+        device="cpu", coldstart=tracker)
+    assert eng.cfg.watchdog_s == 5.0 and eng._coldstart is tracker
+    assert "backend_init" in tracker.phase_seconds()

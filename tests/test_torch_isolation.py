@@ -47,7 +47,9 @@ def test_no_jax_or_reference_imports(path):
     "omnia_tpu_torch.engine.prefix_cache", "omnia_tpu_torch.engine.tokenizer",
     "omnia_tpu_torch.engine.grammar", "omnia_tpu_torch.engine.grammar.cache",
     "omnia_tpu_torch.engine.grammar.fsm", "omnia_tpu_torch.engine.grammar.jsonfsm",
-    "omnia_tpu_torch.engine.grammar.regex",
+    "omnia_tpu_torch.engine.grammar.regex", "omnia_tpu_torch.engine.faults",
+    "omnia_tpu_torch.engine.flight", "omnia_tpu_torch.engine.coldstart",
+    "omnia_tpu_torch.engine.devloop", "omnia_tpu_torch.utils.metrics",
 ])
 def test_port_keeps_its_own_copies(module):
     """The modules the port copies from jax-free parts of the JAX package

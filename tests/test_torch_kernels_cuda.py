@@ -413,3 +413,62 @@ def test_cuda_kv_row_scales_equal_cpu_route(dtype):
     cpu = quantize_rows(x)
     assert torch.equal(card.s.cpu(), cpu.s)
     assert torch.equal(card.q.cpu(), cpu.q)
+
+
+def _watchdog_engine(**fields):
+    from omnia_tpu_torch.engine import EngineConfig, InferenceEngine
+    from omnia_tpu_torch.models import get_config
+
+    return InferenceEngine(get_config("test-tiny"),
+                           EngineConfig(num_slots=2, max_seq=64, prefill_buckets=(8,),
+                                        dtype="float32", watchdog_s=0.2, **fields),
+                           device="cuda")
+
+
+# About 1.5 s of the card's clock: a stream stuck for far longer than
+# the 0.2 s watchdog.
+WEDGE_CYCLES = 3_000_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [dict(), dict(kv_quant="int8", kv_pages=9,
+                                                 kv_page_tokens=16)])
+def test_cuda_recovery_waits_for_a_wedged_stream(fields):
+    """A watchdog trip on a stream that is really stuck: the recovery's
+    reallocation waits for the stream (its pageable copies do), the
+    engine stays unhealthy meanwhile, and health returns only once the
+    stream has run the reallocation."""
+    import threading
+    import time
+
+    needs_card()
+    eng = _watchdog_engine(**fields)
+    torch.cuda.synchronize()
+    eng._healthy = False                  # as the trip leaves it
+    torch.cuda._sleep(WEDGE_CYCLES)
+    t0 = time.monotonic()
+    th = threading.Thread(target=eng._recover, args=("wedged",))
+    th.start()
+    time.sleep(0.5)
+    assert not eng.healthy() and th.is_alive()
+    th.join(timeout=30)
+    assert not th.is_alive()
+    assert eng.healthy() and eng.metrics["recoveries"] == 1
+    assert time.monotonic() - t0 > 0.5
+
+
+@pytest.mark.cuda
+def test_cuda_recovery_check_bounds_its_wait():
+    """The check behind health after a recovery: an event recorded behind
+    work that outlasts watchdog_s reads as not run, after watchdog_s."""
+    import time
+
+    needs_card()
+    eng = _watchdog_engine()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(WEDGE_CYCLES)
+    t0 = time.monotonic()
+    assert eng._stream_ran_recovery() is False
+    assert 0.2 <= time.monotonic() - t0 < 1.0
+    torch.cuda.synchronize()
+    assert eng._stream_ran_recovery() is True

@@ -6,7 +6,12 @@ same converted ``test-tiny`` f32 params, widened to the byte tokenizer's
 259 ids). The conversation reaches ``register_prefix`` and attaches its
 turn grammar; an ERROR terminal surfaces as ``engine_error`` and a user
 cancel as ``cancelled``; two port workers behind the JAX
-``EngineCoordinator`` resubmit a zero-token ERROR."""
+``EngineCoordinator`` resubmit a zero-token ERROR. The runtime's bring-up
+builds a port engine with its cold-start tracker (Health reads
+``initializing`` with the warmup snapshot, then ready), a Converse turn's
+engine span joins the llm span's trace, ``bind_engine_metrics`` exposes
+the port's flight histograms, and the port engine's metric keys are the
+JAX engine's but the decode ring's."""
 
 from __future__ import annotations
 
@@ -33,7 +38,10 @@ from omnia_tpu.runtime.conversation import Conversation, render_system_block
 from omnia_tpu.runtime.packs import load_pack
 from omnia_tpu.runtime.providers import ProviderRegistry, ProviderSpec
 from omnia_tpu.runtime.server import RuntimeServer
+from omnia_tpu.utils import tracing as tr
+from omnia_tpu.utils.metrics import Registry, bind_engine_metrics
 from omnia_tpu_torch.engine import EngineConfig, InferenceEngine, SamplingParams
+from omnia_tpu_torch.engine.coldstart import PHASE_CODES
 from omnia_tpu_torch.models import get_config
 from omnia_tpu_torch.models.convert import params_from_jax
 from omnia_tpu_torch.runtime.providers import build_engine
@@ -268,3 +276,109 @@ def test_coordinator_resubmits_a_zero_token_error(jparams, tparams):
     jeng = _jax_engine(jparams, **fields)
     want, _ = jeng.generate(second, JSamplingParams(temperature=0.0, max_tokens=6))
     assert got == want
+
+
+# The JAX engine's metric keys the port engine does not have: the decode
+# ring's (ROADMAP A item 2).
+RING_KEYS = {"decode_ring_enabled", "decode_ring_gate_state", "early_exit_steps",
+             "ring_drains", "ring_full_stalls"}
+
+
+class _BuildingRegistry(ProviderRegistry):
+    """Builds a port engine when the runtime's bring-up asks, with the
+    tracker it passes; the engine's warmup waits for ``gate``."""
+
+    def __init__(self, tparams, gate: threading.Event):
+        super().__init__()
+        self.register(ProviderSpec(name="main", type="tpu", model="test-tiny"))
+        self._tparams, self._gate = tparams, gate
+        self.built = threading.Event()
+
+    def engine(self, name, coldstart=None):
+        eng = self._engines.get(name)
+        if eng is None:
+            eng = self._engines[name] = InferenceEngine(
+                get_config("test-tiny", vocab_size=VOCAB, max_seq_len=256),
+                EngineConfig(**ENGINE_FIELDS, flight_events=256, warmup_threads=2),
+                params=self._tparams, seed=0, device="cpu", finish_reasons=JFinishReason,
+                coldstart=coldstart)
+            warmup = eng.warmup
+
+            def gated_warmup():
+                self.built.set()
+                assert self._gate.wait(timeout=60)
+                warmup()
+
+            eng.warmup = gated_warmup
+        return eng
+
+
+def test_serve_reports_initializing_then_ready(tparams, tmp_path, monkeypatch):
+    """RuntimeServer.serve(wait_ready=False) over a port engine: while the
+    warmup runs Health reads "initializing" with the tracker's snapshot
+    (backend_init closed by the engine's construction), then "ok" with
+    the engine ready and its warmup metrics mirrored."""
+    monkeypatch.setenv("OMNIA_WARMUP_MANIFEST_DIR", str(tmp_path))
+    gate = threading.Event()
+    reg = _BuildingRegistry(tparams, gate)
+    server = RuntimeServer(pack=load_pack(PACK), providers=reg, provider_name="main")
+    server.serve(wait_ready=False)
+    try:
+        assert reg.built.wait(timeout=60)
+        h = server.health(None, None)
+        assert h.status == "initializing"
+        assert h.warmup["phase"] == "backend_init" and "backend_init" in h.warmup["phases_s"]
+        gate.set()
+        assert server.wait_ready(timeout=60)
+        h = server.health(None, None)
+        assert h.status == "ok"
+        m = reg._engines["main"].metrics
+        assert m["warmup_phase"] == PHASE_CODES["ready"]
+        assert m["warmup_programs_done"] == m["warmup_programs_total"] > 0
+        assert server._coldstart.snapshot()["phase"] == "ready"
+    finally:
+        gate.set()
+        server.shutdown(grace=0)
+
+
+def test_converse_engine_span_joins_the_llm_trace(tparams):
+    """A turn through the runtime's conversation: the server hands its
+    tracer to the port engine, and the engine's request span lands in
+    the llm span's trace, under it."""
+    tracer = tr.Tracer("runtime-test")
+    engine = _port_engine(tparams, flight_events=256)
+    server = RuntimeServer(pack=load_pack(PACK), providers=_Registry(engine),
+                           provider_name="main", tracer=tracer)
+    conv = server._get_or_create("traced")
+    assert engine.tracer is tracer
+    engine.start()
+    try:
+        msgs = _turn(conv, content="hello there")
+    finally:
+        engine.stop()
+    assert msgs[-1][0] == "done"
+    (llm,), (eng_span,) = tracer.spans(tr.SPAN_LLM), tracer.spans(tr.SPAN_ENGINE)
+    assert eng_span.trace_id == llm.trace_id and eng_span.parent_id == llm.span_id
+    assert eng_span.attrs["engine.tokens"] == msgs[-1][5][1]
+
+
+def test_bind_engine_metrics_exposes_the_port_histograms(tparams):
+    engine = _port_engine(tparams, flight_events=64)
+    engine.generate([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=4))
+    reg = Registry(prefix="omnia_facade")
+    bind_engine_metrics(reg, engine)
+    body = reg.expose()
+    assert "omnia_engine_requests_finished 1" in body
+    assert "omnia_engine_flight_enabled 1" in body
+    assert "omnia_engine_ttft_seconds_count 1" in body
+    assert "omnia_engine_dispatch_us_bucket" in body and "omnia_engine_sync_us_count" in body
+
+
+@pytest.mark.parametrize("fields", [dict(), dict(flight_events=64, watchdog_s=5.0,
+                                                 kv_quant="int8", kv_pages=33,
+                                                 kv_page_tokens=16)])
+def test_metric_keys_equal_jax_but_the_ring(jparams, tparams, fields):
+    jkeys = set(_jax_engine(jparams, **fields).metrics)
+    tkeys = set(_port_engine(tparams, **fields).metrics)
+    assert tkeys == jkeys - RING_KEYS
+    assert RING_KEYS <= jkeys
