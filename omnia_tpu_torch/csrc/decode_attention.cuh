@@ -253,6 +253,7 @@ struct Args {
   void* out;                // [B, H, D]
   int* counters;            // [B * Hkv], zero between calls
   float* partials;          // acc [B*Hkv*tiles, G, D], then m and l [B*Hkv*tiles, G]
+  int* launch_count;        // null, or a count the launch adds one to
   int B, S, Hkv, split_rows, num_splits, tiles;
   cudaStream_t stream;
 };
@@ -267,8 +268,8 @@ decode_kernel(const T* __restrict__ q,
               const float* __restrict__ k_scale, const float* __restrict__ v_scale,
               const int* __restrict__ table, const int* __restrict__ positions,
               T* __restrict__ out, int* __restrict__ counters,
-              float* __restrict__ partials, int S, int split_rows, int num_splits,
-              float scale) {
+              float* __restrict__ partials, int* __restrict__ launch_count, int S,
+              int split_rows, int num_splits, float scale) {
   using KV = std::conditional_t<Quant, int8_t, T>;
   using L = Smem<KV, D, G>;
   // A lane computes on a chunk of N row elements: 16 bytes of T, 8 of
@@ -288,6 +289,10 @@ decode_kernel(const T* __restrict__ q,
 
   const int x = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int Hkv = gridDim.y;
+  // A launch given a count (one made inside a captured CUDA graph, whose
+  // replays run no host code) adds one to it: block (0, 0, 0), which
+  // always runs, since row 0 is never past a position.
+  if (launch_count != nullptr && (x | h | b | threadIdx.x) == 0) atomicAdd(launch_count, 1);
   const int tps = (split_rows + kTileRows - 1) / kTileRows;  // tiles per split
   const int s = x / tps, t = x % tps;
   const int pos = clamp_pos(positions, b, S);
@@ -547,7 +552,7 @@ cudaError_t launch(const Args& a) {
   kernel<<<dim3(a.tiles, a.Hkv, a.B), kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       a.k_scale, a.v_scale, a.table, a.positions, static_cast<T*>(a.out), a.counters,
-      a.partials, a.S, a.split_rows, a.num_splits, rsqrtf((float)D));
+      a.partials, a.launch_count, a.S, a.split_rows, a.num_splits, rsqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -579,8 +584,8 @@ cudaError_t dispatch_d(int D, int G, const Args& a) {
 template <bool Quant, bool Paged>
 int entry(const void* q, const void* k, const void* v, const float* k_scale,
           const float* v_scale, const int* table, const int* positions, void* out,
-          int* counters, float* partials, int B, int S, int H, int Hkv, int D, int dtype,
-          int split_rows, void* stream) {
+          int* counters, float* partials, int* launch_count, int B, int S, int H, int Hkv,
+          int D, int dtype, int split_rows, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || split_rows <= 0 || B <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   if (counters == nullptr || partials == nullptr) return (int)cudaErrorInvalidValue;
@@ -593,7 +598,7 @@ int entry(const void* q, const void* k, const void* v, const float* k_scale,
     return (int)cudaErrorMisalignedAddress;  // 16-byte loads and copies
   const int num_splits = (S + split_rows - 1) / split_rows;
   const Args a{q, k, v, k_scale, v_scale, table, positions, out, counters, partials,
-               B, S, Hkv, split_rows, num_splits,
+               launch_count, B, S, Hkv, split_rows, num_splits,
                num_splits * ((split_rows + kTileRows - 1) / kTileRows),
                static_cast<cudaStream_t>(stream)};
   const int G = H / Hkv;
@@ -640,14 +645,15 @@ int smem_bytes(int D, int G, int dtype) {
 //   int32 [B, S/split_rows]; positions int32 [B]; out [B, H, D];
 //   counters int32 [B * Hkv], zero on entry and on return; partials f32,
 //   16-byte aligned, (D + 2) * G floats for each of B * Hkv * tiles, with
-//   tiles = ceil(S / split_rows) * ceil(split_rows / 64).
+//   tiles = ceil(S / split_rows) * ceil(split_rows / 64); launch_count
+//   int32, or null: a non-null count gets one added by the launch.
 // Each also exports <entry>_smem_bytes(D, G, dtype): its block's dynamic
 // shared memory (smem_bytes above), for reports.
 #define OMNIA_DECODE_ARGS                                                        \
   const void *q, const void *k, const void *v, const float *k_scale,             \
       const float *v_scale, const int *table, const int *positions, void *out,   \
-      int *counters, float *partials, int B, int S, int H, int Hkv, int D,       \
-      int dtype, int split_rows, void *stream
+      int *counters, float *partials, int *launch_count, int B, int S, int H,    \
+      int Hkv, int D, int dtype, int split_rows, void *stream
 #define OMNIA_DECODE_CALL                                                        \
-  q, k, v, k_scale, v_scale, table, positions, out, counters, partials, B, S, H, \
-      Hkv, D, dtype, split_rows, stream
+  q, k, v, k_scale, v_scale, table, positions, out, counters, partials,         \
+      launch_count, B, S, H, Hkv, D, dtype, split_rows, stream

@@ -38,6 +38,11 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
   per-request latency breakdowns; ``watchdog_s`` bounds a decode chunk's
   host read, and a trip fails the requests in flight and reallocates the
   device state.
+- **The decode ring** (``decode_ring >= 2``, ``devloop.py``): the decode
+  chunk's ring edition (a deadline-step budget, per-slot grammar EOS, an
+  all-done early-out), replayed on the card as one captured CUDA graph
+  per chunk size (``graphs.py``), with each chunk's read started on the
+  drainer thread at dispatch while the ring's self-gate allows it.
 - **Everything stays on the device.** Sampled tokens feed the next step
   as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
   cross to the host, for streaming and stop logic.
@@ -66,13 +71,14 @@ import torch
 
 from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.engine.coldstart import PHASE_CODES, ColdStartTracker, build_cache_dir
-from omnia_tpu_torch.engine.devloop import DevLoopState
+from omnia_tpu_torch.engine.devloop import DevLoopState, validate_decode_ring
 from omnia_tpu_torch.engine.faults import FaultPlan
 from omnia_tpu_torch.engine.flight import FlightRecorder
 from omnia_tpu_torch.engine.interleave import _InflightPrefill, _InterleaveMixin
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
 from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
 from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
+from omnia_tpu_torch.engine.graphs import RingGraphs
 from omnia_tpu_torch.engine.placement import _PlacementMixin
 from omnia_tpu_torch.engine.prefix_cache import PrefixPool, _PrefixCacheMixin
 from omnia_tpu_torch.engine.programs import build_programs
@@ -91,15 +97,14 @@ from omnia_tpu_torch.engine.types import (
 )
 from omnia_tpu_torch.models import ModelConfig, llama, quant
 from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
+from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
 
 logger = logging.getLogger(__name__)
 
 # Knobs this port does not implement yet: (field, ROADMAP item). Set
 # away from its default, each one is refused at construction.
-_UNPORTED_KNOBS = (
-    ("dp", "A13"), ("tp", "A13"), ("sp", "A13"), ("decode_ring", "A item 2"),
-)
+_UNPORTED_KNOBS = (("dp", "A13"), ("tp", "A13"), ("sp", "A13"))
 
 
 def _refuse_unported(ecfg: EngineConfig) -> None:
@@ -133,6 +138,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # values (the JAX package's FinishReason) may be passed.
         self._finish_reasons = finish_reasons or FinishReason
         _refuse_unported(engine_cfg)
+        validate_decode_ring(engine_cfg)
         if engine_cfg.warmup_threads < 0:
             raise ValueError("warmup_threads must be >= 0")
         self._gr_on = bool(engine_cfg.grammar)
@@ -171,6 +177,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         progs = build_programs(model_cfg, engine_cfg)
         self._prefill_insert_fn = progs.prefill_insert
         self._decode_fns = progs.decode_fns
+        self._step_fn = progs.step
+        # The captured ring chunks (graphs.py): on the card with the ring
+        # on, made by _ring where first needed on the current state; None
+        # otherwise, and again whenever _init_device_state frees that state.
+        self._ring_graphs: Optional[RingGraphs] = None
         self._extend_fn = progs.extend
         self._extend_nosample_fn = progs.extend_nosample
         self._offload_fn = progs.offload
@@ -214,10 +225,12 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # The at most one placement mid-interleave (engine/interleave.py);
         # always None with prefill_chunk_tokens = 0.
         self._prefilling: Optional[_InflightPrefill] = None
-        # The drainer behind the watchdog (devloop.py); None, and no
-        # thread, without watchdog_s.
+        # The device-resident loop's host state (devloop.py): the ring and
+        # the drainer behind the ring and the watchdog. None, and no
+        # thread, with decode_ring = 0 and no watchdog_s.
         self._devloop: Optional[DevLoopState] = (
-            DevLoopState() if engine_cfg.watchdog_s is not None else None
+            DevLoopState(engine_cfg.decode_ring)
+            if engine_cfg.decode_ring > 0 or engine_cfg.watchdog_s is not None else None
         )
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
@@ -265,6 +278,17 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             "deadline_exceeded": 0,
             # Hung-dispatch watchdog firings (each one also recovers).
             "watchdog_trips": 0,
+            # The decode ring (devloop.py): ring_drains = chunks whose
+            # read ran on the drainer thread, ring_full_stalls =
+            # dispatches that first processed the oldest chunk of a full
+            # ring, early_exit_steps = ring steps skipped once every
+            # slot of their chunk was done, gate_state = the self-gate
+            # (0 probing / 1 on / 2 off).
+            "decode_ring_enabled": 1 if engine_cfg.decode_ring > 0 else 0,
+            "ring_drains": 0,
+            "ring_full_stalls": 0,
+            "early_exit_steps": 0,
+            "decode_ring_gate_state": 0,
             "recoveries": 0,
             "decode_stall_steps": 0,
             # Grammars: compile_hits/misses read this package's compile
@@ -358,6 +382,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         """(Re)allocate the KV caches (and the page books) and per-slot
         device state."""
         B, dev = self.cfg.num_slots, self.device
+        if self._ring_graphs is not None:
+            # The old graphs point at the state about to be freed: let
+            # their last replay finish, then drop them.
+            torch.cuda.synchronize(dev)
+            self._ring_graphs = None
         # Free the old caches and tables before allocating.
         self._ck = self._cv = self._pk = self._pv = self._gtable = None
         if self.cfg.kv_pages > 0:
@@ -409,6 +438,37 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._key_data = torch.stack(
             [make_slot_key_data(self._seed + 1 + i, dev) for i in range(B)]
         )
+        # The ring's per-slot grammar EOS (-1 = none): only the ring's
+        # grammar edition reads it.
+        self._geos = None
+        if self._gr_on and self.cfg.decode_ring > 0:
+            self._geos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+
+    def _ring(self) -> Optional[RingGraphs]:
+        """The card's captured ring chunks over the current state (graphs.py),
+        every chunk size captured at first need; None with the ring off or
+        on the CPU, where the ring chunk runs eagerly. No fallback: a
+        failed capture raises."""
+        if self.cfg.decode_ring == 0 or self.device.type != "cuda":
+            return None
+        if self._ring_graphs is not None:
+            return self._ring_graphs
+        graphs = RingGraphs(
+            self._step_fn,
+            (self._tokens, self._positions, self._active, self._budget, self._key_data,
+             self._gstate),
+            dict(params=self.params, ck=self._ck, cv=self._cv, stop_ids=self._stop_ids,
+                 temp=self._temp, top_p=self._top_p, top_k=self._top_k,
+                 g=(self._gtable, self._gactive) if self._gr_on else (), geos=self._geos),
+            self.device)
+        for chunk in self._decode_fns:
+            graphs.capture(chunk)
+        self._ring_graphs = graphs
+        return graphs
+
+    def _kernel_edition(self) -> str:
+        """The decode-attention edition of this engine's cache."""
+        return edition(self._kv_quant is not None, self.cfg.kv_pages > 0)
 
     def kv_bytes_per_token(self) -> int:
         """Device bytes one cached token costs (k + v over all layers, f32

@@ -58,8 +58,8 @@ SPAN_ENGINE = "omnia.engine.request"
 
 #: The event vocabulary: the stable kind set every recorder (engine,
 #: mock, coordinator) draws from, the JAX package's set exactly. This
-#: package's engine records no coordinator kinds and no ``ring_drain``
-#: (the decode ring is not ported).
+#: package's engine records no coordinator kinds; ``ring_drain`` only with
+#: the decode ring on (``decode_ring >= 2``).
 EVENTS = frozenset({
     "submit",          # request accepted into the queue
     "claim",           # scheduler claimed it from the queue

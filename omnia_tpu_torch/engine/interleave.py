@@ -36,7 +36,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from omnia_tpu_torch.engine.scheduler import _InflightChunk
 from omnia_tpu_torch.engine.types import FinishReason, Request, RequestHandle
 
 
@@ -236,10 +235,7 @@ class _InterleaveMixin:
         if final:
             first_tok, new_pkd = out[-2:]
             out = out[:-2]
-        (self._ck, self._cv, self._tokens, self._positions, self._active, self._budget,
-         self._key_data) = out[:7]
-        if self._gr_on:
-            self._gstate = out[7]
+        self._adopt_decode_state(out)
         dtoks = out[-1]
         dispatch_s = time.monotonic() - t_dispatch
         self.metrics["decode_dispatch_s"] += dispatch_s
@@ -249,8 +245,9 @@ class _InterleaveMixin:
         self.metrics["prefill_tokens"] += take
         if self._flight is not None:
             self._flight.note_mixed_step(pf.request.request_id, take, bucket, dispatch_s)
-        # The decode half rides the pipeline like a chunk of one step.
-        self._inflight.append(_InflightChunk(dtoks, active, dispatch_s))
+        # The decode half rides the pipeline (and the ring) like a chunk
+        # of one step; mixed steps stay eager on the card.
+        self._push_inflight(dtoks, active, dispatch_s)
         if plan is not None:
             t_sync = time.monotonic()
             g = greedy.cpu().numpy()

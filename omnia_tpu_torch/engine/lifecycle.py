@@ -120,7 +120,11 @@ class _LifecycleMixin:
                 sess.slot = None
                 sess.token_ids = []
         try:
+            # On the card with the ring on the captured chunks die with the
+            # state and are captured again on the new one; a poisoned
+            # drainer is replaced at the next read (devloop.py).
             self._init_device_state()
+            self._ring()
             self.metrics["recoveries"] += 1
             self._healthy = self._stream_ran_recovery()
         except Exception:
@@ -131,7 +135,7 @@ class _LifecycleMixin:
         """With the watchdog on the card: whether an event recorded after
         the reallocation completes within ``watchdog_s`` (its kernels are
         only enqueued when it returns). True otherwise."""
-        if self._devloop is None or self.device.type != "cuda":
+        if self.cfg.watchdog_s is None or self.device.type != "cuda":
             return True
         done = torch.cuda.Event()
         done.record()

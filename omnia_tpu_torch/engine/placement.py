@@ -235,6 +235,10 @@ class _PlacementMixin:
         ids = ids[:MAX_DEVICE_STOP_IDS]
         ids += [-1] * (MAX_DEVICE_STOP_IDS - len(ids))
         self._stop_ids[slot_idx] = torch.tensor(ids, dtype=torch.int32)
+        if self._geos is not None:
+            # The ring's per-slot grammar EOS (-1 = none), set at every
+            # placement so that a previous occupant's id never leaks.
+            self._geos[slot_idx] = request.grammar.eos_id if request.grammar is not None else -1
         first = int(first_tok)
         self._attach_grammar(slot_idx, request, first)
         if self._flight is not None:

@@ -1,4 +1,4 @@
-"""The serving engine's device programs (port of the non-ring programs of
+"""The serving engine's device programs (port of
 ``omnia_tpu/engine/programs.py``).
 
 - ``prefill_insert``: a fresh bucketed prefill whose KV chunk is written
@@ -13,6 +13,12 @@
   inside a chunk, and stop-token / budget finishes are masked on the
   device, so a slot that finishes mid-chunk stops advancing.
   Every decode step of every program below is the one ``_step``.
+  With ``decode_ring > 0`` the family is the ring edition instead: the
+  step also carries the deadline-step budget and the per-slot grammar
+  EOS, and a step that starts with every slot done runs nothing. Here
+  that edition is eager and branches on the host (the CPU's route); on
+  the card the engine replays it as one captured CUDA graph per chunk
+  size, whose branch is a conditional node (``graphs.py``).
 - ``mixed[b]`` / ``mixed_sample[b]`` (``prefill_chunk_tokens > 0``): a
   prompt piece of bucket ``b`` through the extend seam, then one decode
   step for every active slot, enqueued together; ``mixed_sample`` also
@@ -79,6 +85,8 @@ from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
 class EnginePrograms:
     prefill_insert: Callable
     decode_fns: dict[int, Callable]
+    # One decode step (``_step``): what the captured ring chunk replays.
+    step: Callable
     extend: Callable
     extend_nosample: Callable
     offload: Callable
@@ -174,14 +182,24 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         rows = torch.arange(gtable.shape[0], device=gtable.device)
         return gtable[rows, gstate.long()]                          # [B, V]
 
-    def _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g):
+    def _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g, geos=None):
         """One decode step over the fixed batch: the one source of the
-        step's ops, shared by the chunk, the mixed step and the verify
-        step's scan lane, which is what keeps their tokens equal.
-        ``state`` = (tokens, positions, active, budget, key_data, gstate),
-        gstate None without the grammar; ``g`` = () or (gtable, gactive).
-        Returns (the next state, the sampled tokens [B])."""
-        tokens, positions, active, budget, key_data, gstate = state
+        step's ops, shared by the chunk, the ring chunk (eager or
+        captured), the mixed step and the verify step's scan lane, which
+        is what keeps their tokens equal. ``state`` = (tokens, positions,
+        active, budget, key_data, gstate), gstate None without the
+        grammar; ``g`` = () or (gtable, gactive). Returns (the next
+        state, the sampled tokens [B]).
+
+        The ring edition (``decode_ring > 0``) carries the deadline-step
+        budget as a seventh element of ``state``: decremented on active
+        at the step's start, like the emission budget, and its
+        exhaustion masks the slot from the next step on (the host
+        finishes it DEADLINE at the same step). With the grammar it also
+        takes ``geos``, the per-slot grammar EOS id (-1 = none), which
+        stops a slot like a stop id (it covers an EOS cut off the
+        8-wide stop-id row)."""
+        tokens, positions, active, budget, key_data, gstate = state[:6]
         logits, _, _ = llama.forward(params, cfg, tokens[:, None], positions[:, None], ck, cv,
                                      positions)
         if g:
@@ -202,10 +220,19 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         # as the host's finish bookkeeping does.
         positions = torch.where(active, torch.clamp(positions + 1, max=max_seq - 1), positions)
         budget = budget - active.to(torch.int32)
+        ring = state[6:]
+        if ring:
+            ring = (ring[0] - active.to(torch.int32),)
         hit_stop = (tok[:, None] == stop_ids).any(dim=1)
+        if geos is not None:
+            # Token ids are >= 0, so a slot without a grammar (-1) never
+            # matches.
+            hit_stop = hit_stop | (tok == geos)
         active = active & ~hit_stop & (budget > 0)
+        if ring:
+            active = active & (ring[0] > 0)
         tokens = torch.where(active | hit_stop, tok, tokens)
-        return (tokens, positions, active, budget, key_data, gstate), tok
+        return (tokens, positions, active, budget, key_data, gstate) + ring, tok
 
     def _outputs(ck, cv, state, grammar_on: bool) -> tuple:
         """A step's state as the programs return it: (ck, cv, tokens,
@@ -213,7 +240,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         out = (ck, cv) + tuple(state[:5])
         return out + (state[5],) if grammar_on else out
 
-    def make_decode(chunk: int) -> Callable:
+    def make_decode(chunk: int, ring: bool = False) -> Callable:
         def decode_chunk(params, ck, cv, tokens, positions, active, budget,
                          stop_ids, key_data, temp, top_p, top_k, *g):
             """``chunk`` decode steps → (ck, cv, tokens, positions, active,
@@ -227,8 +254,33 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
                 toks.append(tok)
             return _outputs(ck, cv, state, bool(g)) + (torch.stack(toks),)
 
-        decode_chunk.__name__ = f"decode_chunk_{chunk}"
-        return decode_chunk
+        def decode_chunk_ring(params, ck, cv, tokens, positions, active, budget,
+                              stop_ids, key_data, temp, top_p, top_k, *rest):
+            """The ring edition: ``rest`` = [gstate, gtable, gactive, geos]
+            with the grammar, then the deadline-step budget dl int32 [B].
+            Returns decode_chunk's outputs with dl before toks (JAX's
+            carry order). A step that starts with no slot active runs
+            nothing: its output row is the frozen token vector and the
+            state passes through, as JAX's ``lax.cond`` dead branch does.
+            This eager edition reads ``active`` on the host to branch;
+            on the card the chunk is captured instead (graphs.py), where
+            the branch is a conditional node on the device."""
+            *g, dl = rest
+            geos = g.pop() if g else None
+            state = (tokens, positions, active, budget, key_data, g[0] if g else None, dl)
+            toks = []
+            for _ in range(chunk):
+                if not bool(state[2].any()):
+                    toks.append(state[0])
+                    continue
+                state, tok = _step(params, ck, cv, state, stop_ids, temp, top_p, top_k,
+                                   tuple(g[1:]), geos)
+                toks.append(tok)
+            return _outputs(ck, cv, state, bool(g)) + (state[6], torch.stack(toks))
+
+        fn = decode_chunk_ring if ring else decode_chunk
+        fn.__name__ = f"{fn.__name__}_{chunk}"
+        return fn
 
     def _verify_window(params, ck, cv, vtoks, vpos, vwstart, g):
         """The speculative verify half: one forward over [B, W+1] tokens
@@ -279,7 +331,10 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
 
     progs = dict(
         prefill_insert=prefill_insert,
-        decode_fns={k: make_decode(k) for k in ecfg.chunk_variants()},
+        # decode_ring > 0 swaps the whole decode family for the ring
+        # edition; ring off builds the programs it always had.
+        decode_fns={k: make_decode(k, ring=ecfg.decode_ring > 0) for k in ecfg.chunk_variants()},
+        step=_step,
         extend=extend,
         extend_nosample=extend_nosample,
         offload=offload,

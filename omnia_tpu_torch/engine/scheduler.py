@@ -1,5 +1,4 @@
-"""Decode scheduler (port of ``omnia_tpu/engine/scheduler.py``, without
-the decode ring).
+"""Decode scheduler (port of ``omnia_tpu/engine/scheduler.py``).
 
 Each step applies queued session releases and imports, places the first
 waiting request that can take a slot, then decodes all active slots.
@@ -19,6 +18,16 @@ thread (devloop.py) and the engine thread waits for it with a timeout: a
 read that outlives ``watchdog_s`` raises :class:`WatchdogTimeout`, and the
 loop's recovery fails the requests in flight and reallocates the device
 state, so a hung device bounds a client's wait.
+
+With ``decode_ring >= 2`` (engine/devloop.py) the decode chunks are the
+ring edition, replayed as captured graphs on the card (graphs.py): each
+dispatch carries a per-slot deadline-step budget, so a deadline finishes
+a slot mid-chunk, and a chunk whose batch is done skips the rest of its
+steps (``early_exit_steps``). A chunk's read starts on the drainer thread
+at dispatch while the ring's self-gate allows it (``ring_drains``), and a
+pipeline holding ``capacity`` unread chunks reads its oldest before the
+next one is enqueued (``ring_full_stalls``). Mixed steps ride the same
+pipeline.
 """
 
 from __future__ import annotations
@@ -31,18 +40,28 @@ import numpy as np
 import torch
 
 from omnia_tpu_torch.engine.faults import WatchdogTimeout
+from omnia_tpu_torch.engine.graphs import NO_DEADLINE
 from omnia_tpu_torch.engine.types import FinishReason, SamplingParams, StreamEvent
 
 
 class _InflightChunk:
-    """A dispatched decode chunk whose tokens have not been read yet."""
+    """A dispatched decode chunk whose tokens have not been read yet.
 
-    __slots__ = ("toks", "host", "event", "active", "dispatch_s")
+    ``active`` is the (slot, request_id) snapshot at dispatch and
+    ``dispatch_s`` the host's enqueue wall. Ring extras: ``dl_steps``
+    mirrors the deadline-step budget the chunk was given (the host must
+    finish a slot at the step the device masked it) and ``entry`` the
+    drainer's handle when the read started at dispatch."""
 
-    def __init__(self, toks: torch.Tensor, active: list, dispatch_s: float):
+    __slots__ = ("toks", "host", "event", "active", "dispatch_s", "dl_steps", "entry")
+
+    def __init__(self, toks: torch.Tensor, active: list, dispatch_s: float,
+                 dl_steps: Optional[np.ndarray] = None):
         self.toks = toks
         self.active = active
         self.dispatch_s = dispatch_s
+        self.dl_steps = dl_steps
+        self.entry = None
         self.host: Optional[torch.Tensor] = None
         self.event = None
         if toks.is_cuda:
@@ -301,41 +320,67 @@ class _SchedulerMixin:
         return fault.take_hang_s() + fault.slow_sync_s
 
     def _sync_chunk_host(self, ch: _InflightChunk) -> np.ndarray:
-        """A decode chunk's tokens on the host. Without ``watchdog_s`` the
-        read is the direct wait, on this thread. With it the read rides
-        the engine's one drainer thread, and a read that outlives
-        ``watchdog_s`` counts a trip, marks the engine unhealthy and
-        raises WatchdogTimeout (the loop's recovery takes it)."""
+        """A decode chunk's tokens on the host. Without ``watchdog_s`` and
+        without a drain entry the read is the direct wait, on this thread.
+        Otherwise it rides the engine's one drainer thread: a read started
+        at dispatch (``ch.entry``) is awaited, a watchdog-only read is
+        handed over now. A read that outlives ``watchdog_s`` counts a
+        trip, marks the engine unhealthy and raises WatchdogTimeout (the
+        loop's recovery takes it)."""
         wd = self.cfg.watchdog_s
-        if wd is None:
-            sleep_s = self._fault_sleep_s()
-            if sleep_s > 0.0:
-                time.sleep(sleep_s)
-            return ch.read()
-        drainer = self._devloop.get_drainer()
-        entry = drainer.submit(ch.read, pre_sleep_s=self._fault_sleep_s())
-        host = drainer.wait(entry, timeout=wd)
+        entry = ch.entry
+        if entry is None:
+            if wd is None:
+                sleep_s = self._fault_sleep_s()
+                if sleep_s > 0.0:
+                    time.sleep(sleep_s)
+                return ch.read()
+            entry = self._devloop.get_drainer().submit(ch.read,
+                                                       pre_sleep_s=self._fault_sleep_s())
+        host = self._devloop.get_drainer().wait(entry, timeout=wd)
         if host is None:
             self.metrics["watchdog_trips"] += 1
             self._healthy = False  # until recovery has reallocated
             raise WatchdogTimeout(f"decode chunk host sync exceeded watchdog_s={wd}")
         return host
 
-    def _run_decode_step(self, chunk: int) -> torch.Tensor:
+    def _adopt_decode_state(self, out) -> None:
+        """Take a program's outputs (ck, cv, tokens, positions, active,
+        budget, key_data[, gstate]) as the engine's decode state: rebound,
+        or, while captured graphs point at the state tensors, copied into
+        them in place. The caches were written in place already."""
+        names = ("_tokens", "_positions", "_active", "_budget", "_key_data")
+        for name, value in zip(names + (("_gstate",) if self._gr_on else ()), out[2:]):
+            if self._ring_graphs is None:
+                setattr(self, name, value)
+            elif getattr(self, name) is not value:
+                getattr(self, name).copy_(value)
+
+    def _run_decode_step(self, chunk: int, dl_steps: Optional[np.ndarray] = None):
         """Enqueue one decode chunk; device state advances to its outputs
-        at once and the tokens [K, B] are returned unread."""
+        at once. Returns its tokens [K, B], unread. The ring edition takes
+        the deadline-step budget ``dl_steps`` and, with the grammar, the
+        per-slot grammar EOS; on the card it replays the chunk's graph."""
         t_dispatch = time.monotonic()
-        out = self._decode_fns[chunk](
-            self.params, self._ck, self._cv, self._tokens, self._positions,
-            self._active, self._budget, self._stop_ids, self._key_data,
-            self._temp, self._top_p, self._top_k,
-            *((self._gstate, self._gtable, self._gactive) if self._gr_on else ()),
-        )
-        (self._ck, self._cv, self._tokens, self._positions, self._active,
-         self._budget, self._key_data) = out[:7]
-        if self._gr_on:
-            self._gstate = out[7]
-        toks = out[-1]
+        graphs = self._ring()
+        if graphs is not None:
+            toks = graphs.replay(chunk, dl_steps)
+        else:
+            ring_args = ()
+            if self.cfg.decode_ring > 0:
+                ring_args = (((self._geos,) if self._gr_on else ())
+                             + (torch.from_numpy(dl_steps).to(self.device),))
+            out = self._decode_fns[chunk](
+                self.params, self._ck, self._cv, self._tokens, self._positions,
+                self._active, self._budget, self._stop_ids, self._key_data,
+                self._temp, self._top_p, self._top_k,
+                *((self._gstate, self._gtable, self._gactive) if self._gr_on else ()),
+                *ring_args,
+            )
+            # The ring's deadline carry (before toks) is dropped: the next
+            # dispatch computes the budget afresh.
+            self._adopt_decode_state(out)
+            toks = out[-1]
         self.metrics["decode_dispatch_s"] += time.monotonic() - t_dispatch
         self.metrics["decode_steps"] += int(toks.shape[0])
         return toks
@@ -378,11 +423,51 @@ class _SchedulerMixin:
         # frontier before the chunk is enqueued (engine/paged.py); a
         # decode write must never land through a trash table entry.
         self._prealloc_decode_pages(chunk)
+        dl_steps = self._deadline_steps() if self.cfg.decode_ring > 0 else None
         t_dispatch = time.monotonic()
-        toks = self._run_decode_step(chunk)
-        self._inflight.append(
-            _InflightChunk(toks, active, time.monotonic() - t_dispatch)
-        )
+        toks = self._run_decode_step(chunk, dl_steps)
+        self._push_inflight(toks, active, time.monotonic() - t_dispatch, dl_steps)
+
+    def _deadline_steps(self) -> np.ndarray:
+        """Per-slot deadline budget in decode steps for the next ring
+        dispatch: the wall time left to each slot's deadline over the
+        realized per-step EMA (devloop.py), at least 1 (a deadline already
+        past is the step-boundary reap's). Slots without a deadline, and
+        every slot under an injected clock, get an effectively infinite
+        budget."""
+        dl = np.full((self.cfg.num_slots,), NO_DEADLINE, np.int32)
+        if self.clock is not time.monotonic:
+            return dl
+        ema = max(self._devloop.step_ema_s, 1e-6)
+        now = time.monotonic()
+        for i, s in enumerate(self._slots):
+            if s.active and s.request.deadline_at is not None:
+                steps = int((s.request.deadline_at - now) / ema)
+                dl[i] = max(1, min(NO_DEADLINE, steps))
+        return dl
+
+    def _push_inflight(self, toks, active, dispatch_s: float, dl_steps=None) -> None:
+        """Append one dispatched chunk to the pipeline: the one seam of
+        decode chunks and mixed steps (both ride the ring). With async
+        drain engaged the read starts now on the drainer thread, and a
+        ring already holding ``capacity`` unread chunks processes its
+        oldest first (ring_full_stalls)."""
+        ch = _InflightChunk(toks, active, dispatch_s, dl_steps)
+        dv = self._devloop
+        if dv is not None and dv.async_engaged(self.clock is time.monotonic):
+            if len(self._inflight) >= dv.capacity:
+                self.metrics["ring_full_stalls"] += 1
+                self._process_oldest_chunk()
+            ch.entry = dv.get_drainer().submit(ch.read, pre_sleep_s=self._fault_sleep_s(),
+                                               on_drained=self._note_ring_drain)
+        self._inflight.append(ch)
+
+    def _note_ring_drain(self, host_tokens, drain_s: float) -> None:
+        """Drainer-thread callback: the drain as its own flight event, so
+        that the wait is booked to the thread that blocked on it. A failed
+        read (None) records nothing: the engine thread re-raises."""
+        if self._flight is not None and host_tokens is not None:
+            self._flight.note_ring_drain(1, int(host_tokens.size), drain_s)
 
     def _process_oldest_chunk(self):
         ch = self._inflight.popleft()
@@ -390,21 +475,45 @@ class _SchedulerMixin:
         host_tokens = self._sync_chunk_host(ch)  # [K, B]
         sync_s = time.monotonic() - t_sync
         self.metrics["decode_sync_s"] += sync_s
+        drained = ch.entry is not None
+        if drained:
+            self.metrics["ring_drains"] += 1
+        K = int(host_tokens.shape[0])
+        dv = self._devloop
+        if dv is not None and K > 0:
+            # The realized per-step wall feeds the deadline-step EMA.
+            dv.observe_step_time((ch.dispatch_s + sync_s) / K)
         if self._flight is not None:
-            self._flight.note_decode_chunk(int(host_tokens.shape[0]), ch.dispatch_s, sync_s,
-                                           len(ch.active))
-        for k in range(host_tokens.shape[0]):
+            self._flight.note_decode_chunk(K, ch.dispatch_s, sync_s, len(ch.active),
+                                           drained=drained)
+        for k in range(K):
             stepped = False
             for i, rid in ch.active:
                 slot = self._slots[i]
                 if not slot.active or slot.request.request_id != rid:
                     # Finished earlier in this chunk, or re-placed since.
                     continue
+                if ch.dl_steps is not None and k >= int(ch.dl_steps[i]):
+                    # The device masked this slot at exactly this step:
+                    # finish with the partial output.
+                    self.metrics["deadline_exceeded"] += 1
+                    self._finish_slot(i, FinishReason.DEADLINE)
+                    continue
                 stepped = True
                 slot.length += 1
                 self._emit_token(i, int(host_tokens[k, i]))
             if not stepped:
+                # Every snapshot slot is done: the rest of the chunk is
+                # frozen tokens, and a ring chunk (dl_steps rides only
+                # those) skipped those steps on the device.
+                if ch.dl_steps is not None:
+                    self.metrics["early_exit_steps"] += K - k
                 break
+        if dv is not None and dv.gate is not None and self.clock is time.monotonic:
+            # One gate tick per processed chunk; skipped under an injected
+            # clock, where a wall-clock decision could diverge replicas.
+            dv.gate.tick(time.monotonic(), self.metrics["tokens_generated"])
+            self.metrics["decode_ring_gate_state"] = dv.gate.state_code()
 
     def _flush_pipeline(self):
         while self._inflight:

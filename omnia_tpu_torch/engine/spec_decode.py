@@ -425,10 +425,7 @@ class _SpecDecodeMixin:
                 self.params, self._ck, self._cv, self._tokens, self._positions, self._active,
                 self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
                 self._top_k, *self._plan_tensors(plan), *gargs)
-            (self._ck, self._cv, self._tokens, self._positions, self._active, self._budget,
-             self._key_data) = out[:7]
-            if self._gr_on:
-                self._gstate = out[7]
+            self._adopt_decode_state(out)
             dtoks, greedy = out[-2:]
         else:
             toks, pos, wstart, _vmask = self._plan_tensors(plan)

@@ -41,6 +41,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from omnia_tpu_torch import kernels
@@ -50,9 +51,9 @@ from omnia_tpu_torch.engine.coldstart import (
     manifest_bookkeeping,
     manifest_dir,
 )
+from omnia_tpu_torch.engine.graphs import NO_DEADLINE
 from omnia_tpu_torch.engine.types import SamplingParams
 from omnia_tpu_torch.models.kv_quant import kv_device, kv_host
-from omnia_tpu_torch.ops.decode_attention import edition
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +101,9 @@ class _WarmupMixin:
             """The first-token sampler's operands after a b-token piece."""
             return (b - 1, *self._sampler_args(0, sp), *self._grammar_args(None, sp))
 
+        def no_deadline() -> np.ndarray:
+            return np.full((cfg.num_slots,), NO_DEADLINE, np.int32)
+
         def gargs() -> tuple:
             return (self._gstate, self._gtable, self._gactive) if self._gr_on else ()
 
@@ -109,7 +113,7 @@ class _WarmupMixin:
                     self._top_k)
 
         if dev.type == "cuda":
-            name = edition(self._kv_quant is not None, cfg.kv_pages > 0)
+            name = self._kernel_edition()
             add("kernels", name, lambda st: kernels.load(name))
 
         def prefill_task(b):
@@ -141,7 +145,21 @@ class _WarmupMixin:
 
         def decode_task(chunk):
             def run(st):
-                self._decode_fns[chunk](*decode_args(st), *gargs())
+                graphs = self._ring()
+                if graphs is not None:
+                    # The card's ring: the first decode task captures every
+                    # chunk size on the engine's own state (after the
+                    # kernel task built the kernel); each replays its own.
+                    graphs.replay(chunk, no_deadline())
+                    return
+                ring_args = ()
+                if cfg.decode_ring > 0:
+                    # The ring edition: the per-slot grammar EOS rides
+                    # between gactive and the deadline-step budget, as on
+                    # the request path.
+                    ring_args = (((self._geos,) if self._gr_on else ())
+                                 + (torch.from_numpy(no_deadline()).to(dev),))
+                self._decode_fns[chunk](*decode_args(st), *gargs(), *ring_args)
             return run
 
         for chunk in self._decode_fns:
@@ -298,6 +316,9 @@ class _WarmupMixin:
         cs.begin_phase("warmup_restore")
         self.metrics["warmup_phase"] = PHASE_CODES["warmup_restore"]
         self._init_device_state()
+        # The ring's graphs pointed at the state just freed: capture them
+        # again on the new one, so that no request pays for it.
+        self._ring()
         self.metrics.update(metrics_before)
         restore_s = cs.end_phase("warmup_restore")
         cs.mark_ready()

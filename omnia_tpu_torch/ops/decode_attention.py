@@ -11,6 +11,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 PyTorch version of the same function, which the tests also hold the
 kernel against. No version reads a cache row past ``positions[b]``, and
 the paged ones read no table entry past ``positions[b] // PAGE_S``.
+
+Launch counts: a wrapper adds one to ``LAUNCHES`` where it launches. A
+call under CUDA-graph capture launches nothing then, and a replay runs
+no Python, so a captured launch counts itself on the card instead (one
+block adds one to a per-device count), and :func:`launches` sums both.
 """
 
 from __future__ import annotations
@@ -40,8 +45,13 @@ EDITIONS = {
     "decode_attention_paged": "omnia_decode_gqa_attention_paged",       # K3
     "decode_attention_paged_int8": "omnia_decode_gqa_attention_paged_int8",  # K4
 }
-# Launches of each edition's kernel; a wrapper adds one where it launches.
+# Launches of each edition's kernel that its wrapper made (a call under
+# CUDA-graph capture launches nothing, so it adds nothing).
 LAUNCHES = dict.fromkeys(EDITIONS, 0)
+# Device index → int32 [len(EDITIONS)]: launches from captured graphs, each
+# counted on the card by the launch itself. Made with the device's first
+# scratch buffer and never replaced, as the graphs keep its address.
+_GRAPH_LAUNCHES: dict[int, torch.Tensor] = {}
 # Device index → (int32 scratch buffer, counter capacity); see _scratch.
 _SCRATCH: dict[int, tuple[torch.Tensor, int]] = {}
 _SCRATCH_LOCK = threading.Lock()
@@ -49,6 +59,33 @@ _SCRATCH_LOCK = threading.Lock()
 
 def edition(quantized: bool, paged: bool) -> str:
     return "decode_attention" + ("_paged" if paged else "") + ("_int8" if quantized else "")
+
+
+def launches() -> dict[str, int]:
+    """Each edition's launches since :func:`reset_launches`: its wrapper's
+    count plus the launches its kernel counted on the card from captured
+    graphs (waits for each device's work)."""
+    out = dict(LAUNCHES)
+    for index, counts in _GRAPH_LAUNCHES.items():
+        torch.cuda.synchronize(index)
+        for name, n in zip(EDITIONS, counts.tolist()):
+            out[name] += n
+    return out
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0, on the host and on each card."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    for counts in _GRAPH_LAUNCHES.values():
+        counts.zero_()
+
+
+def scratch_buffer(device: torch.device) -> Optional[torch.Tensor]:
+    """The device's current scratch buffer, which a launch captured now
+    points at: a graph's owner keeps it alive while the graph lives."""
+    with _SCRATCH_LOCK:
+        return _SCRATCH.get(device.index, (None, 0))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +159,7 @@ def _lib(name: str = "decode_attention"):
     fn = getattr(kernels.load(name), EDITIONS[name])
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p, or ctypes cuts them to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -181,21 +218,37 @@ def _scratch(device: torch.device, n_counters: int, n_partials: int):
     device: [counters | partials]. The counters are zeroed once, when the
     buffer is made, and every launch leaves them at 0; the buffer grows
     and never shrinks. Launches on one device share it, so they must be
-    ordered on one stream, as the engine's are."""
+    ordered on one stream, as the engine's are (a captured graph's
+    replays included).
+
+    A launch under CUDA-graph capture bakes the buffer's address into the
+    graph, whose owner keeps the buffer (``scratch_buffer``) when the
+    scratch grows later. The scratch cannot grow during a capture (the
+    zeroing would be captured and the buffer would live in the graph's
+    pool), so the capturer launches at its largest shape eagerly first.
+    The device's graph launch counts are made with its first buffer."""
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
     with _SCRATCH_LOCK:
         buf, cap = _SCRATCH.get(device.index, (None, 0))
         room = 0 if buf is None else buf.numel() - cap
         if n_counters > cap or n_partials > room:
+            if capturing:
+                raise RuntimeError(
+                    "decode-attention scratch must grow during a CUDA-graph capture: "
+                    "launch the captured shape once before capturing")
             # Partials start on a 256-byte boundary (the kernel reads float4s).
             cap, room = -(-max(cap, n_counters) // 64) * 64, max(room, n_partials)
             buf = torch.zeros(cap + room, dtype=torch.int32, device=device)
             _SCRATCH[device.index] = (buf, cap)
+            if device.type == "cuda" and device.index not in _GRAPH_LAUNCHES:
+                _GRAPH_LAUNCHES[device.index] = torch.zeros(len(EDITIONS), dtype=torch.int32,
+                                                            device=device)
     return buf.data_ptr(), buf.data_ptr() + 4 * cap
 
 
 def _launch(name, q, k, v, k_scale, v_scale, table, positions, S, split_rows):
     """Run one edition's kernel (partials and combine in one launch);
-    counts one launch."""
+    counts one launch: here, or under capture on the card at each replay."""
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention kernel for device {q.device}")
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
@@ -206,6 +259,10 @@ def _launch(name, q, k, v, k_scale, v_scale, table, positions, S, split_rows):
     Hkv = k.shape[2]
     tiles = -(-S // split_rows) * -(-split_rows // SPLIT_ROWS)
     counters, partials = _scratch(q.device, B * Hkv, B * H * tiles * (D + 2))
+    capturing = torch.cuda.is_current_stream_capturing()
+    count = None
+    if capturing:
+        count = _GRAPH_LAUNCHES[q.device.index][list(EDITIONS).index(name)].data_ptr()
     out = torch.empty_like(q)
 
     def ptr(t):
@@ -213,11 +270,12 @@ def _launch(name, q, k, v, k_scale, v_scale, table, positions, S, split_rows):
 
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
-             ptr(table), positions.data_ptr(), out.data_ptr(), counters, partials,
+             ptr(table), positions.data_ptr(), out.data_ptr(), counters, partials, count,
              B, S, H, Hkv, D, _DTYPE_CODES[q.dtype], split_rows, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    if not capturing:
+        LAUNCHES[name] += 1
     return out
 
 

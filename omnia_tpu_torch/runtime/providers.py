@@ -51,9 +51,10 @@ class ProviderSpec:
         return cls(**d)
 
 
-# The EngineConfig fields a spec's options may set (the JAX builder's
-# list). Knobs this port does not implement yet (dp, tp) are refused by
-# the engine.
+# The EngineConfig fields a spec's options may set: the JAX package's
+# build_engine list, and decode_ring, which that list drops (a spec
+# asking for the ring gets it here). Knobs this port does not implement
+# yet (dp, tp) are refused by the engine.
 _ENGINE_OPTIONS = frozenset({
     "num_slots", "max_seq", "prefill_buckets", "dtype",
     "dp", "tp", "decode_chunk", "decode_pipeline",
@@ -66,7 +67,7 @@ _ENGINE_OPTIONS = frozenset({
     "max_queue", "watchdog_s",
     "flight_events",
     "kv_pages", "kv_page_tokens",
-    "warmup_threads",
+    "warmup_threads", "decode_ring",
 })
 
 

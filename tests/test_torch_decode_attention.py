@@ -105,6 +105,22 @@ def test_scratch_buffer_layout_and_growth():
         tda._SCRATCH.pop(dev.index, None)
 
 
+def test_launch_counts_reset_and_sum():
+    """``launches()`` is the wrappers' counts plus each card's graph
+    counts (none without a card), one entry per edition; a CPU call runs
+    the plain version and counts nothing; ``reset_launches()`` zeroes
+    every count."""
+    tda.reset_launches()
+    assert tda.launches() == dict.fromkeys(tda.EDITIONS, 0)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B=2, S=64, H=4, Hkv=2, D=16))
+    tda.decode_gqa_attention(q, k, v, torch.tensor([3, 63], dtype=torch.int32))
+    assert tda.launches() == dict.fromkeys(tda.EDITIONS, 0)
+    tda.LAUNCHES["decode_attention_paged"] += 3
+    assert tda.launches()["decode_attention_paged"] == 3
+    tda.reset_launches()
+    assert set(tda.LAUNCHES.values()) == {0}
+
+
 # f32: summation order only; bf16 output: two bf16 ulps at magnitude ~1.
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -120,7 +120,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
         InferenceEngine(get_config("test-tiny"), EngineConfig(**ENGINE_FIELDS))
 
 
-@pytest.mark.parametrize("knob", [dict(dp=2), dict(tp=2), dict(sp=2), dict(decode_ring=2)])
+@pytest.mark.parametrize("knob", [dict(dp=2), dict(tp=2), dict(sp=2)])
 def test_unported_knob_raises(knob):
     with pytest.raises(ValueError, match="ROADMAP"):
         InferenceEngine(get_config("test-tiny"),

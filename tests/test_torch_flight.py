@@ -55,8 +55,8 @@ REPETITIVE = [5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7, 8, 5, 6]   # prompt lookup accept
 PROMPT_S = list(range(40, 70))                             # 30 tokens: 8 pieces
 SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}}, "required": ["ok"]}
 STOP = (0,)   # byte 0 is never admissible in the grammar: it plays EOS
-# Kinds the JAX engine can record and this package's engine cannot: the
-# decode ring's drains (the ring is not ported).
+# Kinds the JAX engine records that this workload cannot reach in the
+# port: the decode ring's drains (the workload runs with the ring off).
 JAX_ONLY_KINDS = {"ring_drain"}
 # Attributes that are times (or carry them); everything else must match.
 TIMED = {"dispatch_s", "sync_s", "prefill_s", "seconds"}

@@ -472,3 +472,167 @@ def test_cuda_recovery_check_bounds_its_wait():
     assert 0.2 <= time.monotonic() - t0 < 1.0
     torch.cuda.synchronize()
     assert eng._stream_ran_recovery() is True
+
+
+# ---------------------------------------------------------------------------
+# The captured ring chunk (engine/graphs.py)
+# ---------------------------------------------------------------------------
+
+RING_CACHES = {
+    "K1": dict(),
+    "K2": dict(kv_quant="int8"),
+    "K3": dict(kv_pages=33, kv_page_tokens=16),
+    "K4": dict(kv_quant="int8", kv_pages=33, kv_page_tokens=16),
+}
+
+
+def _ring_engine(ring=2, variants=(2, 4), **fields):
+    from omnia_tpu_torch.engine import EngineConfig, InferenceEngine
+    from omnia_tpu_torch.models import get_config
+
+    return InferenceEngine(get_config("test-tiny"),
+                           EngineConfig(num_slots=4, max_seq=128, prefill_buckets=(16, 32),
+                                        dtype="float32", decode_chunk=8,
+                                        decode_chunk_variants=variants, decode_ring=ring,
+                                        **fields),
+                           seed=0, device="cuda")
+
+
+def _clone_kv(c):
+    from omnia_tpu_torch.models.kv_quant import kv_map
+    from omnia_tpu_torch.models.paged_kv import PagedKV, is_paged
+
+    if is_paged(c):
+        return PagedKV(kv_map(lambda a: a.clone(), c.pool), c.table.clone())
+    return kv_map(lambda a: a.clone(), c)
+
+
+def _kv_leaves(c) -> list:
+    from omnia_tpu_torch.models.paged_kv import is_paged
+
+    c = c.pool if is_paged(c) else c
+    return [c.q, c.s] if hasattr(c, "q") else [c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["K1", "K4"])
+def test_cuda_captured_ring_chunk_equals_eager(cache):
+    """Each chunk size's captured ring chunk against the eager ring chunk
+    (the CPU's edition, branching on the host) run on the card from a
+    copy of the same state: the same tokens, state, deadline carry and KV
+    caches, bit for bit, and the same decode-attention launches (the
+    replay's counted on the card), so a chunk stops running steps once
+    every slot is done. Between two chunks a decode-attention call at a
+    larger shape grows the kernels' scratch: the graphs keep the buffer
+    they captured."""
+    from omnia_tpu_torch.engine import SamplingParams
+    from omnia_tpu_torch.engine.graphs import NO_DEADLINE
+
+    needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = _ring_engine(**RING_CACHES[cache])
+    assert eng._ring_graphs is None                # captured where first needed
+    assert sorted(eng._ring()._graphs) == [1, 2, 4, 8]
+    edition, layers = eng._kernel_edition(), eng.model_cfg.num_layers
+    reqs = [([1, 2, 3], dict(temperature=0.0, max_tokens=3)),
+            ([4, 5, 6, 7, 8], dict(temperature=0.0, max_tokens=30)),
+            ([9] * 20, dict(temperature=0.8, top_p=0.9, top_k=40, seed=3, max_tokens=14)),
+            ([11, 12], dict(temperature=0.0, max_tokens=20, stop_token_ids=(17, 200)))]
+    for prompt, kw in reqs:
+        eng.submit(prompt, SamplingParams(**kw))
+    while True:
+        pending, slot = eng._claim_pending()
+        if pending is None:
+            break
+        eng._place_pending(slot, *pending)
+    dl = np.full(4, NO_DEADLINE, np.int32)
+    dl[1] = 2                                      # masked after two steps
+    ran_total = 0
+    for n, k in enumerate((8, 4, 2, 1, 8, 8)):
+        eng._prealloc_decode_pages(k)
+        fixed = (eng._tokens, eng._positions, eng._active, eng._budget, eng._key_data)
+        state = [t.clone() for t in fixed]
+        ck, cv = _clone_kv(eng._ck), _clone_kv(eng._cv)
+        tda.reset_launches()
+        eager = eng._decode_fns[k](eng.params, ck, cv, *state[:4], eng._stop_ids, state[4],
+                                   eng._temp, eng._top_p, eng._top_k,
+                                   torch.from_numpy(dl).cuda())
+        eager_launches = tda.launches()
+        tda.reset_launches()
+        toks = eng._ring_graphs.replay(k, dl)
+        assert tda.launches() == eager_launches, (cache, k)
+        assert torch.equal(toks, eager[-1]), (cache, k)
+        for got, want in zip(fixed, eager[2:7]):
+            assert torch.equal(got, want), (cache, k)
+        assert torch.equal(eng._ring_graphs.dl, eager[7])
+        for got, want in zip(_kv_leaves(eng._ck) + _kv_leaves(eng._cv),
+                             _kv_leaves(ck) + _kv_leaves(cv)):
+            assert torch.equal(got, want), (cache, k)
+        steps = eager_launches[edition] // layers
+        assert eager_launches[edition] == layers * steps
+        assert steps == k or not eng._active.any()
+        ran_total += steps
+        dl = np.maximum(dl - k, 1)
+        if n == 0:
+            # Partials of a B-slot call at S = 8192, H = 32, D = 128: past
+            # whatever the scratch holds now.
+            grown = tda._SCRATCH[0][0].numel()
+            B = 8 * (grown // (8 * 32 * 128 * 130) + 1)
+            q = torch.randn(B, 32, 128, device="cuda", dtype=torch.bfloat16)
+            kv = torch.randn(B, 8192, 8, 128, device="cuda", dtype=torch.bfloat16)
+            tda.decode_gqa_attention(q, kv, kv, torch.full((B,), 8191, dtype=torch.int32,
+                                                           device="cuda"))
+            assert tda._SCRATCH[0][0].numel() > grown
+            assert eng._ring_graphs._graphs[8][2].data_ptr() != tda._SCRATCH[0][0].data_ptr()
+            del q, kv
+    assert 0 < ran_total < 31 and not eng._active.any()   # the last chunk stopped early
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", list(RING_CACHES))
+def test_cuda_ring_engine_serves_ring_off_tokens(cache):
+    """A ring engine on the card (graphs replayed, reads drained on the
+    drainer thread) gives the ring-off engine's greedy tokens and
+    finishes; its kernel's launches, counted on the card, are num_layers
+    x the steps that ran (decode steps less the early exits); construction
+    captures nothing, a recovery captures the graphs again on the
+    reallocated state, and the engine then serves the same tokens."""
+    from omnia_tpu_torch.engine import SamplingParams
+
+    needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts = [[1, 2, 3], [7] * 30, [5, 4], list(range(40, 60)), [8, 9, 10, 11]]
+
+    def serve(eng):
+        hs = [eng.submit(p, SamplingParams(temperature=0.0, max_tokens=5 + 4 * i))
+              for i, p in enumerate(prompts)]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        return [(lambda t, f: (t, f.finish_reason.value))(*h.collect_tokens(timeout=60))
+                for h in hs]
+
+    # Chunks of 8 and 1 only, so that tails overshoot and chunks exit early.
+    off = _ring_engine(ring=0, variants=(), **RING_CACHES[cache])
+    on = _ring_engine(ring=2, variants=(), **RING_CACHES[cache])
+    assert on._ring_graphs is None
+    # Captured here, not at the first dispatch: the eager step before the
+    # first capture launches the kernel once per layer.
+    on._ring()
+    want = serve(off)
+    edition = on._kernel_edition()
+    m0 = dict(on.metrics)
+    tda.reset_launches()
+    assert serve(on) == want
+    steps = ((on.metrics["decode_steps"] - m0["decode_steps"])
+             - (on.metrics["early_exit_steps"] - m0["early_exit_steps"]))
+    launches = tda.launches()
+    assert launches[edition] == on.model_cfg.num_layers * steps
+    assert sum(launches.values()) == launches[edition]
+    assert on.metrics["ring_drains"] > 0 and on.metrics["early_exit_steps"] > 0
+    graphs = on._ring_graphs
+    on._recover("test")
+    assert on.healthy() and on._ring_graphs is not None and on._ring_graphs is not graphs
+    assert serve(on) == want
+    on.stop()
+    off.stop()

@@ -11,7 +11,7 @@ builds a port engine with its cold-start tracker (Health reads
 ``initializing`` with the warmup snapshot, then ready), a Converse turn's
 engine span joins the llm span's trace, ``bind_engine_metrics`` exposes
 the port's flight histograms, and the port engine's metric keys are the
-JAX engine's but the decode ring's."""
+JAX engine's, the decode ring's included."""
 
 from __future__ import annotations
 
@@ -278,8 +278,7 @@ def test_coordinator_resubmits_a_zero_token_error(jparams, tparams):
     assert got == want
 
 
-# The JAX engine's metric keys the port engine does not have: the decode
-# ring's (ROADMAP A item 2).
+# The decode ring's metric keys: the port engine has them too.
 RING_KEYS = {"decode_ring_enabled", "decode_ring_gate_state", "early_exit_steps",
              "ring_drains", "ring_full_stalls"}
 
@@ -380,5 +379,5 @@ def test_bind_engine_metrics_exposes_the_port_histograms(tparams):
 def test_metric_keys_equal_jax_but_the_ring(jparams, tparams, fields):
     jkeys = set(_jax_engine(jparams, **fields).metrics)
     tkeys = set(_port_engine(tparams, **fields).metrics)
-    assert tkeys == jkeys - RING_KEYS
-    assert RING_KEYS <= jkeys
+    assert tkeys == jkeys
+    assert RING_KEYS <= tkeys
