@@ -208,15 +208,41 @@ Phases, each failing loudly (exit code != 0, no result line):
    events around each chunk, no profiler) over each window's wall, and
    the ring's books and self-gate.
 
+13. Training and embedding, after phase 11 (every earlier weight
+   freed), with TF32 products off (printed; the phase fails if on). (a)
+   One train_step at llama3-1b width cut to 2 layers, f32, on the card
+   and on the CPU from the same params and tokens (B = 1, T = 33): the
+   loss and every gradient leaf within 1e-4 of the CPU's (of the leaf's
+   largest entry), every param after the AdamW update within the bound
+   the two gradients imply (train_check). (b) llama3-1b at full width and
+   depth (1,498,482,688 params, f32) drawn by init_fn on the card, 10
+   train_steps on one seeded batch (B = 4, T = 513): the loss must fall
+   and stay finite; the median step of steps 3-10 (CUDA events), tokens/s,
+   the share of the 67 TFLOP/s non-tensor f32 peak, the peak memory
+   (forward and backward, and AdamW's update, which PyTorch runs as
+   foreach) beside the reckoned 23,975,723,008 bytes of params, grads and
+   moments and the activations reckoned and saved. (c) The trained params
+   (still requiring grad) served by an engine on the card (contiguous
+   f32, K1): 4 greedy requests of 8 tokens whose prompts open rows of the
+   batch, num_layers x decode steps K1 launches, no autograd graph, the
+   tokens of a CPU engine over the same params. (d) forward_embed at
+   llama3-8b width cut to 2 layers, card vs CPU at (8, 32) with pad rows:
+   bf16 per-row cosine >= 0.999, f32 within 1e-5; then TorchEmbedder on
+   full-depth llama3-8b bf16 weights drawn on the card: the nine bucket
+   shapes timed, unit rows, no pad leak, 33 texts into 33 rows, texts/s
+   and the bf16 peak share at (32, 512).
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
 for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
-11, each phase's seconds (``phase N took``) and the whole run's, a
+11, ``train`` and ``embed`` lines for phase 13, each phase's seconds
+(``phase N took``) and the whole run's, a
 ``kernels`` JSON line (launches: each kernel's count over its
 engine's burst and session runs, phase 7's bursts for K1 and K4, phase
 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
 phase 10's runs for K1, K3 and K4, phase 11's runs for K1 and K4, and
-phase 12's ring runs for K1 and K4;
+phase 12's ring runs for K1 and K4, and phase 13's trained weights
+served on K1;
 times at the llama3-8b decode shape, and at the llama3-70b one beside
 them), then the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.
@@ -255,7 +281,10 @@ from omnia_tpu_torch.models import get_config, llama, quant
 from omnia_tpu_torch.models.kv_quant import quantize_rows
 from omnia_tpu_torch.models.paged_kv import PagedKV
 from omnia_tpu_torch.ops import decode_attention as da
+from omnia_tpu_torch.memory import TorchEmbedder
 from omnia_tpu_torch.runtime.providers import ProviderSpec, build_engine
+from omnia_tpu_torch.train import make_train_step
+from omnia_tpu_torch.train.trainer import leaves
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
@@ -708,10 +737,11 @@ def qdot_check() -> None:
         del w
 
 
-def _to(tree, device):
+def _to(tree, to):
+    """A param tree detached and moved to a device or cast to a dtype."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, to) for k, v in tree.items()}
+    return tree.detach().to(to)
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -2064,15 +2094,6 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def leaves(tree, path=""):
-    """(path, tensor) of every leaf of a param tree."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from leaves(v, f"{path}/{k}")
-    else:
-        yield path, tree
-
-
 def quantized_param_bytes(cfg) -> int:
     """Device bytes of a tree with int8 matmul weights, reckoned from the
     configuration: int8 projections and lm_head, their f32 scales, bf16
@@ -2855,6 +2876,351 @@ def ops_layer(card: str) -> dict:
     return launches
 
 
+# -- phase 13 --------------------------------------------------------------
+
+TRAIN_PARAMS = 1_498_482_688               # llama3-1b
+TRAIN_STATE_BYTES = 16 * TRAIN_PARAMS      # f32 params, grads, exp_avg, exp_avg_sq
+TRAIN_BATCH = (4, 513)                     # B, T: 512 input tokens a row
+TRAIN_STEPS = 10
+TRAIN_TIMED_FROM = 2                       # steps 3-10
+TRAIN_CHECK_BATCH = (1, 33)
+TRAIN_RTOL = 1e-4                          # f32, TF32 off: summation order only
+TRAIN_SERVE_PROMPT = 24
+TRAIN_SERVE_TOKENS = 8
+EMBED_CHECK_ROWS = (32, 30, 24, 17, 12, 8, 3, 1)   # real tokens per row at (8, 32)
+EMBED_MIN_COS = 0.999
+EMBED_F32_ATOL = 1e-5
+EMBED_TIMED = 5
+
+
+def train_check(card: str) -> dict:
+    """Phase 13 (a): one train_step at llama3-1b width cut to 2 layers, f32,
+    on the card and on the CPU from the same params and tokens (B = 1, T =
+    33). The CPU side holds 16 x 646,981,632 = 10,351,706,112 bytes of
+    params, grads and AdamW moments on the host: the vocabulary is not
+    cut, so the host needs that much free memory.
+    Held: the loss and every gradient leaf within TRAIN_RTOL of the CPU's
+    (of the leaf's largest entry), and every param after the update within
+    what the two gradients imply. Step 1 of AdamW moves a param by lr * g /
+    (|g| + eps) (the bias corrections cancel), whose slope in g is eps /
+    (|g| + eps)^2: two gradients a and b of one sign move it apart by at
+    most lr |a - b| eps / (min(|a|, |b|) + eps)^2, of opposite signs by lr
+    |a - b| / eps; beside that, 1e-5 lr for the update's own rounding and
+    4 f32 ulps of the param."""
+    cfg = get_config("llama3-1b", num_layers=2)
+    host_bytes = 16 * cfg.num_params()
+    card_params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(13), "cuda",
+                                    dtype=torch.float32)
+    cpu_params = _to(card_params, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, TRAIN_CHECK_BATCH).astype(np.int32))
+    states, losses = {}, {}
+    for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+        init_fn, train_step = make_train_step(cfg, device=dev)
+        t0 = time.monotonic()
+        states[dev], loss = train_step(init_fn(params=params), tokens)
+        losses[dev] = float(loss)
+        print(f"phase 13 (a) {dev} step {time.monotonic() - t0:.2f}s", flush=True)
+    opt = states["cuda"].opt_state
+    lr, eps = opt.defaults["lr"], opt.defaults["eps"]
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if not loss_err <= TRAIN_RTOL:
+        fail(f"phase 13 (a): loss {losses['cuda']} on the card, {losses['cpu']} on the CPU")
+    cpu = dict(leaves(states["cpu"].params))
+    grad_err = step_ratio = step_lr = 0.0
+    past, total = 0, 0
+    with torch.no_grad():
+        for path, p in leaves(states["cuda"].params):
+            q = cpu[path]
+            a, b = p.grad, q.grad.cuda()
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            if not err <= TRAIN_RTOL:
+                fail(f"phase 13 (a) {path}: gradient card vs CPU {err} of its largest entry")
+            grad_err = max(grad_err, err)
+            g_min = torch.where(a.sign() == b.sign(), torch.minimum(a.abs(), b.abs()), 0.0)
+            bound = (lr * ((a - b).abs() * eps / (g_min + eps) ** 2).clamp(max=2.0)
+                     + 1e-5 * lr + 4 * torch.finfo(torch.float32).eps * p.abs())
+            dp = (p - q.cuda()).abs()
+            ratio = (dp / bound).max().item()
+            if not ratio <= 1.0:
+                fail(f"phase 13 (a) {path}: param after the update {ratio:.3g} x its bound")
+            step_ratio = max(step_ratio, ratio)
+            step_lr = max(step_lr, dp.max().item() / lr)
+            past += int((dp > 1e-3 * lr).sum())
+            total += dp.numel()
+    out = dict(model="llama3-1b width, 2 layers, f32", batch=list(TRAIN_CHECK_BATCH),
+               host_bytes=host_bytes, loss_card=losses["cuda"], loss_cpu=losses["cpu"],
+               loss_rel_err=loss_err, grad_max_err_of_largest=grad_err,
+               param_worst_share_of_bound=step_ratio, param_max_diff_lr=step_lr,
+               params_past_milli_lr=past, params=total, tolerance=TRAIN_RTOL)
+    print("phase 13 (a) train card vs CPU " + json.dumps(out), flush=True)
+    return out
+
+
+def train_activation_bytes(cfg, B: int, T: int) -> int:
+    """Bytes of the tensors autograd keeps for the backward of one f32
+    loss_fn at [B, T] input tokens, reckoned from the port's ops: per layer
+    the residual, normed and scaled inputs of both norms (6 D), q and k
+    before and after rotary, v and the attention output (3 q_dim + 3
+    kv_dim), the MLP's gate, silu, up and product (4 F), and the masked
+    scores, their exp and the probabilities (3 H T^2); then the final
+    norm's three (3 D), the logits and their log-softmax (2 V)."""
+    D, F_, V = cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    layer = B * T * (6 * D + 3 * cfg.q_dim + 3 * cfg.kv_dim + 4 * F_) + 3 * B * cfg.num_heads * T * T
+    return 4 * (cfg.num_layers * layer + B * T * (3 * D + 2 * V))
+
+
+def train_full(card: str):
+    """Phase 13 (b): llama3-1b at full width and depth, f32, init_fn on the
+    card, TRAIN_STEPS train_steps on one fixed seeded batch. Returns the
+    state, the tokens and what was measured."""
+    from torch.optim.optimizer import _default_to_fused_or_foreach
+
+    cfg = get_config("llama3-1b")
+    if cfg.num_params() != TRAIN_PARAMS:
+        fail(f"llama3-1b has {cfg.num_params()} params, expected {TRAIN_PARAMS}")
+    init_fn, train_step = make_train_step(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(13))
+    params = [p for _, p in leaves(state.params)]
+    if sum(p.numel() for p in params) != TRAIN_PARAMS:
+        fail("phase 13 (b): the state's params do not add up to llama3-1b's")
+    fused, foreach = _default_to_fused_or_foreach(params, differentiable=False, use_fused=False)
+    impl = "fused" if fused else "foreach" if foreach else "for-loop"
+    # The optimizer's hooks split each step's peak: forward and backward,
+    # then the update (foreach: temporaries the size of the param list).
+    peaks = {"forward_backward": 0, "optimizer": 0}
+
+    def before_update(*_):
+        peaks["forward_backward"] = max(peaks["forward_backward"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def after_update(*_):
+        peaks["optimizer"] = max(peaks["optimizer"], torch.cuda.max_memory_allocated())
+
+    hooks = [state.opt_state.register_step_pre_hook(before_update),
+             state.opt_state.register_step_post_hook(after_update)]
+    param_storages = {p.untyped_storage().data_ptr() for p in params}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in param_storages:
+            saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    B, T = TRAIN_BATCH
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, TRAIN_BATCH).astype(np.int32)).cuda()
+    losses, events = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == 1:
+            # Step 2 (untimed) counts the storages autograd keeps.
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                state, loss = train_step(state, tokens)
+        else:
+            state, loss = train_step(state, tokens)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 13 (b): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if state.step != TRAIN_STEPS:
+        fail(f"phase 13 (b): the state counts {state.step} steps")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events[TRAIN_TIMED_FROM:])
+    n_tokens = B * (T - 1)
+    # The gathered embedding table takes part in no product; the plain
+    # attention computes every score of the T x T square.
+    mm_params = TRAIN_PARAMS - cfg.vocab_size * cfg.hidden_size
+    flops = (6 * mm_params * n_tokens
+             + 12 * cfg.num_layers * B * cfg.num_heads * (T - 1) ** 2 * cfg.head_dim)
+    out = dict(
+        card=card, model="llama3-1b, 16 layers, f32", params=TRAIN_PARAMS, batch=[B, T],
+        steps=TRAIN_STEPS, losses=losses, step_ms_median_steps_3_10=step_ms,
+        tokens_per_s=n_tokens / (step_ms / 1e3), flops_per_step=flops,
+        f32_peak_flops=PEAK_OPS[torch.float32],
+        f32_peak_share=flops / (step_ms / 1e3) / PEAK_OPS[torch.float32],
+        state_bytes_reckoned=TRAIN_STATE_BYTES,
+        activation_bytes_reckoned=train_activation_bytes(cfg, B, T - 1),
+        activation_bytes_saved_step_2=sum(saved.values()),
+        peak_bytes=max(peaks.values()), peak_bytes_forward_backward=peaks["forward_backward"],
+        peak_bytes_optimizer=peaks["optimizer"], optimizer=f"torch.optim.AdamW ({impl})",
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+    )
+    print(f"phase 13 (b) llama3-1b f32 train: losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"median step {step_ms:.1f} ms (steps 3-10), {out['tokens_per_s']:.0f} tokens/s, "
+          f"{100 * out['f32_peak_share']:.1f}% of the H100 SXM non-tensor f32 peak (67 TFLOP/s); "
+          f"peak {out['peak_bytes']} bytes beside {TRAIN_STATE_BYTES} reckoned for params, "
+          f"grads and moments, {out['activation_bytes_reckoned']} reckoned and "
+          f"{out['activation_bytes_saved_step_2']} saved for the backward; AdamW {impl}, "
+          f"its update's peak {peaks['optimizer']} bytes", flush=True)
+    return state, tokens.cpu().numpy(), out
+
+
+def serve_trained(card: str, state, tokens: np.ndarray):
+    """Phase 13 (c): the trained params (requiring grad) served as they are
+    by an engine on the card (contiguous f32 cache, K1) and by one on the
+    CPU over detached copies: 4 greedy requests whose prompts open rows of
+    the training batch. The card's K1 launches must equal num_layers x
+    decode steps, its caches must stay out of autograd, and the tokens must
+    equal the CPU's. Returns (K1 launches, what was measured)."""
+    cfg = get_config("llama3-1b")
+    fields = dict(num_slots=4, max_seq=128, prefill_buckets=(32,), dtype="float32",
+                  max_sessions=0)
+    prompts = [[int(t) for t in tokens[i, :TRAIN_SERVE_PROMPT]] for i in range(4)]
+    sp = SamplingParams(temperature=0.0, max_tokens=TRAIN_SERVE_TOKENS)
+
+    def greedy(engine):
+        handles = [engine.submit(p, sp) for p in prompts]
+        while engine.step():
+            pass
+        return [h.collect_tokens(timeout=600)[0] for h in handles]
+
+    engine = InferenceEngine(cfg, EngineConfig(**fields), params=state.params, seed=0,
+                             device="cuda")
+    got, launches = checked_launches("K1", engine, lambda: greedy(engine),
+                                     "phase 13 (c) K1 llama3-1b trained f32")
+    if engine._ck.requires_grad or engine._ck.grad_fn is not None:
+        fail("phase 13 (c): serving params that require grad recorded an autograd graph")
+    steps = engine.metrics["decode_steps"]
+    del engine
+    t0 = time.monotonic()
+    want = greedy(InferenceEngine(cfg, EngineConfig(**fields),
+                                  params=_to(state.params, "cpu"), seed=0,
+                                  device="cpu"))
+    cpu_s = time.monotonic() - t0
+    if got != want:
+        fail(f"phase 13 (c): the card's greedy tokens part from the CPU's at "
+             f"{first_divergence(got, want)}")
+    out = dict(requests=len(prompts), tokens=sum(map(len, got)), decode_steps=steps,
+               launches=launches, cpu_engine_s=cpu_s)
+    print("phase 13 (c) trained weights served " + json.dumps(out), flush=True)
+    return launches, out
+
+
+def embed_check(card: str) -> dict:
+    """Phase 13 (d): forward_embed at llama3-8b width cut to 2 layers, card
+    against CPU at (8, 32) with rows of 32 down to 1 real tokens: bf16 per-
+    row cosine >= EMBED_MIN_COS, f32 within EMBED_F32_ATOL. Then
+    TorchEmbedder on full-depth llama3-8b bf16 weights drawn on the card:
+    each of the nine bucket shapes timed (host clock around embed(), whose
+    result comes back to the host: median of EMBED_TIMED calls after one
+    warm call), unit rows, a text alone and in a batch of 8 within
+    EMBED_MIN_COS, 33 texts into 33 rows."""
+    cfg = get_config("llama3-8b", num_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(14), "cuda",
+                               dtype=torch.bfloat16)
+    params.pop("lm_head")          # forward_embed reads no logits
+    B, T = len(EMBED_CHECK_ROWS), 32
+    rng = np.random.default_rng(14)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32))
+    mask = (torch.arange(T)[None, :] < torch.tensor(EMBED_CHECK_ROWS)[:, None]).to(torch.int32)
+    check = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            p = params if dtype == torch.bfloat16 else _to(params, dtype)
+            a = llama.forward_embed(p, cfg, tok.cuda(), mask.cuda()).cpu()
+            t0 = time.monotonic()
+            b = llama.forward_embed(_to(p, "cpu"), cfg, tok, mask)
+            cpu_s = time.monotonic() - t0
+            if dtype == torch.bfloat16:
+                cos = (a * b).sum(-1)
+                if not cos.min().item() >= EMBED_MIN_COS:
+                    fail(f"phase 13 (d): bf16 cosine card vs CPU {cos.tolist()}")
+                check["bf16_min_cosine"] = cos.min().item()
+            else:
+                err = (a - b).abs().max().item()
+                if not err <= EMBED_F32_ATOL:
+                    fail(f"phase 13 (d): f32 vectors card vs CPU differ by {err}")
+                check["f32_max_abs_err"] = err
+            check[f"cpu_s_{str(dtype).split('.')[-1]}"] = cpu_s
+    del params, p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llama3-8b")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(15), "cuda",
+                               dtype=torch.bfloat16)
+    params.pop("lm_head")
+    emb = TorchEmbedder(params, cfg, ByteTokenizer(), device="cuda")
+
+    def texts(n: int, length: int) -> list:
+        # BOS and length - 1 bytes: exactly ``length`` tokens.
+        return [bytes(rng.integers(97, 123, length - 1).tolist()).decode() for _ in range(n)]
+
+    times = {}
+    for nb in TorchEmbedder.BATCH_BUCKETS:
+        for nt in TorchEmbedder.LEN_BUCKETS:
+            batch = texts(nb, nt)
+            emb.embed(batch)
+            ts = []
+            for _ in range(EMBED_TIMED):
+                t0 = time.perf_counter()
+                vecs = emb.embed(batch)
+                ts.append(time.perf_counter() - t0)
+            norms = np.linalg.norm(vecs, axis=-1)
+            if vecs.shape != (nb, cfg.hidden_size) or not np.allclose(norms, 1.0, atol=1e-3):
+                fail(f"phase 13 (d): embed at ({nb}, {nt}) gave {vecs.shape}, norms {norms}")
+            times[f"{nb}x{nt}"] = statistics.median(ts) * 1e3
+    one = texts(1, 20)
+    alone = emb.embed(one)[0]
+    mixed = emb.embed(one + texts(3, 7) + texts(4, 31))[0]
+    leak_cos = float(alone @ mixed)
+    if not leak_cos >= EMBED_MIN_COS:
+        fail(f"phase 13 (d): a text alone and in a batch of 8 give cosine {leak_cos}")
+    if emb.embed(texts(33, 16)).shape != (33, cfg.hidden_size):
+        fail("phase 13 (d): 33 texts did not give 33 rows")
+    mm_params = cfg.num_params() - 2 * cfg.vocab_size * cfg.hidden_size
+    top_s = times["32x512"] / 1e3
+    out = dict(card=card, check=dict(model="llama3-8b width, 2 layers", batch=[B, T],
+                                     real_tokens=list(EMBED_CHECK_ROWS), **check),
+               model="llama3-8b, 32 layers, bf16", ms_median=times, pad_leak_cosine=leak_cos,
+               texts_per_s_32x512=32 / top_s,
+               bf16_peak_share_32x512=2 * mm_params * 32 * 512 / top_s / PEAK_OPS[torch.bfloat16])
+    print(f"phase 13 (d) embed llama3-8b bf16: (32, 512) {times['32x512']:.1f} ms, "
+          f"{out['texts_per_s_32x512']:.1f} texts/s, "
+          f"{100 * out['bf16_peak_share_32x512']:.1f}% of 989 TFLOP/s bf16 dense "
+          f"(2 N tokens, N = {mm_params} params outside the embedding)", flush=True)
+    del emb, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def training(card: str) -> dict:
+    """Phase 13: the training step and the embedding forward, after phase
+    11 (every earlier weight freed): (a) train card vs CPU, (b) llama3-1b
+    trained at full size, (c) its trained weights served, (d) the
+    embedding forward and TorchEmbedder at llama3-8b. Returns K1's
+    launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"phase 13: torch.backends.cuda.matmul.allow_tf32={tf32}, "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}", flush=True)
+    if tf32:
+        fail("phase 13 trains in f32: TF32 products must stay off")
+    check = train_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, tokens, train = train_full(card)
+    launches, served = serve_trained(card, state, tokens)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    embed = embed_check(card)
+    print("train " + json.dumps(dict(train, check=check, served=served)), flush=True)
+    print("embed " + json.dumps(embed), flush=True)
+    return {"K1": launches}
+
+
 def main() -> None:
     t_script = time.monotonic()
     card = device_line()
@@ -2894,8 +3260,11 @@ def main() -> None:
     t = lap("phase 10", t)
     for label, n in ops_layer(card).items():
         launches[label] += n
-    lap("phase 11", t)
-    lap("phases 1-12", t_script)
+    t = lap("phase 11", t)
+    for label, n in training(card).items():
+        launches[label] += n
+    lap("phase 13", t)
+    lap("phases 1-13", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
     main_case, case_70b = cases[0], cases[-1]
     entries = []

@@ -335,6 +335,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # A loader streamed its weights before the metrics existed.
         self._sync_coldstart_metrics()
 
+    @torch.no_grad()
     def _resolve_params(self, params, seed: int):
         """The engine's weights under ``EngineConfig.quant``: a loader
         callable is called once here; a pre-quantized tree's mode is

@@ -59,6 +59,9 @@ gathers each slot's ``[V]`` row ``gtable[b, gstate[b]]``, masks the
 tokens whose entry is negative, and advances the state on the device.
 Without it the programs take none of these operands.
 
+Every program runs with grad mode off, as JAX programs never
+differentiate: a trainer's params serve as they are.
+
 PyTorch launches are asynchronous, so every program returns as soon as
 its work is enqueued; the caller reads tokens when it needs them. KV
 caches are updated in place (JAX donates and returns them), every copy
@@ -449,4 +452,10 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
 
         progs.update(page_copy=page_copy, gather_pages=gather_pages,
                      scatter_pages=scatter_pages)
-    return EnginePrograms(**progs)
+    # JAX programs never differentiate: every program runs with grad mode
+    # off (warmup's and the ring capture's calls too), so params that
+    # require grad (a trainer's) serve directly and record no graph.
+    off = torch.no_grad()
+    return EnginePrograms(**{
+        name: {b: off(f) for b, f in fn.items()} if isinstance(fn, dict) else off(fn)
+        for name, fn in progs.items()})

@@ -10,6 +10,9 @@
   PAGE_S, Hkv, D]`` and one page table shared by its layers); each step
   writes its rows in place at per-slot ``write_start`` and causality is
   ``key_index <= query_position`` (``ops/attention.py``).
+- **Cache-free forwards**: ``forward_train`` (logits, differentiable)
+  and ``forward_embed`` (the embedding role's pooled vectors) run the
+  same layer over the chunk's own keys at positions 0..T-1.
 - Compute dtype is the params' dtype; logits and softmax statistics f32.
 - **int8 weights**: every projection goes through ``quant.qdot``, so a
   quantized tree (``models/quant.py``) serves with no other change; the
@@ -39,7 +42,7 @@ from omnia_tpu_torch.models.kv_quant import (
     validate_kv_quant,
 )
 from omnia_tpu_torch.models.paged_kv import PagedKV, flat_rows, is_paged, scatter_rows
-from omnia_tpu_torch.models.quant import is_quantized, qdot
+from omnia_tpu_torch.models.quant import qdot
 from omnia_tpu_torch.ops.attention import gqa_attention
 from omnia_tpu_torch.ops.moe import moe_mlp
 from omnia_tpu_torch.ops.norms import rms_norm
@@ -164,22 +167,20 @@ def _write_kv(cache, new: torch.Tensor, index) -> None:
         cache[index] = new.to(cache.dtype)
 
 
-def _layer_weight(w, i: int):
-    """Layer i of a stacked weight (a view: ``[L, E, D, F]`` experts are
-    read in place); a quantized leaf member by member."""
-    if is_quantized(w):
-        return {k: v[i] for k, v in w.items()}
-    return w[i]
+def _unbind(tree) -> list:
+    """A tree of stacked [L, ...] leaves as L trees of views (``[L, E, D,
+    F]`` experts are read in place; a quantized leaf member by member)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        return [dict(zip(parts, layer)) for layer in zip(*parts.values())]
+    return tree.unbind(0)
 
 
-def _layer_params(params: dict, i: int) -> dict:
-    lp = params["layers"]
-    return {
-        "ln1": lp["ln1"][i],
-        "ln2": lp["ln2"][i],
-        "attn": {n: _layer_weight(w, i) for n, w in lp["attn"].items()},
-        "mlp": {n: _layer_weight(w, i) for n, w in lp["mlp"].items()},
-    }
+def _layers(params: dict) -> list[dict]:
+    """Every layer's params, one unbind per stacked leaf. Under autograd
+    a leaf's gradient is then one stack of its layers' gradients, where
+    taking layer i by indexing adds L zero-padded full-size gradients."""
+    return _unbind(params["layers"])
 
 
 def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index):
@@ -230,9 +231,8 @@ def forward_prefill(params, cfg: ModelConfig, tokens, q_positions):
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = _layer(x, _layer_params(params, i), cfg, cos, sin,
-                         q_positions, None, None, None)
+    for p in _layers(params):
+        x, k, v = _layer(x, p, cfg, cos, sin, q_positions, None, None, None)
         ks.append(k)
         vs.append(v)
     return _logits(params, cfg, x), torch.stack(ks), torch.stack(vs)
@@ -260,7 +260,40 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     index = _write_index(cache_k, write_start, tokens.shape[1])
-    for i in range(cfg.num_layers):
-        x, _, _ = _layer(x, _layer_params(params, i), cfg, cos, sin, q_positions,
+    for i, p in enumerate(_layers(params)):
+        x, _, _ = _layer(x, p, cfg, cos, sin, q_positions,
                          _layer_cache(cache_k, i), _layer_cache(cache_v, i), index)
     return _logits(params, cfg, x), cache_k, cache_v
+
+
+def _hidden(params, cfg: ModelConfig, tokens):
+    """The cache-free causal forward at positions 0..T-1: tokens int [B,
+    T] → the last layer's output [B, T, D], before the final norm."""
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    q_positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+    cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    for p in _layers(params):
+        x, _, _ = _layer(x, p, cfg, cos, sin, q_positions, None, None, None)
+    return x
+
+
+def forward_embed(params, cfg: ModelConfig, tokens, mask):
+    """Embedding-role forward: the masked mean-pool of the final normed
+    hidden states, L2-normalized, f32 [B, D].
+
+    tokens: int [B, T]; mask: [B, T] (1 = real token, 0 = pad). A row
+    with no real token pools to zeros."""
+    x = rms_norm(_hidden(params, cfg, tokens), params["final_norm"],
+                 cfg.rms_norm_eps).float()
+    m = mask.float()[:, :, None]
+    pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+    return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+
+
+def forward_train(params, cfg: ModelConfig, tokens):
+    """Full causal forward with no cache (training and scoring): tokens
+    int [B, T] → logits [B, T, V] f32. Differentiable for T > 1; a T == 1
+    call on the card runs the decode kernel, which has no backward and
+    refuses inputs that need a gradient."""
+    return _logits(params, cfg, _hidden(params, cfg, tokens))

@@ -12,6 +12,10 @@ PyTorch version of the same function, which the tests also hold the
 kernel against. No version reads a cache row past ``positions[b]``, and
 the paged ones read no table entry past ``positions[b] // PAGE_S``.
 
+The kernels have no backward: on the card a wrapper raises when grad
+mode is on and q, k or v requires grad, where a silent launch would cut
+the gradient (the plain versions on the CPU are differentiable).
+
 Launch counts: a wrapper adds one to ``LAUNCHES`` where it launches. A
 call under CUDA-graph capture launches nothing then, and a replay runs
 no Python, so a captured launch counts itself on the card instead (one
@@ -251,6 +255,9 @@ def _launch(name, q, k, v, k_scale, v_scale, table, positions, S, split_rows):
     counts one launch: here, or under capture on the card at each replay."""
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError("the decode-attention kernel has no backward: run it under "
+                         "torch.no_grad(), or keep q, k and v out of autograd")
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("q, k and v must start on a 16-byte boundary "
                          "(the kernel reads them 16 bytes at a time)")

@@ -38,6 +38,16 @@ JDTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def manifest_dir(tmp_path_factory):
+    """Every engine here keeps its warmup manifests in a directory of the
+    test run's own, never in the package's build cache."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        d = tmp_path_factory.mktemp("manifests")
+        monkeypatch.setenv("OMNIA_WARMUP_MANIFEST_DIR", str(d))
+        yield d
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

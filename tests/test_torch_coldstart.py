@@ -244,6 +244,23 @@ def test_a_failing_task_raises_out_of_warmup(threads):
         eng.warmup()
 
 
+def test_a_warmed_engine_leaves_the_build_cache_alone(manifest_dir):
+    """Under the override a warmed engine writes its manifest there and
+    leaves the package's build cache (kernels.BUILD_DIR) as it was."""
+    def listing():
+        if not kernels.BUILD_DIR.is_dir():
+            return None
+        return sorted((p.name, p.stat().st_mtime_ns) for p in kernels.BUILD_DIR.iterdir())
+
+    before = listing()
+    eng = _engine(max_seq=96)
+    eng.warmup()
+    assert eng.metrics["warmup_programs_done"] == eng.metrics["warmup_programs_total"] > 0
+    assert [p.name for p in manifest_dir.iterdir()] == [
+        f"warmup_manifest_{eng._warmup_manifest_key()}.json"]
+    assert listing() == before
+
+
 def test_manifest_keys_follow_the_shapes_not_the_host_knobs():
     """A second engine of the same config hits every program; the model,
     the bucket set, kv_quant, kv_pages and max_seq each re-key; the

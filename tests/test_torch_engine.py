@@ -65,6 +65,16 @@ def _drive(engine, submissions, sp_cls):
     return out
 
 
+@pytest.fixture(scope="module", autouse=True)
+def manifest_dir(tmp_path_factory):
+    """Every engine here keeps its warmup manifests in a directory of the
+    test run's own, never in the package's build cache."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        d = tmp_path_factory.mktemp("manifests")
+        monkeypatch.setenv("OMNIA_WARMUP_MANIFEST_DIR", str(d))
+        yield d
+
+
 @pytest.fixture(scope="module")
 def jparams():
     return jllama.init_params(jget_config("test-tiny"), jax.random.key(3),

@@ -636,3 +636,32 @@ def test_cuda_ring_engine_serves_ring_off_tokens(cache):
     assert serve(on) == want
     on.stop()
     off.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_inputs_that_need_a_gradient():
+    """The decode kernel has no backward: a T == 1 forward_train on the card
+    over params that require grad raises rather than cut the gradient.
+    Under no_grad the same forward launches the kernel once per layer and
+    gives the CPU's plain-route logits."""
+    from omnia_tpu_torch.models import get_config, llama
+
+    needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("test-tiny")
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+
+    def tree(t, fn):
+        return {k: tree(v, fn) for k, v in t.items()} if isinstance(t, dict) else fn(t)
+
+    card = tree(cpu, lambda t: t.cuda().requires_grad_(True))
+    tokens = torch.tensor([[5], [9]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="no backward"):
+        llama.forward_train(card, cfg, tokens.cuda())
+    before = tda.LAUNCHES["decode_attention"]
+    with torch.no_grad():
+        out = llama.forward_train(card, cfg, tokens.cuda())
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES["decode_attention"] == before + cfg.num_layers
+    torch.testing.assert_close(out.cpu(), llama.forward_train(cpu, cfg, tokens),
+                               atol=1e-5, rtol=0)

@@ -174,7 +174,7 @@ def test_expert_weights_are_read_in_place(monkeypatch):
     cfg = get_config("test-tiny-moe")
     params = tllama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                                 dtype=torch.float32)
-    lp = tllama._layer_params(params, 1)["mlp"]
+    lp = tllama._layers(params)[1]["mlp"]
     for name in ("router", "wg", "wu", "wd"):
         assert lp[name].data_ptr() == params["layers"]["mlp"][name][1].data_ptr()
     for t in (1, 70):
