@@ -11,7 +11,9 @@ Phases, each failing loudly (exit code != 0, no result line):
 3. Kernel vs plain: the four decode-attention kernels (K1 contiguous, K2
    int8, K3 paged, K4 paged int8) against their plain PyTorch versions
    at the llama3-8b and llama3-1b decode shapes, q in bf16 and f32, and
-   at the llama3-70b decode shape (G = 8), q in bf16, with
+   at the llama3-70b decode shape (G = 8), q in bf16, and at the shapes
+   one rank of a tensor-parallel engine runs (phase 14: llama3-8b at
+   tp = 2 and 4, Hkv 4 and 2; llama3-70b at tp = 4, Hkv 2), q in bf16, with
    every cache row past a position, every free page and the trash page
    poisoned (NaN, or 127 in int8 rows); K3 must equal K1 and K4 equal
    K2 bit for bit over the same rows. Kernel, plain and (K1) library-call
@@ -26,9 +28,9 @@ Phases, each failing loudly (exit code != 0, no result line):
    one agrees within one rounding of the activation dtype.
 5. Engines at full llama3-8b width, cut to its first 16 of 32 layers
    (CUT_LAYERS; bf16, a view of random seeded weights whose whole depth
-   phases 8 and 12 serve; the cut keeps every check of phases 5, 6 and 9,
-   which hold per layer, and makes room for phase 12 in the script's
-   time): the default config (K1) and the slice's
+   phase 12 serves; the cut keeps every check of phases 5, 6, 8 and 9,
+   which hold per layer, and makes room for phases 12 and 14 in the
+   script's time): the default config (K1) and the slice's
    main path, int8 + paged (K4), serve a 12-request burst through
    submit(); int8 (K2) and paged (K3) serve a shorter one. Every kernel
    launch count is set to 0 just before each run and read just after
@@ -75,7 +77,7 @@ Phases, each failing loudly (exit code != 0, no result line):
    tokens of an engine that quantized the same params in memory.
 
 8. Agent traffic on the llama3-8b bf16 weights of phase 5, full width
-   and depth, three engines of 8 slots, max_seq 1024, a shared-prefix
+   cut to its first 16 layers as there, three engines of 8 slots, max_seq 1024, a shared-prefix
    pool of 4 entries and grammars of up to 512 states: (a) the default
    contiguous bf16 cache (K1), (b) int8 + paged (K4; 140 pages of 64
    rows, the slots' 8 x 1024 rows and the block's 11 pages), (c)
@@ -145,10 +147,11 @@ Phases, each failing loudly (exit code != 0, no result line):
    the in-memory tree bit for bit and the same greedy tokens.
 
 11. The operations layer, after phase 10 (every earlier weight freed),
-   on llama3-8b at full width and depth started from a checkpoint: random
-   seeded bf16 weights drawn on the card and written by save_params
-   (16,060,522,496 bytes; the phase fails unless the disk has 20 GB
-   free), then read back from the page cache by build_engine with
+   on llama3-8b at full width cut to its first 16 of 32 layers
+   (OPS_LAYERS, to make room for phase 14) started from a checkpoint:
+   random seeded bf16 weights drawn on the card and written by
+   save_params (9,080,938,496 bytes; the phase fails unless the disk has
+   20 GB free), then read back from the page cache by build_engine with
    flight_events=4096 and watchdog_s=2.0. (a) Two cold starts as the
    runtime's bring-up makes them (a ColdStartTracker, backend_init begun,
    build_engine(coldstart=), warmup(), start(), mark_ready()), with
@@ -177,7 +180,7 @@ Phases, each failing loudly (exit code != 0, no result line):
    (c) On each engine a FaultPlan (a 4 s hang once, two flaky submits)
    under 8 greedy submits: exactly 2 submits raise, one watchdog trip
    between watchdog_s and watchdog_s + 0.5 s after the read began, one
-   recovery (its ms printed: K1 reallocates 1,073,741,824 bytes of KV),
+   recovery (its ms printed: K1 reallocates 536,870,912 bytes of KV),
    the requests in flight end ERROR with their streamed token counts, the
    rest are served, health returns, every page is free, and the inline
    greedy requests give the tokens they gave before the fault; and a
@@ -232,6 +235,32 @@ Phases, each failing loudly (exit code != 0, no result line):
    shapes timed, unit rows, no pad leak, 33 texts into 33 rows, texts/s
    and the bf16 peak share at (32, 512).
 
+14. Tensor parallelism, after phase 13 (every earlier weight freed). Each
+   rank is a process spawned by torch.multiprocessing, joined to one
+   gloo group through the OMNIA_* env contract: the ranks share the one
+   card, and NCCL takes one rank per card, so every collective is staged
+   through host memory (its times are this route's, not NCCL's). The tp =
+   1 side runs on this process from the same seeded weights. (a) llama3-8b
+   at full width cut to 4 of its 32 layers, f32 (TF32 off): at tp = 2 and
+   4 (one spawn each) the gathered prefill logits of a 32-token prompt
+   within 1e-3 of tp = 1's, and through LockstepEngine.submit() on rank 0
+   (the others run_follower()) 4 greedy requests of 17–200 tokens, 16 new
+   tokens each, on a K1 engine and an int8 + paged K4 one (4 slots,
+   max_seq 256) give tp = 1's tokens. (b) Every rank's kernel launches
+   num_layers x its decode steps and no other, at H / tp heads over
+   Hkv / tp. (c) At tp = 2, llama3-8b at full depth in bf16: each rank's
+   params exactly half the tree less the replicated norms, plus the
+   norms; the 12-request burst, then a decode window of 8 greedy
+   requests, through the leader: host and collective ms per decode step,
+   per-rank peak memory and launches. (d) At tp = 2, mixtral-8x7b at full
+   width cut to 2 of 32 layers, f32, router column 0 made positive: layer
+   0's MoE MLP at 8 rows (all experts) and 1024 (capacity dispatch, drops)
+   with each rank's 4 of 8 experts gives tp = 1's routing, kept set and
+   outputs within 1e-4 of the largest, and the engine tp = 1's greedy
+   tokens. (e) Session "e" served at tp = 2, exported there (a gather of
+   every rank's KV heads) and imported by a tp = 1 engine, continues with
+   the tokens of its resident replay.
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
 for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
@@ -241,8 +270,8 @@ for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
 engine's burst and session runs, phase 7's bursts for K1 and K4, phase
 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
 phase 10's runs for K1, K3 and K4, phase 11's runs for K1 and K4, and
-phase 12's ring runs for K1 and K4, and phase 13's trained weights
-served on K1;
+phase 12's ring runs for K1 and K4, phase 13's trained weights
+served on K1, and phase 14's runs on every rank for K1 and K4;
 times at the llama3-8b decode shape, and at the llama3-70b one beside
 them), then the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.
@@ -274,6 +303,7 @@ from omnia_tpu_torch.engine.coldstart import ColdStartTracker
 from omnia_tpu_torch.engine.faults import FaultPlan, WatchdogTimeout
 from omnia_tpu_torch.engine.flight import EVENTS, to_chrome_trace
 from omnia_tpu_torch.engine.grammar import compile_json_schema
+from omnia_tpu_torch.engine.multihost import LockstepEngine
 from omnia_tpu_torch.engine.scheduler import _InflightChunk
 from omnia_tpu_torch.engine.tokenizer import ByteTokenizer
 from omnia_tpu_torch.models import checkpoint as ckpt_io
@@ -282,6 +312,8 @@ from omnia_tpu_torch.models.kv_quant import quantize_rows
 from omnia_tpu_torch.models.paged_kv import PagedKV
 from omnia_tpu_torch.ops import decode_attention as da
 from omnia_tpu_torch.memory import TorchEmbedder
+from omnia_tpu_torch.parallel.launch import spawn_ranks
+from omnia_tpu_torch.parallel.mesh import make_mesh
 from omnia_tpu_torch.runtime.providers import ProviderSpec, build_engine
 from omnia_tpu_torch.train import make_train_step
 from omnia_tpu_torch.train.trainer import leaves
@@ -379,16 +411,16 @@ MOE_H_MEAN = 0.05
 # engine of the phase, the warmup threads of the two starts, the fault
 # plan (a hang twice the watchdog, two flaky submits), the bound on the
 # trip's lateness and the K1 engine's KV bytes the recovery reallocates.
-OPS_CKPT_BYTES = 16_060_522_496
+OPS_LAYERS, OPS_CKPT_BYTES = 16, 9_080_938_496
 OPS_MIN_FREE_DISK = 20e9
 OPS = dict(flight_events=4096, watchdog_s=2.0)
 OPS_STARTS = (0, 2)
 OPS_FAULTS = dict(hang_dispatch_s=4.0, hang_count=1, flaky_submit=2)
 OPS_TRIP_LATE_S = 0.5
-OPS_KV_BYTES = 1_073_741_824
-# Phases 5-6 and 9 serve the first 16 of llama3-8b's 32 layers (a view of
-# the full weights, which phases 8 and 12 serve whole): their checks hold
-# per layer, and the script's time has to make room for phase 12.
+OPS_KV_BYTES = 536_870_912
+# Phases 5-6, 8 and 9 serve the first 16 of llama3-8b's 32 layers (a view
+# of the full weights, which phase 12 serves whole): their checks hold per
+# layer, and the script's time has to make room for phases 12 and 14.
 CUT_LAYERS = 16
 # Phase 12: the decode ring (a captured CUDA graph per chunk size) on the
 # K1 and K4 engines, the host-ms windows taken in turns with the ring-off
@@ -399,6 +431,20 @@ RING_ENGINES = {"K1": dict(), "K4": dict(kv_quant="int8", **PAGED)}
 RING_WINDOWS = 3
 RING_EARLY_TOKENS = 4
 RING_DEADLINE_S = 0.25
+# Phase 14: tensor parallelism, ranks of one gloo group sharing the card.
+# (a), (b), (e): llama3-8b at full width cut to TP_LAYERS layers, f32, on
+# K1 and K4 engines of TP_ENGINE's shape at tp = 2 and 4; (c) full depth,
+# bf16, the 12-request burst at tp = 2; (d) mixtral-8x7b at full width cut
+# to TP_MOE_LAYERS layers, f32, at tp = 2.
+TP_DEGREES = (2, 4)
+TP_MODEL, TP_MOE_MODEL, TP_DEVICE = "llama3-8b", "mixtral-8x7b", "cuda"
+TP_LAYERS, TP_MOE_LAYERS = 4, 2
+TP_SEED, TP_MOE_SEED, TP_BF16_SEED = 21, 22, 23
+TP_ENGINE = dict(num_slots=4, max_seq=256, prefill_buckets=(32, 64, 128, 256),
+                 dtype="float32", max_sessions=4)
+TP_EDITIONS = {"K1": dict(), "K4": dict(kv_quant="int8", kv_pages=17, kv_page_tokens=PAGE_S)}
+TP_PROMPT_LENGTHS, TP_NEW_TOKENS = (17, 64, 100, 200), 16
+TP_LOGIT_ROWS, TP_LOGITS_TOL = 32, 1e-3
 
 
 def lap(label: str, t0: float) -> float:
@@ -503,11 +549,15 @@ def paginate(arrs, pos: torch.Tensor, gen: torch.Generator):
     return pools, table
 
 
-def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor) -> dict:
+def kernel_cases(model: str, dtype: torch.dtype, flush: torch.Tensor, tp: int = 1) -> dict:
     """K1–K4 at one model's decode shape and q dtype: error against the
-    plain version on poisoned inputs, times and bounds."""
+    plain version on poisoned inputs, times and bounds. With ``tp`` the
+    shape one rank of a tp engine runs: H / tp heads over Hkv / tp."""
     cfg = get_config(model)
-    B, S, H, Hkv, D = len(POSITIONS), 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S, D = len(POSITIONS), 1024, cfg.head_dim
+    H, Hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
+    if tp > 1:
+        model = f"{model} tp={tp}"
     gen = torch.Generator(device="cuda").manual_seed(1234)
     q = torch.randn((B, H, D), generator=gen, device="cuda", dtype=dtype)
     k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda", dtype=dtype)
@@ -1135,8 +1185,8 @@ def first_layers(params: dict, n: int) -> dict:
 def engines(card: str) -> dict:
     """Phases 5 and 6 on the first CUT_LAYERS layers of the llama3-8b
     weights: the four engine runs, their session runs and the greedy
-    equalities; then phase 8 on the whole weights, phase 9 on the cut
-    ones and phase 12 on the whole ones. Returns each kernel's launch
+    equalities; then phases 8 and 9 on the cut weights and phase 12 on
+    the whole ones. Returns each kernel's launch
     count from its runs."""
     t = time.monotonic()
     full_cfg = get_config("llama3-8b")
@@ -1177,7 +1227,7 @@ def engines(card: str) -> dict:
           f"session turns {sum(len(t) for per in session_tokens['K1'] for t in per)} and "
           f"{sum(len(t) for per in session_tokens['K2'] for t in per)} tokens", flush=True)
     t = lap("phases 5-6", t)
-    for label, n in agent(card, full).items():
+    for label, n in agent(card, params, cfg).items():
         launches[label] += n
     t = lap("phase 8", t)
     for label, n in stall_free_spec(card, params, cfg).items():
@@ -1395,10 +1445,10 @@ def decode_window(engine) -> float:
     return wall_decode_ms(delta, delta["decode_steps"])
 
 
-def agent(card: str, params) -> dict:
-    """Phase 8: the three agent engines on the shared llama3-8b weights;
-    returns each kernel's launches from its engine's run."""
-    cfg = get_config("llama3-8b")
+def agent(card: str, params, cfg) -> dict:
+    """Phase 8: the three agent engines on the shared llama3-8b weights
+    (phase 5's view of their first CUT_LAYERS layers); returns each
+    kernel's launches from its engine's run."""
     grammar = compile_json_schema(TOOL_CALL, ByteTokenizer())
     launches, greedy, step_ms = {}, {}, {"on": [], "off": []}
     for label, fields in AGENT_ENGINES.items():
@@ -2747,18 +2797,18 @@ def fault_run(run: str, engine, label: str, want_greedy: list, card: str) -> int
 
 
 def ops_layer(card: str) -> dict:
-    """Phase 11: llama3-8b at full width and depth started from a
-    checkpoint through build_engine with the operations layer on. (a)
+    """Phase 11: llama3-8b at full width, its first OPS_LAYERS layers,
+    started from a checkpoint through build_engine with the operations layer on. (a)
     Two cold starts, warmup_threads 0 then 2; (b) the flight recorder
     over the burst on K1 and on int8 + paged (K4), the recorder's cost;
     (c) the watchdog and faults on each. Returns each kernel's launches."""
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3-8b")
+    cfg = get_config("llama3-8b", num_layers=OPS_LAYERS)
     want = ckpt_io.expected_param_bytes(cfg)
     if want != OPS_CKPT_BYTES or cfg.num_params() * 2 != want:
-        fail(f"llama3-8b: reckoned {want} and {cfg.num_params() * 2} bytes, "
-             f"expected {OPS_CKPT_BYTES}")
+        fail(f"llama3-8b, {OPS_LAYERS} layers: reckoned {want} and {cfg.num_params() * 2} "
+             f"bytes, expected {OPS_CKPT_BYTES}")
     tmp = tempfile.mkdtemp(prefix="omnia_ops_ckpt_")
     manifests = tempfile.mkdtemp(prefix="omnia_ops_manifest_")
     os.environ["OMNIA_WARMUP_MANIFEST_DIR"] = manifests
@@ -2771,7 +2821,7 @@ def ops_layer(card: str) -> dict:
         params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
         t0 = time.monotonic()
         ckpt_io.save_params(params, cfg, tmp, max_shard_bytes=4 * 2**30)
-        print(f"ops checkpoint llama3-8b bf16: {want} bytes saved in "
+        print(f"ops checkpoint llama3-8b bf16, {OPS_LAYERS} layers: {want} bytes saved in "
               f"{time.monotonic() - t0:.1f}s to a disk with {free / 1e9:.1f} GB free",
               flush=True)
         del params
@@ -3221,6 +3271,370 @@ def training(card: str) -> dict:
     return {"K1": launches}
 
 
+# -- phase 14 --------------------------------------------------------------
+
+def tp_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(14)
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in TP_PROMPT_LENGTHS]
+
+
+def tp_session(vocab: int) -> tuple:
+    """Session "e": its first prompt and its second turn's new tokens."""
+    rng = np.random.default_rng(15)
+    return ([int(t) for t in rng.integers(0, vocab, 40)],
+            [int(t) for t in rng.integers(0, vocab, 24)])
+
+
+def tp_requests(submit, drive, vocab: int, session: bool) -> dict:
+    """(a)'s requests: the greedy prompts together, then (K1) session
+    "e"'s first turn. ``submit(prompt, sp, session_id)`` gives a handle;
+    ``drive()`` steps an inline engine (a lockstep loop steps itself)."""
+    sp = SamplingParams(temperature=0.0, max_tokens=TP_NEW_TOKENS)
+    hs = [submit(p, sp, None) for p in tp_prompts(vocab)]
+    drive()
+    out = {"greedy": [h.collect_tokens(timeout=600)[0] for h in hs]}
+    if session:
+        h = submit(tp_session(vocab)[0], sp, "e")
+        drive()
+        out["turn1"] = h.collect_tokens(timeout=600)[0]
+    return out
+
+
+def tp_serve(label: str, engine, fn) -> tuple:
+    """A lockstep run on every rank: rank 0 calls fn(lock) and stops the
+    loop, the others replicate. Returns (rank 0's result, launches, decode
+    steps), counted on this rank (``checked_launches``: a failed count
+    exits the rank, and spawn_ranks reports it)."""
+    lock = LockstepEngine(engine)
+    lock.warmup()
+
+    def run():
+        if not lock.is_leader:
+            lock.run_follower()
+            return None
+        lock.start()
+        try:
+            return fn(lock)
+        finally:
+            lock.stop()
+
+    steps0 = engine.metrics["decode_steps"]
+    out, launches = checked_launches(label, engine, run, f"{label} tp={engine.cfg.tp}")
+    return out, launches, engine.metrics["decode_steps"] - steps0
+
+
+def tp_lock_submit(lock):
+    return lambda p, sp, sid: lock.submit(p, sp, session_id=sid)
+
+
+def tp_local_shape(engine) -> dict:
+    k = engine._ck.pool if engine.cfg.kv_pages else engine._ck
+    k = getattr(k, "q", k)
+    wq = engine.params["layers"]["attn"]["wq"]
+    return dict(H=wq.shape[-1] // engine.model_cfg.head_dim, Hkv=k.shape[3])
+
+
+def tp_rank(rank: int, world: int) -> dict:
+    """Phase 14 on one rank of a ``world``-rank gloo group (spawned):
+    (a)/(b)/(e) at both degrees; (c) and (d) at tp = 2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(tp=world)
+    tp = mesh.comm("tp")
+    out = {"rank": rank}
+    gen = torch.Generator(device=TP_DEVICE)
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    params = llama.init_params(cfg, gen.manual_seed(TP_SEED), TP_DEVICE, dtype=torch.float32,
+                               mesh=mesh)
+    tok = torch.tensor([tp_prompts(cfg.vocab_size)[-1][:TP_LOGIT_ROWS]], device=TP_DEVICE)
+    with torch.no_grad():
+        lg = llama.forward_prefill(params, cfg, tok, torch.arange(TP_LOGIT_ROWS)[None].to(tok),
+                                   tp)[0]
+        lg = llama.gather_logits(lg, tp)       # a collective: every rank gathers
+    out["logits"] = lg.cpu().numpy() if rank == 0 else None
+    for label in TP_EDITIONS:
+        eng = InferenceEngine(cfg, EngineConfig(**TP_ENGINE, **TP_EDITIONS[label], tp=world),
+                              params=params, device=TP_DEVICE)
+        res, launches, steps = tp_serve(label, eng, lambda lock: tp_requests(
+            tp_lock_submit(lock), lambda: None, cfg.vocab_size, label == "K1"))
+        if label == "K1":
+            payload = eng.export_session("e")     # a gather: every rank exports
+            out["export"] = payload if rank == 0 else None
+        out[label] = dict(res=res, launches=launches, steps=steps, **tp_local_shape(eng))
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if world == 2:
+        out["bf16"] = tp_bf16(rank, world, mesh)
+        out["moe"] = tp_moe(rank, world, mesh)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def tp_bf16(rank: int, world: int, mesh) -> dict:
+    """(c): llama3-8b at full depth, bf16, tp = 2: the 12-request burst
+    through the leader; this rank's params bytes, peak memory and the
+    leader's host and collective ms per decode step. The collectives of
+    decode steps (those inside ``_run_decode_step``, whose time the host
+    ms include) are counted apart from the rest (prefill's)."""
+    cfg = get_config(TP_MODEL)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_BF16_SEED),
+                               TP_DEVICE, dtype=torch.bfloat16, mesh=mesh)
+    eng = InferenceEngine(cfg, EngineConfig(tp=world), params=params, device=TP_DEVICE)
+    tp = eng._tp        # the engine's Comm: its stats count the engine's collectives
+    norms = 2 * (2 * cfg.num_layers * cfg.hidden_size + cfg.hidden_size)
+    dec = {"calls": 0, "seconds": 0.0}
+    run_step = eng._run_decode_step
+
+    def decode_step(*args):
+        c = dict(tp.stats)
+        try:
+            return run_step(*args)
+        finally:
+            for k in dec:
+                dec[k] += tp.stats[k] - c[k]
+
+    eng._run_decode_step = decode_step
+
+    def run_burst(lock, reqs):
+        m0, c0, d0 = dict(eng.metrics), dict(tp.stats), dict(dec)
+        t0 = time.monotonic()
+        hs = [lock.submit(p, sp) for p, sp in reqs]
+        res = [h.collect_tokens(timeout=900) for h in hs]
+        wall = time.monotonic() - t0
+        steps = eng.metrics["decode_steps"] - m0["decode_steps"]
+        host = {k: eng.metrics[k] - m0[k] for k in ("decode_dispatch_s", "decode_sync_s")}
+        bad = [f.finish_reason for _, f in res
+               if f.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP)]
+        if bad or (reqs[0] == reqs[-1] and res[0][0] != res[-1][0]):
+            raise RuntimeError(f"(c) burst ended {bad}, or its repeated greedy prompt "
+                               "gave other tokens")
+        return dict(requests=len(reqs), generated_tokens=sum(len(t) for t, _ in res),
+                    wall_s=wall, decode_steps=steps,
+                    host_ms_per_decode_step=wall_decode_ms(host, steps),
+                    decode_collective_calls=dec["calls"] - d0["calls"],
+                    decode_collective_s=dec["seconds"] - d0["seconds"],
+                    collective_ms_per_decode_step=(dec["seconds"] - d0["seconds"])
+                    / max(steps, 1) * 1e3,
+                    other_collective_calls=tp.stats["calls"] - c0["calls"]
+                    - (dec["calls"] - d0["calls"]),
+                    other_collective_s=tp.stats["seconds"] - c0["seconds"]
+                    - (dec["seconds"] - d0["seconds"]),
+                    decode_collective_share_of_host=(dec["seconds"] - d0["seconds"])
+                    / max(sum(host.values()), 1e-9))
+
+    res, launches, steps = tp_serve("K1", eng,
+                                    lambda lock: run_burst(lock, burst(cfg.vocab_size, 12)))
+    out = dict(params_bytes=tree_bytes(eng.params),
+               params_bytes_expected=(2 * cfg.num_params() - norms) // world + norms,
+               launches=launches, steps=steps, peak_bytes=torch.cuda.max_memory_allocated(),
+               res=res, **tp_local_shape(eng))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe_params(cfg, mesh=None) -> dict:
+    """Mixtral f32 weights from TP_MOE_SEED, router column 0 made positive
+    so that expert 0 overflows its capacity at 1024 rows."""
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_MOE_SEED),
+                               TP_DEVICE, dtype=torch.float32, mesh=mesh)
+    params["layers"]["mlp"]["router"][..., 0].abs_()
+    return params
+
+
+def tp_moe_layer(params, cfg, tp=None) -> list:
+    """Layer 0's MoE MLP at MOE_ROWS rows: (top experts, output)."""
+    from omnia_tpu_torch.ops import moe
+
+    p0 = {k: v[0] for k, v in params["layers"]["mlp"].items()}
+    gen = torch.Generator(device=TP_DEVICE).manual_seed(17)
+    rows = []
+    with torch.no_grad():
+        for n in MOE_ROWS:
+            h = torch.randn((1, n, cfg.hidden_size), generator=gen, device=TP_DEVICE)
+            h.add_(MOE_H_MEAN)
+            top_i = moe.route_sparse(h, p0["router"], cfg.num_experts_per_tok)[1]
+            y = moe.moe_mlp(h, p0, cfg.num_experts_per_tok, comm=tp)
+            rows.append((top_i.cpu().numpy()[0], y.cpu().numpy()[0]))
+    return rows
+
+
+def tp_moe(rank: int, world: int, mesh) -> dict:
+    """(d): Mixtral at full width, TP_MOE_LAYERS layers, f32, tp = 2: its
+    experts split over the ranks, the router whole."""
+    cfg = get_config(TP_MOE_MODEL, num_layers=TP_MOE_LAYERS)
+    params = tp_moe_params(cfg, mesh)
+    rows = tp_moe_layer(params, cfg, mesh.comm("tp"))
+    eng = InferenceEngine(cfg, EngineConfig(**TP_ENGINE, tp=world), params=params,
+                          device=TP_DEVICE)
+    res, launches, steps = tp_serve("K1", eng, lambda lock: tp_requests(
+        tp_lock_submit(lock), lambda: None, cfg.vocab_size, False))
+    out = dict(rows=rows if rank == 0 else None, res=res, launches=launches, steps=steps,
+               experts=params["layers"]["mlp"]["wg"].shape[1])
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_inline(engine):
+    """(submit, drive) for an engine stepped inline."""
+    def drive():
+        while engine.step():
+            pass
+
+    return (lambda p, sp, sid: engine.submit(p, sp, session_id=sid)), drive
+
+
+def tp_references() -> dict:
+    """The tp = 1 side of (a), (d) and (e), on this process: the same
+    seeded weights whole, the same requests stepped inline."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_SEED),
+                               TP_DEVICE, dtype=torch.float32)
+    tok = torch.tensor([tp_prompts(cfg.vocab_size)[-1][:TP_LOGIT_ROWS]], device=TP_DEVICE)
+    ref = {"params": params}
+    with torch.no_grad():
+        ref["logits"] = llama.forward_prefill(
+            params, cfg, tok, torch.arange(TP_LOGIT_ROWS)[None].to(tok))[0].cpu().numpy()
+    for label in TP_EDITIONS:
+        eng = InferenceEngine(cfg, EngineConfig(**TP_ENGINE, **TP_EDITIONS[label]),
+                              params=params, device=TP_DEVICE)
+        submit, drive = tp_inline(eng)
+        ref[label] = tp_requests(submit, drive, cfg.vocab_size, label == "K1")
+        if label == "K1":
+            first, more = tp_session(cfg.vocab_size)
+            h = submit(first + ref[label]["turn1"] + more,
+                       SamplingParams(temperature=0.0, max_tokens=TP_NEW_TOKENS), "e")
+            drive()
+            ref["turn2"] = h.collect_tokens(timeout=600)[0]
+        del eng
+    mcfg = get_config(TP_MOE_MODEL, num_layers=TP_MOE_LAYERS)
+    mparams = tp_moe_params(mcfg)
+    ref["moe_rows"] = tp_moe_layer(mparams, mcfg)
+    eng = InferenceEngine(mcfg, EngineConfig(**TP_ENGINE), params=mparams, device=TP_DEVICE)
+    ref["moe"] = tp_requests(*tp_inline(eng), mcfg.vocab_size, False)
+    del eng, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tensor_parallel(card: str) -> dict:
+    """Phase 14: tensor parallelism at tp = 2 and 4, each rank a spawned
+    process of one gloo group on the one card. Returns each kernel's
+    launches over every rank's counted runs."""
+    print("phase 14: the tp ranks share one card, so their group is gloo (NCCL "
+          "takes one rank per card); each collective is staged through host memory "
+          "and its times are not a NCCL number", flush=True)
+    t0 = time.monotonic()
+    ref = tp_references()
+    print(f"phase 14 tp=1 references {time.monotonic() - t0:.1f}s", flush=True)
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    mcfg = get_config(TP_MOE_MODEL, num_layers=TP_MOE_LAYERS)
+    launches = {"K1": 0, "K4": 0}
+    payload = None
+    for world in TP_DEGREES:
+        t0 = time.monotonic()
+        try:
+            ranks = spawn_ranks(tp_rank, world, args=(world,), backend="gloo", timeout_s=900)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 14 tp={world}: {e}")
+        spawn_s = time.monotonic() - t0
+        err = float(np.abs(ranks[0]["logits"] - ref["logits"]).max())
+        if not err <= TP_LOGITS_TOL:
+            fail(f"phase 14 (a) tp={world}: prefill logits differ from tp=1 by {err}")
+        for label in TP_EDITIONS:
+            got = ranks[0][label]["res"]
+            if got["greedy"] != ref[label]["greedy"]:
+                fail(f"phase 14 (a) tp={world} {label}: greedy tokens differ from tp=1: "
+                     f"{got['greedy']} vs {ref[label]['greedy']}")
+            if label == "K1" and got["turn1"] != ref[label]["turn1"]:
+                fail(f"phase 14 (a) tp={world} K1: session turn differs from tp=1")
+            for r in ranks:
+                launches[label] += r[label]["launches"]
+        row = dict(card=card, tp=world, model=f"{TP_MODEL} f32, {TP_LAYERS} layers",
+                   spawn_and_run_s=spawn_s, logits_max_abs_err=err,
+                   logits_tolerance=TP_LOGITS_TOL,
+                   greedy_tokens={k: sum(map(len, ref[k]["greedy"])) for k in TP_EDITIONS},
+                   per_rank={label: [dict(launches=r[label]["launches"],
+                                          decode_steps=r[label]["steps"],
+                                          H=r[label]["H"], Hkv=r[label]["Hkv"])
+                                     for r in ranks] for label in TP_EDITIONS},
+                   peak_bytes=[r["peak_bytes"] for r in ranks])
+        print("tp " + json.dumps(row), flush=True)
+        if world == 2:
+            payload = ranks[0]["export"]
+            c = [r["bf16"] for r in ranks]
+            for r in c:
+                if r["params_bytes"] != r["params_bytes_expected"]:
+                    fail(f"phase 14 (c): a rank holds {r['params_bytes']} params bytes, "
+                         f"expected {r['params_bytes_expected']}")
+                launches["K1"] += r["launches"]
+            print("tp bf16 " + json.dumps(dict(
+                card=card, tp=world, model=f"{TP_MODEL} bf16, full depth",
+                params_bytes_per_rank=[r["params_bytes"] for r in c],
+                params_bytes_expected=c[0]["params_bytes_expected"],
+                peak_bytes_per_rank=[r["peak_bytes"] for r in c],
+                launches_per_rank=[r["launches"] for r in c], H=c[0]["H"], Hkv=c[0]["Hkv"],
+                burst=c[0]["res"])), flush=True)
+            d = [r["moe"] for r in ranks]
+            moe_check_tp(card, ref, d, mcfg)
+            for r in d:
+                launches["K1"] += r["launches"]
+    # (e): the session exported at tp = 2 (every head) continues at tp = 1.
+    eng = InferenceEngine(cfg, EngineConfig(**TP_ENGINE), params=ref["params"], device=TP_DEVICE)
+    if payload is None or payload.host_k.shape[2] != cfg.num_kv_heads:
+        fail("phase 14 (e): no full-head payload from tp=2")
+    eng.import_session(payload)
+    submit, drive = tp_inline(eng)
+    first, more = tp_session(cfg.vocab_size)
+    h = submit(first + ref["K1"]["turn1"] + more,
+               SamplingParams(temperature=0.0, max_tokens=TP_NEW_TOKENS), "e")
+    drive()
+    turn2 = h.collect_tokens(timeout=600)[0]
+    if turn2 != ref["turn2"] or eng.metrics["session_restores"] != 1:
+        fail(f"phase 14 (e): imported turn {turn2} vs resident {ref['turn2']}, "
+             f"restores {eng.metrics['session_restores']}")
+    print(f"phase 14 (e): a session exported at tp=2 ({payload.host_k.shape} rows) "
+          f"continued at tp=1 with the resident tokens", flush=True)
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_check_tp(card: str, ref: dict, ranks: list, cfg) -> None:
+    """(d): routing, kept assignments and outputs of layer 0 at tp = 2
+    equal tp = 1's (f32, TF32 off: within 1e-4 of the largest output), and
+    the engine's greedy tokens too."""
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    rows = []
+    for n, (t_i, t_y), (r_i, r_y) in zip(MOE_ROWS, ranks[0]["rows"], ref["moe_rows"]):
+        capacity = max(1, int(-(-n * K * 2.0 // E)))
+        dispatch = n >= 64
+        kept_t = kept(t_i, E, capacity) if dispatch else np.ones_like(t_i, bool)
+        kept_r = kept(r_i, E, capacity) if dispatch else np.ones_like(r_i, bool)
+        rel = float(np.abs(t_y - r_y).max() / np.abs(r_y).max())
+        drops = int((~kept_r).sum())
+        if not (np.array_equal(t_i, r_i) and np.array_equal(kept_t, kept_r)) or rel > 1e-4:
+            fail(f"phase 14 (d) {n} rows: routing, kept set or output (err {rel}) differ")
+        if dispatch and drops == 0:
+            fail(f"phase 14 (d) {n} rows: the skewed router dropped no assignment")
+        rows.append(dict(rows=n, dropped_assignments=drops, max_err_of_largest=rel))
+    if ranks[0]["res"]["greedy"] != ref["moe"]["greedy"]:
+        fail("phase 14 (d): Mixtral greedy tokens at tp=2 differ from tp=1")
+    print("tp moe " + json.dumps(dict(
+        card=card, tp=2, model=f"{TP_MOE_MODEL} f32, {TP_MOE_LAYERS} layers",
+        experts_per_rank=[r["experts"] for r in ranks], layer0=rows,
+        greedy_tokens=sum(map(len, ref["moe"]["greedy"])),
+        launches_per_rank=[r["launches"] for r in ranks])), flush=True)
+
+
 def main() -> None:
     t_script = time.monotonic()
     card = device_line()
@@ -3241,6 +3655,9 @@ def main() -> None:
     cases = [kernel_cases(m, dt, flush) for m in ("llama3-8b", "llama3-1b")
              for dt in (torch.bfloat16, torch.float32)]
     cases.append(kernel_cases("llama3-70b", torch.bfloat16, flush))
+    # One rank's shapes under tp (phase 14): llama3-8b Hkv 4 and 2, 70B Hkv 2.
+    cases += [kernel_cases(m, torch.bfloat16, flush, tp=n)
+              for m, n in (("llama3-8b", 2), ("llama3-8b", 4), ("llama3-70b", 4))]
     del flush
     t = lap("phase 3", t)
     reference_check()
@@ -3263,10 +3680,13 @@ def main() -> None:
     t = lap("phase 11", t)
     for label, n in training(card).items():
         launches[label] += n
-    lap("phase 13", t)
-    lap("phases 1-13", t_script)
+    t = lap("phase 13", t)
+    for label, n in tensor_parallel(card).items():
+        launches[label] += n
+    lap("phase 14", t)
+    lap("phases 1-14", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
-    main_case, case_70b = cases[0], cases[-1]
+    main_case, case_70b = cases[0], cases[4]
     entries = []
     for label, (edition, kname, replaces) in KERNELS.items():
         c = main_case[label]

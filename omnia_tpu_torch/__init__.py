@@ -13,10 +13,12 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """The device an entry point runs on: the caller's, else ``cuda``.
+    """The device an entry point runs on: the caller's, else ``cuda``
+    (a rank of a process group: ``cuda:{local_rank % device_count}``).
 
     Without an explicit device and without CUDA this raises rather than
     quietly running on the CPU."""
@@ -26,4 +28,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        from omnia_tpu_torch.parallel.distributed import rank_device
+
+        return rank_device()
     return torch.device("cuda")

@@ -68,6 +68,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.engine.coldstart import PHASE_CODES, ColdStartTracker, build_cache_dir
@@ -99,12 +100,14 @@ from omnia_tpu_torch.models import ModelConfig, llama, quant
 from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
 from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
+from omnia_tpu_torch.parallel.mesh import make_mesh
+from omnia_tpu_torch.parallel.sharding import shard_pytree
 
 logger = logging.getLogger(__name__)
 
 # Knobs this port does not implement yet: (field, ROADMAP item). Set
 # away from its default, each one is refused at construction.
-_UNPORTED_KNOBS = (("dp", "A13"), ("tp", "A13"), ("sp", "A13"))
+_UNPORTED_KNOBS = (("dp", "A13"), ("sp", "A13"))
 
 
 def _refuse_unported(ecfg: EngineConfig) -> None:
@@ -116,6 +119,37 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
                 f"EngineConfig.{field}={value!r} is not ported to "
                 f"omnia_tpu_torch yet (ROADMAP {item})"
             )
+
+
+def validate_tp(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
+    """Refuse a tensor-parallel engine that cannot run: the ring under tp
+    (ROADMAP A16), a degree that does not divide what it splits (the JAX
+    package's "tp divides num_kv_heads", and the heads, FFN or experts
+    and vocabulary), or a job that is not ``tp`` ranks of one process
+    group (``parallel/distributed.py``)."""
+    tp = ecfg.tp
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp == 1:
+        return
+    if ecfg.decode_ring >= 2:
+        raise ValueError(
+            f"decode_ring={ecfg.decode_ring} with tp={tp}: the ring's CUDA graph "
+            "cannot capture a gloo collective, and capturing NCCL collectives "
+            "needs more than one card (ROADMAP A16)")
+    split = {"num_kv_heads": mcfg.num_kv_heads, "num_heads": mcfg.num_heads,
+             "vocab_size": mcfg.vocab_size}
+    split.update({"num_experts": mcfg.num_experts} if mcfg.is_moe
+                 else {"ffn_hidden_size": mcfg.ffn_hidden_size})
+    for name, n in split.items():
+        if n % tp:
+            raise ValueError(f"tp={tp} must divide {name}={n}")
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != tp:
+        raise ValueError(
+            f"EngineConfig.tp={tp} needs a torch.distributed process group of {tp} "
+            f"ranks, one engine per rank (omnia_tpu_torch.parallel.distributed); "
+            f"have {'none' if world is None else world}")
 
 
 class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _SessionMixin,
@@ -139,6 +173,12 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._finish_reasons = finish_reasons or FinishReason
         _refuse_unported(engine_cfg)
         validate_decode_ring(engine_cfg)
+        validate_tp(engine_cfg, model_cfg)
+        # Tensor parallelism: this rank's view of the tp mesh and the
+        # axis's Comm, which every forward and sampler takes (None at
+        # tp = 1: no collective anywhere).
+        self._mesh = make_mesh(tp=engine_cfg.tp) if engine_cfg.tp > 1 else None
+        self._tp = self._mesh.comm("tp") if self._mesh is not None else None
         if engine_cfg.warmup_threads < 0:
             raise ValueError("warmup_threads must be >= 0")
         self._gr_on = bool(engine_cfg.grammar)
@@ -174,7 +214,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # Fault injection (faults.py); None outside tests and smoke runs.
         self._fault_plan: Optional[FaultPlan] = None
 
-        progs = build_programs(model_cfg, engine_cfg)
+        progs = build_programs(model_cfg, engine_cfg, self._tp)
         self._prefill_insert_fn = progs.prefill_insert
         self._decode_fns = progs.decode_fns
         self._step_fn = progs.step
@@ -358,16 +398,26 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
                     f"EngineConfig.quant={qmode!r} but supplied params are "
                     f"{detected!r}-quantized"
                 )
+        mesh = self._mesh
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             if qmode:
                 # Born quantized: at flagship sizes the full-precision tree
                 # would not fit on the card beside the int8 one.
                 return quant.init_params_quantized(self.model_cfg, gen, self.device, qmode,
-                                                   dtype=self._dtype)
-            return llama.init_params(self.model_cfg, gen, self.device, dtype=self._dtype)
+                                                   dtype=self._dtype, mesh=mesh)
+            return llama.init_params(self.model_cfg, gen, self.device, dtype=self._dtype,
+                                     mesh=mesh)
+        if mesh is not None and llama.params_sharded(params, self.model_cfg, self.cfg.tp):
+            return params   # this rank's slice already (a loader with mesh=)
         if qmode and not quant.params_quantized(params):
-            return quant.quantize_params(params, self.model_cfg, qmode)
+            # Whole layers first: a row-parallel weight's scales span its K.
+            params = quant.quantize_params(params, self.model_cfg, qmode)
+        if mesh is not None:
+            specs = llama.param_specs(self.model_cfg)
+            if qmode:
+                specs = quant.quantize_param_specs(specs, self.model_cfg, qmode)
+            params = shard_pytree(params, specs, mesh, self.device)
         return params
 
     def _alloc_kv_state(self):
@@ -377,7 +427,8 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         if self.cfg.kv_pages > 0:
             return self._alloc_paged_kv()
         return llama.init_kv_cache(self.model_cfg, self.cfg.num_slots, self.cfg.max_seq,
-                                   self.device, dtype=self._dtype, kv_quant=self._kv_quant)
+                                   self.device, dtype=self._dtype, kv_quant=self._kv_quant,
+                                   tp=self.cfg.tp)
 
     def _init_device_state(self):
         """(Re)allocate the KV caches (and the page books) and per-slot
@@ -402,7 +453,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
                 self._pk, self._pv = llama.init_kv_cache(
                     self.model_cfg, self.cfg.prefix_cache_slots,
                     self.cfg.prefix_buckets()[-1], dev, dtype=self._dtype,
-                    kv_quant=self._kv_quant,
+                    kv_quant=self._kv_quant, tp=self.cfg.tp,
                 )
                 self._prefix_pool.on_device_reset()
                 self.metrics["prefix_cache_evictions"] = self._prefix_pool.evictions
@@ -472,8 +523,10 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         return edition(self._kv_quant is not None, self.cfg.kv_pages > 0)
 
     def kv_bytes_per_token(self) -> int:
-        """Device bytes one cached token costs (k + v over all layers, f32
-        row scales included under kv_quant)."""
+        """Device bytes one cached token costs (k + v over all layers and
+        all KV heads, f32 row scales included under kv_quant): the model's
+        figure, summed over the ranks under tp, as the JAX engine reports
+        it; ``kv_quant_device_bytes`` is this rank's allocation."""
         mc = self.model_cfg
         itemsize = 1 if self._kv_quant else self._dtype.itemsize
         scale_bytes = 4 if self._kv_quant else 0

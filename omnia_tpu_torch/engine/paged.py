@@ -78,7 +78,7 @@ class _PagedKVMixin:
         cfg = self.cfg
         pool_k, pool_v = llama.init_kv_cache(
             self.model_cfg, cfg.kv_pages, cfg.kv_page_tokens, self.device,
-            dtype=self._dtype, kv_quant=self._kv_quant,
+            dtype=self._dtype, kv_quant=self._kv_quant, tp=cfg.tp,
         )
         table = torch.zeros((cfg.num_slots, cfg.num_page_positions()),
                             dtype=torch.int32, device=self.device)

@@ -62,6 +62,13 @@ Without it the programs take none of these operands.
 Every program runs with grad mode off, as JAX programs never
 differentiate: a trainer's params serve as they are.
 
+Tensor parallelism (``tp``): the forwards run this rank's heads, FFN,
+experts and vocab slice; every sampler and the verify oracle read the
+logits gathered over the ranks, so each rank samples the same tokens
+from the same ``key_data`` and the ranks' host books stay equal. Only
+the rows a sampler reads are gathered (one per slot, not a prefill's
+``[1, bucket, V]``).
+
 PyTorch launches are asynchronous, so every program returns as soon as
 its work is enqueued; the caller reads tokens when it needs them. KV
 caches are updated in place (JAX donates and returns them), every copy
@@ -115,7 +122,10 @@ class EnginePrograms:
     mixed_spec_sample: dict[int, Callable] = dataclasses.field(default_factory=dict)
 
 
-def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
+def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None) -> EnginePrograms:
+    """The engine's programs; with ``tp`` (the "tp" axis's Comm) every
+    forward runs this rank's slice and every sampler reads the gathered
+    logits."""
     max_seq = ecfg.max_seq
     paged = ecfg.kv_pages > 0
 
@@ -134,6 +144,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
 
     def _sample_one(logits, key_data, temp, top_p, top_k, g):
         """``g`` is () or (the start state's mask bias [V],)."""
+        logits = llama.gather_logits(logits, tp)
         tok, new_kd = sample_tokens_per_slot(logits, key_data[None], temp, top_p, top_k,
                                              mask_bias=g[0][None] if g else None)
         return tok[0], new_kd[0]
@@ -143,7 +154,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         """tokens, positions [1, bucket]; key_data [2]; temp, top_p,
         top_k [1]; g the grammar bias, if any → (first token 0-d int32,
         new key_data [2])."""
-        logits, k_chunk, v_chunk = llama.forward_prefill(params, cfg, tokens, positions)
+        logits, k_chunk, v_chunk = llama.forward_prefill(params, cfg, tokens, positions, tp)
         _put(ck, k_chunk, slot, 0)
         _put(cv, v_chunk, slot, 0)
         return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k, g)
@@ -153,7 +164,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         [1, T, V]: the piece's rows written into the slot."""
         logits, _, _ = llama.forward(params, cfg, tokens, positions,
                                      _slot_view(ck, slot), _slot_view(cv, slot),
-                                     write_start)
+                                     write_start, tp)
         return logits
 
     def extend(params, ck, cv, tokens, positions, slot: int, write_start,
@@ -204,12 +215,13 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         8-wide stop-id row)."""
         tokens, positions, active, budget, key_data, gstate = state[:6]
         logits, _, _ = llama.forward(params, cfg, tokens[:, None], positions[:, None], ck, cv,
-                                     positions)
+                                     positions, tp)
+        logits = llama.gather_logits(logits[:, 0], tp)
         if g:
             gtable, gactive = g
             row = _grammar_rows(gtable, gstate)
             bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
-            tok, key_data = sample_tokens_per_slot(logits[:, 0], key_data, temp, top_p, top_k,
+            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k,
                                                    mask_bias=bias)
             # The state advances on the sampled token, gated like the
             # position (active at the step's start); a masked token cannot
@@ -217,7 +229,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
             nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
             gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
         else:
-            tok, key_data = sample_tokens_per_slot(logits[:, 0], key_data, temp, top_p, top_k)
+            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k)
         # The row just written advances the position only for slots active
         # at the step's start; deactivation applies from the next step on,
         # as the host's finish bookkeeping does.
@@ -298,7 +310,8 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig) -> EnginePrograms:
         token within the accepted prefix is admissible. A masked proposal
         makes the states after it garbage, but it also disagrees with the
         oracle at its own position, so acceptance stops there."""
-        logits, _, _ = llama.forward(params, cfg, vtoks, vpos, ck, cv, vwstart)
+        logits, _, _ = llama.forward(params, cfg, vtoks, vpos, ck, cv, vwstart, tp)
+        logits = llama.gather_logits(logits, tp)
         if not g:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         state, gtable, gactive = g

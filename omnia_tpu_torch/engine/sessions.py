@@ -9,6 +9,13 @@ host RAM (``host_k``/``host_v``, the offload format of
 ``models/kv_quant.py::kv_host``), or empty. The engine thread owns every
 structure here; ``release_session`` and ``import_session`` from other
 threads are queued under the engine lock and applied at the next step.
+
+Under tensor parallelism a rank's host rows hold its own KV heads
+(``[L, R, Hkv / tp, D]``): offload and restore move them as they are. An
+export payload carries every head, in the JAX engine's format, so one
+taken at tp = 2 imports at tp = 1 and back: ``export_session`` gathers
+the heads over the ranks (a collective: every rank exports the session
+together) and ``import_session`` keeps this rank's slice.
 """
 
 from __future__ import annotations
@@ -18,9 +25,11 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from omnia_tpu_torch.engine.types import Request, RequestHandle, SessionExport
-from omnia_tpu_torch.models.kv_quant import as_quant_kv, kv_device, kv_host
+from omnia_tpu_torch.models.kv_quant import as_quant_kv, kv_device, kv_host, kv_map
+from omnia_tpu_torch.parallel.collectives import all_gather
 
 
 class _Slot:
@@ -223,8 +232,8 @@ class _SessionMixin:
         payload = SessionExport(
             session_id=session_id,
             token_ids=list(sess.token_ids),
-            host_k=sess.host_k,
-            host_v=sess.host_v,
+            host_k=self._all_heads(sess.host_k),
+            host_v=self._all_heads(sess.host_v),
             kv_quant=self._kv_quant,
             restore_rows=self.cfg.restore_bucket_for(len(sess.token_ids)),
         )
@@ -263,10 +272,35 @@ class _SessionMixin:
                 f"session KV rows {shape} incompatible with this "
                 f"engine's restore shape {expect}"
             )
+        export = dataclasses.replace(export, host_k=self._own_heads(export.host_k),
+                                     host_v=self._own_heads(export.host_v))
         with self._lock:
             self._pending_imports.append(export)
         if self._thread is None:
             self._drain_imports()
+
+    def _all_heads(self, host):
+        """Host rows [L, R, Hkv / tp, D] of every rank → [L, R, Hkv, D] on
+        every rank (host rows as they are at tp = 1)."""
+        if self._tp is None:
+            return host
+
+        def gather(a: np.ndarray) -> np.ndarray:
+            # bf16 rows are uint16 bit patterns: gather them as int16.
+            wide = a.view(np.int16) if a.dtype == np.uint16 else a
+            out = all_gather(torch.from_numpy(np.ascontiguousarray(wide)).to(self.device),
+                             self._tp, dim=2).cpu().numpy()
+            return out.view(a.dtype)
+
+        return kv_map(gather, host)
+
+    def _own_heads(self, host):
+        """This rank's KV heads of full-head host rows (axis 2)."""
+        if self._tp is None:
+            return host
+        n = self.model_cfg.num_kv_heads // self._tp.size
+        lo = self._tp.index * n
+        return kv_map(lambda a: np.ascontiguousarray(np.asarray(a)[:, :, lo:lo + n]), host)
 
     def _drain_imports(self) -> None:
         with self._lock:

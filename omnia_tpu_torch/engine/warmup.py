@@ -30,11 +30,19 @@ No fallback: a task's exception (a failed kernel build included) is
 raised out of ``warmup()``, or out of the construction whose overlap it
 ran in. Warmup writes only scratch rows and restores the device state
 and the metrics it touched, so it cannot perturb what requests get.
+
+Under tensor parallelism every task's forward holds collectives, so every
+rank must run the same task list in the same order. The ranks first
+compare a digest of their lists and raise on a mismatch; a rank that
+never arrives (or stops between tasks) makes the others' next collective
+raise after the process group's timeout (``parallel/distributed.py``)
+instead of hanging.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import logging
 import threading
@@ -54,6 +62,7 @@ from omnia_tpu_torch.engine.coldstart import (
 from omnia_tpu_torch.engine.graphs import NO_DEADLINE
 from omnia_tpu_torch.engine.types import SamplingParams
 from omnia_tpu_torch.models.kv_quant import kv_device, kv_host
+from omnia_tpu_torch.parallel.collectives import all_gather
 
 logger = logging.getLogger(__name__)
 
@@ -199,6 +208,23 @@ class _WarmupMixin:
             add("pages", "copy", lambda st: self._page_copy_fn(st.ck, st.cv, 0, 0))
         return tasks
 
+    def _agree_on_tasks(self, program_keys: list) -> None:
+        """Under tp: every rank's warmup task list must be this one, in
+        this order (their collectives pair up call by call). Raises on
+        every rank when one differs."""
+        if self._tp is None:
+            return
+        digest = hashlib.sha256("\n".join(program_keys).encode()).digest()
+        mine = torch.tensor([int.from_bytes(digest[:7], "big"), len(program_keys)],
+                            dtype=torch.int64, device=self.device)
+        every = all_gather(mine[None], self._tp, dim=0).tolist()
+        differ = [r for r, v in enumerate(every) if v != every[0]]
+        if differ:
+            raise RuntimeError(
+                f"warmup task lists differ across tp ranks (rank 0 vs ranks {differ}: "
+                f"{[every[0]] + [every[r] for r in differ]} as [digest, count]); "
+                "every rank must build the same EngineConfig")
+
     def _run_warmup_serial(self, tasks) -> None:
         st = _WarmupState(self._ck, self._cv)
         for _family, _key, fn in tasks:
@@ -295,6 +321,7 @@ class _WarmupMixin:
         self.metrics["warmup_programs_done"] = 0
 
         program_keys = [f"{family}:{key}" for family, key, _fn in tasks]
+        self._agree_on_tasks(program_keys)
         hits, misses = manifest_bookkeeping(
             manifest_dir(), self._warmup_manifest_key(), program_keys, cs,
             meta={"model": self.model_cfg.name, "backend": self.device.type},

@@ -304,6 +304,7 @@ def load_params(
     device=None,
     quant: Optional[str] = None,
     progress_cb=None,
+    mesh=None,
 ) -> dict:
     """Load an HF-layout llama or mixtral checkpoint into the stacked tree on
     ``device`` (the card unless the caller names another).
@@ -315,10 +316,20 @@ def load_params(
     device as it lands, so the full-precision tree never reaches the card
     and host memory peaks at about one layer.
 
+    With a ``mesh`` every leaf is this rank's slice by
+    ``llama.param_specs`` (``quant.quantize_param_specs`` under
+    ``quant``): each layer is cut on the host before its cast and copy,
+    and a quantized layer is quantized whole (a row-parallel weight's
+    scales span its whole contraction) and then cut, so no rank ever
+    holds more than one whole layer of the tree.
+
     With ``progress_cb``, ``progress_cb(loaded_bytes, total_bytes)`` is
     called after every tensor read, metered at ``dtype`` (what
     ``expected_param_bytes`` counts), so it ends at exactly 100%.
     """
+    from omnia_tpu_torch.models.llama import param_specs
+    from omnia_tpu_torch.parallel.sharding import P, shard_leaf, shard_pytree
+
     cfg = cfg or read_config(path)
     quant_mod.validate_mode(quant)
     device = resolve_device(device)
@@ -326,8 +337,19 @@ def load_params(
     loaded_bytes = 0
     reader = _ShardReader(path)
     L, D, F, V = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    specs = param_specs(cfg)
+    if quant is not None:
+        specs = quant_mod.quantize_param_specs(specs, cfg, quant)
+    sa, sm = specs["layers"]["attn"], specs["layers"]["mlp"]
 
-    def fetch(name: str, want_shape: tuple, transpose: bool) -> torch.Tensor:
+    def local(shape: tuple, spec) -> tuple:
+        """This rank's shape of a leaf of ``shape`` split by ``spec``."""
+        return tuple(n // mesh.size(a) if mesh is not None and a else n
+                     for n, a in zip(shape, spec))
+
+    def fetch(name: str, want_shape: tuple, transpose: bool, spec=None) -> torch.Tensor:
+        """One tensor, this rank's slice by ``spec`` when given (a mesh),
+        cast to ``dtype``."""
         nonlocal loaded_bytes
         t = reader.get(name)
         if transpose:
@@ -340,78 +362,93 @@ def load_params(
         if progress_cb is not None:
             loaded_bytes += t.numel() * dtype.itemsize
             progress_cb(loaded_bytes, total_bytes)
+        if mesh is not None and spec is not None:
+            t = shard_leaf(t, spec, mesh)
         return t.to(dtype)
 
-    def empty(shape: tuple, quantized: bool):
-        if quantized:
-            return quant_mod.empty_weight(shape, quant, device)
-        return torch.empty(shape, dtype=dtype, device=device)
+    def empty(shape: tuple, spec):
+        if isinstance(spec, dict):
+            return quant_mod.empty_weight(local(shape, spec[quant_mod._key_for(quant)]),
+                                          quant, device)
+        return torch.empty(local(shape, spec), dtype=dtype, device=device)
 
-    def place(leaf, index, t: torch.Tensor) -> None:
-        """Write one layer (``index`` i) or a whole leaf (``index`` ())."""
-        if quant_mod.is_quantized(leaf):
-            quant_mod.quantize_into(leaf, t, index)
+    def drop_layer_axis(spec):
+        if isinstance(spec, dict):
+            return {k: P(*v[1:]) for k, v in spec.items()}
+        return P(*spec[1:])
+
+    def place(leaf, index, name: str, shape: tuple, transpose: bool, spec) -> None:
+        """Write one layer (``index`` i, ``spec`` without the layer axis)
+        or a whole leaf (``index`` ())."""
+        if not quant_mod.is_quantized(leaf):
+            leaf[index].copy_(fetch(name, shape, transpose, spec))
+        elif mesh is None:
+            quant_mod.quantize_into(leaf, fetch(name, shape, transpose), index)
         else:
-            leaf[index].copy_(t)
+            whole = quant_mod.empty_weight(shape, quant, device)
+            quant_mod.quantize_into(whole, fetch(name, shape, transpose))
+            for k, v in shard_pytree(whole, spec, mesh).items():
+                leaf[k][index].copy_(v)
 
-    def single(name: str, shape: tuple, quantized=False, transpose=False):
-        leaf = empty(shape, quantized)
-        place(leaf, (), fetch(name, shape, transpose))
+    def single(name: str, shape: tuple, spec, transpose=False):
+        leaf = empty(shape, spec)
+        place(leaf, (), name, shape, transpose, spec)
         return leaf
 
-    def stacked(tmpl: str, shape: tuple, quantized=True, transpose=True):
-        leaf = empty((L, *shape), quantized)
+    def stacked(tmpl: str, shape: tuple, spec, transpose=True):
+        leaf = empty((L, *shape), spec)
         for i in range(L):
-            place(leaf, i, fetch(tmpl.format(i=i), shape, transpose))
+            place(leaf, i, tmpl.format(i=i), shape, transpose, drop_layer_axis(spec))
         return leaf
 
-    def stacked_experts(tmpl: str, shape: tuple):
+    def stacked_experts(tmpl: str, shape: tuple, spec):
         E = cfg.num_experts
-        leaf = empty((L, E, *shape), False)
+        leaf = empty((L, E, *shape), spec)
+        n = leaf.shape[1]
+        e0 = 0 if mesh is None else mesh.index(spec[1]) * n
         for i in range(L):
             for e in range(E):
-                leaf[i, e].copy_(fetch(tmpl.format(i=i, e=e), shape, True))
+                t = fetch(tmpl.format(i=i, e=e), shape, True)
+                if e0 <= e < e0 + n:
+                    leaf[i, e - e0].copy_(t)
         return leaf
 
-    q = quant is not None
     attn = {
-        "wq": stacked(_ATTN["wq"], (D, cfg.q_dim), q),
-        "wk": stacked(_ATTN["wk"], (D, cfg.kv_dim), q),
-        "wv": stacked(_ATTN["wv"], (D, cfg.kv_dim), q),
-        "wo": stacked(_ATTN["wo"], (cfg.q_dim, D), q),
+        "wq": stacked(_ATTN["wq"], (D, cfg.q_dim), sa["wq"]),
+        "wk": stacked(_ATTN["wk"], (D, cfg.kv_dim), sa["wk"]),
+        "wv": stacked(_ATTN["wv"], (D, cfg.kv_dim), sa["wv"]),
+        "wo": stacked(_ATTN["wo"], (cfg.q_dim, D), sa["wo"]),
     }
     if cfg.is_moe:
         mlp = {
-            "router": stacked(_MOE["router"], (D, cfg.num_experts), quantized=False),
-            "wg": stacked_experts(_MOE["wg"], (D, F)),
-            "wu": stacked_experts(_MOE["wu"], (D, F)),
-            "wd": stacked_experts(_MOE["wd"], (F, D)),
+            "router": stacked(_MOE["router"], (D, cfg.num_experts), sm["router"]),
+            "wg": stacked_experts(_MOE["wg"], (D, F), sm["wg"]),
+            "wu": stacked_experts(_MOE["wu"], (D, F), sm["wu"]),
+            "wd": stacked_experts(_MOE["wd"], (F, D), sm["wd"]),
         }
     else:
         mlp = {
-            "wg": stacked(_DENSE_MLP["wg"], (D, F), q),
-            "wu": stacked(_DENSE_MLP["wu"], (D, F), q),
-            "wd": stacked(_DENSE_MLP["wd"], (F, D), q),
+            "wg": stacked(_DENSE_MLP["wg"], (D, F), sm["wg"]),
+            "wu": stacked(_DENSE_MLP["wu"], (D, F), sm["wu"]),
+            "wd": stacked(_DENSE_MLP["wd"], (F, D), sm["wd"]),
         }
+    lay = specs["layers"]
     params = {
-        "embed": single("model.embed_tokens.weight", (V, D)),
+        "embed": single("model.embed_tokens.weight", (V, D), specs["embed"]),
         "layers": {
-            "ln1": stacked("model.layers.{i}.input_layernorm.weight", (D,),
-                           quantized=False, transpose=False),
+            "ln1": stacked("model.layers.{i}.input_layernorm.weight", (D,), lay["ln1"],
+                           transpose=False),
             "ln2": stacked("model.layers.{i}.post_attention_layernorm.weight", (D,),
-                           quantized=False, transpose=False),
+                           lay["ln2"], transpose=False),
             "attn": attn,
             "mlp": mlp,
         },
-        "final_norm": single("model.norm.weight", (D,)),
+        "final_norm": single("model.norm.weight", (D,), specs["final_norm"]),
     }
     if not cfg.tie_embeddings:
-        if reader.has("lm_head.weight"):
-            params["lm_head"] = single("lm_head.weight", (D, V), q, transpose=True)
-        else:
-            # Some checkpoints omit lm_head and tie on load; honor that.
-            params["lm_head"] = single("model.embed_tokens.weight", (D, V), q,
-                                       transpose=True)
+        # Some checkpoints omit lm_head and tie on load; honor that.
+        name = "lm_head.weight" if reader.has("lm_head.weight") else "model.embed_tokens.weight"
+        params["lm_head"] = single(name, (D, V), specs["lm_head"], transpose=True)
     return params
 
 

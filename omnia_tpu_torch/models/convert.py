@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from omnia_tpu_torch.models import quant
 from omnia_tpu_torch.models.quant import is_quantized, with_product_layout
 
 
@@ -31,14 +32,30 @@ def _leaf(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
+def _convert(tree, device, dtype: Optional[torch.dtype]):
+    if isinstance(tree, dict):
+        if is_quantized(tree):
+            return with_product_layout({k: _leaf(v, device, None) for k, v in tree.items()})
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _leaf(tree, device, dtype)
+
+
+def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None, mesh=None,
+                    cfg=None):
     """Nested dict of numpy arrays (a JAX ``llama.init_params`` tree
     after ``jax.tree.map(np.asarray, ...)``) → the same dict of tensors on
     ``device``, its floating weights cast to ``dtype`` (default: each
     leaf's own dtype). A quantized weight's int8 values and f32 scales
-    keep their dtypes."""
-    if isinstance(tree, dict):
-        if is_quantized(tree):
-            return with_product_layout({k: _leaf(v, device, None) for k, v in tree.items()})
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
-    return _leaf(tree, device, dtype)
+    keep their dtypes. With a ``mesh`` (and the model's ``cfg``) the
+    result is this rank's slice by ``llama.param_specs`` (quantized:
+    ``quant.quantize_param_specs``), cut on the host before it moves."""
+    if mesh is None:
+        return _convert(tree, device, dtype)
+    from omnia_tpu_torch.models.llama import param_specs
+    from omnia_tpu_torch.parallel.sharding import shard_pytree
+
+    specs = param_specs(cfg)
+    mode = quant.detect_mode(tree)
+    if mode is not None:
+        specs = quant.quantize_param_specs(specs, cfg, mode)
+    return shard_pytree(_convert(tree, "cpu", dtype), specs, mesh, device)

@@ -32,6 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_max, all_reduce_sum
+
 QUANT_MODES = ("int8", "int8-dynamic")
 
 _MODE_KEY = {"int8": "w8", "int8-dynamic": "w8d"}
@@ -172,54 +174,93 @@ def quantize_params(params, cfg, mode: str = "int8"):
     return _map_quant_leaves(params, cfg.is_moe, lambda w: quantize_weight(w, mode))
 
 
+def quantize_param_specs(specs, cfg, mode: str = "int8"):
+    """The ``llama.param_specs`` tree for quantized params: the int8 values
+    keep the weight's spec; the scale drops the contraction axis (index
+    ndim - 2) from it, so a row-parallel weight's scale is replicated.
+
+    Specs must be full-length (one entry per dimension): a shortened one
+    would misalign the contraction axis dropped here, so it is refused.
+    Quantized leaves are stacked [L, in, out] except lm_head [in, out]."""
+    from omnia_tpu_torch.parallel.sharding import P
+
+    key = _key_for(mode)
+
+    def make_leaf(expect_ndim: int):
+        def leaf(spec):
+            entries = tuple(spec)
+            if len(entries) != expect_ndim:
+                raise ValueError(
+                    f"quantized weight spec {spec} has {len(entries)} entries, "
+                    f"expected {expect_ndim}; shortened PartitionSpecs would "
+                    "misalign the scale's contraction-axis slicing"
+                )
+            return {key: spec, "s": P(*entries[: len(entries) - 2], entries[-1])}
+
+        return leaf
+
+    stacked = {k: v for k, v in specs.items() if k != "lm_head"}
+    out = _map_quant_leaves(stacked, cfg.is_moe, make_leaf(3))
+    if "lm_head" in specs:
+        out["lm_head"] = make_leaf(2)(specs["lm_head"])
+    return out
+
+
 def init_params_quantized(cfg, generator: torch.Generator, device, mode: str = "int8",
-                          dtype: torch.dtype = torch.bfloat16) -> dict:
+                          dtype: torch.dtype = torch.bfloat16, mesh=None) -> dict:
     """Random params born quantized, on ``device`` (the generator's): each
     int8 leaf is drawn directly as int8, so no full-precision or int64
     copy of a stacked weight ever exists. Same structure as
     ``llama.init_params``; scales are set so the dequantized std matches
     its 0.02 (uniform int8 in [-127, 127] has std ≈ 127/√3). Same shapes
-    and scales as the JAX package; not the same numbers."""
+    and scales as the JAX package; not the same numbers. With a ``mesh``
+    each leaf is cut to this rank's slice as soon as it is drawn."""
+    from omnia_tpu_torch.models.llama import param_specs
+    from omnia_tpu_torch.parallel.sharding import shard_leaf, shard_pytree
+
     if cfg.is_moe:
         raise ValueError("int8 quantization does not cover MoE experts")
     qkey = _key_for(mode)
     L, D, F, V = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    specs = quantize_param_specs(param_specs(cfg), cfg, mode)
+    sa, sm = specs["layers"]["attn"], specs["layers"]["mlp"]
 
-    def normal(shape, std=0.02):
+    def normal(shape, spec, std=0.02):
         t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
-        return t.mul_(std)
+        t.mul_(std)
+        return t if mesh is None else shard_leaf(t, spec, mesh)
 
     def ones(shape):
         return torch.ones(shape, device=device, dtype=dtype)
 
-    def qleaf(shape, std=0.02):
+    def qleaf(shape, spec, std=0.02):
         leaf = empty_weight(shape, mode, device)
         leaf[qkey].random_(-127, 128, generator=generator)
         leaf["s"].fill_(std * (3.0**0.5) / _QMAX)
-        return leaf
+        return leaf if mesh is None else shard_pytree(leaf, spec, mesh)
 
     wo_std = 0.02 / (2 * L) ** 0.5
     params = {
-        "embed": normal((V, D)),
+        "embed": normal((V, D), specs["embed"]),
         "layers": {
             "ln1": ones((L, D)),
             "ln2": ones((L, D)),
             "attn": {
-                "wq": qleaf((L, D, cfg.q_dim)),
-                "wk": qleaf((L, D, cfg.kv_dim)),
-                "wv": qleaf((L, D, cfg.kv_dim)),
-                "wo": qleaf((L, cfg.q_dim, D), std=wo_std),
+                "wq": qleaf((L, D, cfg.q_dim), sa["wq"]),
+                "wk": qleaf((L, D, cfg.kv_dim), sa["wk"]),
+                "wv": qleaf((L, D, cfg.kv_dim), sa["wv"]),
+                "wo": qleaf((L, cfg.q_dim, D), sa["wo"], std=wo_std),
             },
             "mlp": {
-                "wg": qleaf((L, D, F)),
-                "wu": qleaf((L, D, F)),
-                "wd": qleaf((L, F, D), std=wo_std),
+                "wg": qleaf((L, D, F), sm["wg"]),
+                "wu": qleaf((L, D, F), sm["wu"]),
+                "wd": qleaf((L, F, D), sm["wd"], std=wo_std),
             },
         },
         "final_norm": ones((D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = qleaf((D, V))
+        params["lm_head"] = qleaf((D, V), specs["lm_head"])
     return params
 
 
@@ -248,23 +289,30 @@ def _w8a16_product(h: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.mm(h.float(), q.float())
 
 
-def qdot(h: torch.Tensor, w) -> torch.Tensor:
+def qdot(h: torch.Tensor, w, tp: Optional[Comm] = None) -> torch.Tensor:
     """``torch.matmul`` that accepts quantized-weight dicts transparently.
 
     h: [..., K] activations; w: [K, N] tensor or quantized dict. The
     forward calls this at every projection site, so swapping the param
-    tree turns quantization on with no branching in the model code."""
+    tree turns quantization on with no branching in the model code.
+
+    With ``tp`` the product is row-parallel: h and w hold this rank's
+    slice of K, and the partial sums are added over the ranks before any
+    scale applies (int32 under W8A8, f32 under W8A16), where GSPMD adds
+    them in the JAX package. W8A8's per-row amax spans the whole K, so it
+    is a MAX over the ranks before this rank quantizes its slice."""
     if not is_quantized(w):
-        return torch.matmul(h, w)
+        return all_reduce_sum(torch.matmul(h, w), tp)
     lead, s = h.shape[:-1], w["s"]
     h2 = h.reshape(-1, h.shape[-1])
     if "w8" in w:
-        out = _w8a16_product(h2, w["w8"]) * s
+        out = all_reduce_sum(_w8a16_product(h2, w["w8"]), tp) * s
     else:
         # W8A8: per-token absmax quantization of the activations, then an
         # exact int32 contraction; the scales apply in the JAX order.
         hf = h2.float()
-        s_in = _div_qmax(torch.clamp_min(hf.abs().amax(dim=-1, keepdim=True), _EPS))
+        amax = all_reduce_max(hf.abs().amax(dim=-1, keepdim=True), tp)
+        s_in = _div_qmax(torch.clamp_min(amax, _EPS))
         hq = torch.clamp(torch.round(hf / s_in), -_QMAX, _QMAX).to(torch.int8)
-        out = int8_matmul(hq, w["w8d"]).float() * s_in * s
+        out = all_reduce_sum(int8_matmul(hq, w["w8d"]), tp).float() * s_in * s
     return out.to(h.dtype).reshape(*lead, out.shape[-1])

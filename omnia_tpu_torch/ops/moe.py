@@ -24,12 +24,22 @@ JAX package's tokens calls with its shapes and its pad rows.
   matmul, never permuted, so a step copies no weight.
 - Products and the combine run in the activation dtype; the router's
   softmax in f32.
+- **Expert parallelism** (``comm``, the "tp" axis): each rank holds
+  E / tp experts (``[E/tp, D, F]``, rank r the r-th run) and the router
+  whole. Routing and the capacity C (over the global E) are computed on
+  every rank alike, so the kept and dropped assignments are the
+  single-device ones; each rank runs only its experts' rows and the
+  partial outputs are summed over the ranks.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum
 
 
 def route_sparse(h: torch.Tensor, router_w: torch.Tensor, num_experts_per_tok: int):
@@ -59,20 +69,30 @@ def _experts(x: torch.Tensor, p: dict) -> torch.Tensor:
     return torch.matmul(F.silu(gate) * up, p["wd"])
 
 
-def moe_dense(h: torch.Tensor, p: dict, num_experts_per_tok: int) -> torch.Tensor:
+def _local_experts(p: dict, comm: Optional[Comm]) -> tuple[int, int]:
+    """(first, count) of the experts this rank holds."""
+    n = p["wg"].shape[0]
+    return (0 if comm is None else comm.index * n), n
+
+
+def moe_dense(h: torch.Tensor, p: dict, num_experts_per_tok: int,
+              comm: Optional[Comm] = None) -> torch.Tensor:
     """All-expert MoE: exact, no drops. h [B, T, d] → [B, T, d]."""
     B, T, d = h.shape
-    combine = route_topk(h, p["router"], num_experts_per_tok)          # [B, T, E]
+    combine = route_topk(h, p["router"], num_experts_per_tok).reshape(B * T, -1)  # [BT, E]
+    if comm is not None:
+        e0, n = _local_experts(p, comm)
+        combine = combine[:, e0:e0 + n]
     expert_out = _experts(h.reshape(1, B * T, d), p)                     # [E, BT, d]
-    out = torch.einsum("ne,end->nd", combine.reshape(B * T, -1).to(h.dtype), expert_out)
-    return out.reshape(B, T, d)
+    out = torch.einsum("ne,end->nd", combine.to(h.dtype), expert_out)
+    return all_reduce_sum(out, comm).reshape(B, T, d)
 
 
 def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
-                 capacity_factor: float = 2.0) -> torch.Tensor:
+                 capacity_factor: float = 2.0, comm: Optional[Comm] = None) -> torch.Tensor:
     """Capacity-dispatched MoE. h [B, T, d] → [B, T, d]. Assignments past
     an expert's capacity land in a trash row of the buffer and contribute
-    zero."""
+    zero; under ``comm`` so do those of another rank's experts."""
     B, T, d = h.shape
     E = p["router"].shape[-1]
     K = num_experts_per_tok
@@ -99,12 +119,16 @@ def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
 
     xs = torch.zeros((E * capacity + 1, d), dtype=flat.dtype, device=dev)
     xs[dest] = flat[t_s]              # only the trash row receives duplicates
-    ys = _experts(xs[:E * capacity].view(E, capacity, d), p)             # [E, C, d]
+    e0, n = _local_experts(p, comm)
+    lo, hi = e0 * capacity, (e0 + n) * capacity
+    ys = _experts(xs[lo:hi].view(n, capacity, d), p)                     # [E/tp, C, d]
+    if comm is not None:
+        keep = keep & (e_s >= e0) & (e_s < e0 + n)
 
-    contrib = ys.reshape(E * capacity, d)[dest.clamp(0, E * capacity - 1)]
+    contrib = ys.reshape(n * capacity, d)[(dest - lo).clamp(0, n * capacity - 1)]
     contrib = contrib * (w_s * keep).to(flat.dtype)[:, None]
     out = torch.zeros((N, d), dtype=flat.dtype, device=dev).index_add_(0, t_s, contrib)
-    return out.reshape(B, T, d)
+    return all_reduce_sum(out, comm).reshape(B, T, d)
 
 
 # Below this many tokens the dense path is both faster (no dispatch
@@ -113,9 +137,9 @@ DISPATCH_MIN_TOKENS = 64
 
 
 def moe_mlp(h: torch.Tensor, p: dict, num_experts_per_tok: int,
-            capacity_factor: float = 2.0) -> torch.Tensor:
+            capacity_factor: float = 2.0, comm: Optional[Comm] = None) -> torch.Tensor:
     """Dense below DISPATCH_MIN_TOKENS rows (B·T), dispatched from it on."""
     B, T, _ = h.shape
     if B * T < DISPATCH_MIN_TOKENS:
-        return moe_dense(h, p, num_experts_per_tok)
-    return moe_dispatch(h, p, num_experts_per_tok, capacity_factor)
+        return moe_dense(h, p, num_experts_per_tok, comm)
+    return moe_dispatch(h, p, num_experts_per_tok, capacity_factor, comm=comm)

@@ -13,6 +13,13 @@ quantizes layer by layer as it places the weights
 (``models/checkpoint.py``), so a 70B checkpoint's full-precision tree
 never reaches the card; the JAX builder loads full precision and its
 engine quantizes afterwards. Both give the same int8 tree.
+
+Tensor parallelism: ``tp`` passes through to the engine. When the
+distributed env is set (``OMNIA_COORDINATOR_ADDR``,
+``parallel/distributed.py``) ``build_engine`` joins the process group, each
+rank's loader reads only its slice, and the engine comes back wrapped in
+a :class:`~omnia_tpu_torch.engine.multihost.LockstepEngine`: rank 0 serves
+it, every other rank calls its ``run_follower()``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from omnia_tpu_torch.engine import EngineConfig, InferenceEngine
 from omnia_tpu_torch.engine.types import resolve_dtype
 from omnia_tpu_torch.models import PRESETS, get_config
 from omnia_tpu_torch.models import checkpoint as ckpt_io
+from omnia_tpu_torch.parallel.distributed import maybe_initialize_distributed
+from omnia_tpu_torch.parallel.mesh import make_mesh
 
 
 class ProviderError(ValueError):
@@ -54,7 +63,7 @@ class ProviderSpec:
 # The EngineConfig fields a spec's options may set: the JAX package's
 # build_engine list, and decode_ring, which that list drops (a spec
 # asking for the ring gets it here). Knobs this port does not implement
-# yet (dp, tp) are refused by the engine.
+# yet (dp) are refused by the engine.
 _ENGINE_OPTIONS = frozenset({
     "num_slots", "max_seq", "prefill_buckets", "dtype",
     "dp", "tp", "decode_chunk", "decode_pipeline",
@@ -72,14 +81,18 @@ _ENGINE_OPTIONS = frozenset({
 
 
 def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
-                 coldstart=None, finish_reasons=None) -> InferenceEngine:
+                 coldstart=None, finish_reasons=None):
     """Instantiate the engine for a provider spec, on ``device`` (the card
     unless the caller names another). ``finish_reasons`` is the enum class
     the engine's final events carry (the JAX runtime's own, to serve
     under it); ``coldstart`` a ColdStartTracker that records the build's
     phases and the checkpoint's byte progress (either package's: the
     engine calls only its methods). Only type ``"tpu"`` is ported: the
-    mock engine raises ``ProviderError``."""
+    mock engine raises ``ProviderError``.
+
+    With the distributed env set this rank joins the process group (nccl
+    on a card, gloo without, unless the caller joined it already) and gets
+    a ``LockstepEngine`` around its engine."""
     if spec.type == "mock":
         raise ProviderError("provider type 'mock' is not ported to omnia_tpu_torch "
                             "yet (ROADMAP A7)")
@@ -89,6 +102,7 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
     if "prefill_buckets" in eng_kwargs:
         eng_kwargs["prefill_buckets"] = tuple(eng_kwargs["prefill_buckets"])
     ecfg = EngineConfig(**eng_kwargs)
+    distributed = maybe_initialize_distributed() is not None
     device = resolve_device(device)
 
     params = None
@@ -102,8 +116,11 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
         # The engine calls the loader once, after validating its config,
         # under its weights_load phase with byte progress.
         def params(progress_cb=None):
+            # Under tp each rank reads its own slice (the mesh the engine
+            # builds, made the same way).
+            mesh = make_mesh(tp=ecfg.tp) if ecfg.tp > 1 else None
             return ckpt_io.load_params(ckpt, cfg, dtype=dtype, device=device,
-                                       quant=ecfg.quant, progress_cb=progress_cb)
+                                       quant=ecfg.quant, progress_cb=progress_cb, mesh=mesh)
     else:
         if spec.model not in PRESETS:
             raise ProviderError(
@@ -113,6 +130,10 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
     engine = InferenceEngine(cfg, ecfg, params=params, seed=spec.options.get("seed", 0),
                              device=device, finish_reasons=finish_reasons,
                              coldstart=coldstart)
+    if distributed:
+        from omnia_tpu_torch.engine.multihost import LockstepEngine
+
+        engine = LockstepEngine(engine)
     if warmup:
         engine.warmup()
     return engine

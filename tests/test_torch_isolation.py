@@ -50,6 +50,9 @@ def test_no_jax_or_reference_imports(path):
     "omnia_tpu_torch.engine.grammar.regex", "omnia_tpu_torch.engine.faults",
     "omnia_tpu_torch.engine.flight", "omnia_tpu_torch.engine.coldstart",
     "omnia_tpu_torch.engine.devloop", "omnia_tpu_torch.utils.metrics",
+    "omnia_tpu_torch.parallel.mesh", "omnia_tpu_torch.parallel.distributed",
+    "omnia_tpu_torch.parallel.sharding", "omnia_tpu_torch.parallel.collectives",
+    "omnia_tpu_torch.parallel.launch", "omnia_tpu_torch.engine.multihost",
 ])
 def test_port_keeps_its_own_copies(module):
     """The modules the port copies from jax-free parts of the JAX package

@@ -120,14 +120,14 @@ def dispatch_log(monkeypatch):
     log = []
     real = tmoe.moe_dispatch
 
-    def spy(h, p, k, capacity_factor=2.0):
+    def spy(h, p, k, capacity_factor=2.0, comm=None):
         B, T, _ = h.shape
         E = p["router"].shape[-1]
         capacity = max(1, int(-(-B * T * k * capacity_factor // E)))
         _, top_i = tmoe.route_sparse(h.reshape(B * T, -1), p["router"], k)
         counts = np.bincount(top_i.reshape(-1).numpy(), minlength=E)
         log.append((B, T, int(np.maximum(counts - capacity, 0).sum())))
-        return real(h, p, k, capacity_factor)
+        return real(h, p, k, capacity_factor, comm=comm)
 
     monkeypatch.setattr(tmoe, "moe_dispatch", spy)
     return log
