@@ -134,23 +134,25 @@ Phases, each failing loudly (exit code != 0, no result line):
    f32 (TF32 off) equal routing and kept assignments and outputs within
    1e-4 of the largest; at bf16 equal routing where no tie lies within a
    bf16 step, outputs within 2^-6 of the largest. (b) mixtral-8x7b at
-   full width cut to 24 of its 32 layers (the bf16 model is 93.41 GB),
-   bf16 random seeded weights drawn on the card: params' device bytes
-   equal to the reckoned 70,185,263,104, the first prefill's logits
+   full width cut to 16 of its 32 layers (the bf16 model is 93.41 GB;
+   24 layers, 70.19 GB, fit too, and ran until the script's time had to
+   make room for phase 15), bf16 random seeded weights drawn on the
+   card: params' device bytes equal to the reckoned 46,964,940,800, the
+   first prefill's logits
    finite, the 12-request burst on the default engine (K1; then a traced
    decode window) and on the int8 + paged one (K4), each kernel
-   launching exactly 24 x decode steps, beside the step's weight-read
+   launching exactly 16 x decode steps, beside the step's weight-read
    bound. (c) The 8 inline greedy requests give the same tokens on a
-   paged bf16 engine (K3, 24 x decode steps launches) as on (b)'s
+   paged bf16 engine (K3, 16 x decode steps launches) as on (b)'s
    contiguous one, and every page ends free. (d) A 1-layer Mixtral-width
    checkpoint written by save_params and built by build_engine gives
    the in-memory tree bit for bit and the same greedy tokens.
 
 11. The operations layer, after phase 10 (every earlier weight freed),
-   on llama3-8b at full width cut to its first 16 of 32 layers
-   (OPS_LAYERS, to make room for phase 14) started from a checkpoint:
-   random seeded bf16 weights drawn on the card and written by
-   save_params (9,080,938,496 bytes; the phase fails unless the disk has
+   on llama3-8b at full width cut to its first 8 of 32 layers
+   (OPS_LAYERS, to make room for phases 14 and 15) started from a
+   checkpoint: random seeded bf16 weights drawn on the card and written
+   by save_params (5,591,146,496 bytes; the phase fails unless the disk has
    20 GB free), then read back from the page cache by build_engine with
    flight_events=4096 and watchdog_s=2.0. (a) Two cold starts as the
    runtime's bring-up makes them (a ColdStartTracker, backend_init begun,
@@ -248,7 +250,8 @@ Phases, each failing loudly (exit code != 0, no result line):
    tokens each, on a K1 engine and an int8 + paged K4 one (4 slots,
    max_seq 256) give tp = 1's tokens. (b) Every rank's kernel launches
    num_layers x its decode steps and no other, at H / tp heads over
-   Hkv / tp. (c) At tp = 2, llama3-8b at full depth in bf16: each rank's
+   Hkv / tp. (c) At tp = 2, llama3-8b cut to TP_BF16_LAYERS (16) of its
+   32 layers in bf16 (full depth until phase 15 needed the time): each rank's
    params exactly half the tree less the replicated norms, plus the
    norms; the 12-request burst, then a decode window of 8 greedy
    requests, through the leader: host and collective ms per decode step,
@@ -261,17 +264,43 @@ Phases, each failing loudly (exit code != 0, no result line):
    every rank's KV heads) and imported by a tp = 1 engine, continues with
    the tokens of its resident replay.
 
+15. Data and sequence parallelism, after phase 14, the ranks again
+   spawned processes of one gloo group sharing the card (every
+   collective and ring shift staged through host memory: correctness,
+   bytes and staging's cost, no multi-card speed). One spawn of four
+   ranks: (a) dp = 2 x tp = 2 over phase 14's f32 weights (llama3-8b
+   width, 4 layers): prefill and decode logits within 1e-3 of tp = 1,
+   and through LockstepEngine.submit() the 4 greedy prompts on K1 and on
+   K4 (a pool of 9 pages per shard) and an 8-turn script of six sessions
+   on four slots, in which session a resumes on the other shard, give
+   tp = 1's tokens; each rank holds 2 slots and launches num_layers x its
+   decode steps. (c) sp = 2 x tp = 2 on the same weights, a 4,000-token
+   prompt (bucket 4096 >= long_prefill_threshold 2048, max_seq 8192):
+   the ring prefill's logits within 1e-3 of the dense prefill's on the
+   same ranks, and its first token and 16 more equal to the sp = 1
+   engine's (a dp = 2 x tp = 2 engine on the same four ranks, slot 0's
+   shard being an sp = 1, tp = 2 engine), one ring prefill counted; then
+   at full depth in bf16 the ring prefill on the four ranks against the
+   dense one on ranks 0 and 1 (one sp replica, as the dense engine's
+   slot-0 shard runs it), timed, with the ring's shifts' bytes and ms, and the two
+   engines' tokens (printed, not required). A spawn of two ranks: (b) dp =
+   2, tp = 1, llama3-8b at full depth in bf16, each rank the whole tree and
+   4 of the 8 slots, the 12-request burst through the leader: params and
+   KV bytes per rank, peak memory, host ms per decode step, the dp token
+   gather's calls and ms per step and the prefills' broadcasts apart.
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
 for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
-11, ``train`` and ``embed`` lines for phase 13, each phase's seconds
+11, ``train`` and ``embed`` lines for phase 13, ``tp`` lines for phase
+14, ``dp``, ``sp`` and ``dp bf16`` lines for phase 15, each phase's seconds
 (``phase N took``) and the whole run's, a
 ``kernels`` JSON line (launches: each kernel's count over its
 engine's burst and session runs, phase 7's bursts for K1 and K4, phase
 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
 phase 10's runs for K1, K3 and K4, phase 11's runs for K1 and K4, and
 phase 12's ring runs for K1 and K4, phase 13's trained weights
-served on K1, and phase 14's runs on every rank for K1 and K4;
+served on K1, and phases 14's and 15's runs on every rank for K1 and K4;
 times at the llama3-8b decode shape, and at the llama3-70b one beside
 them), then the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.
@@ -396,13 +425,13 @@ STALL_SPEC_ARMS = {"both": STALL_SPEC, "mixed": dict(prefill_chunk_tokens=256),
 STALL_SPEC_GRAMMAR = dict(grammar=True, grammar_max_states=128)
 DECODERS, DECODE_TOKENS, DECODE_PROMPT, ARRIVAL_TOKENS = 6, 128, 100, 900
 REPEAT_SPAN, REPEATS, REPEAT_TOKENS = 48, 8, 96
-# Phase 10: Mixtral-8x7B at full width cut to 24 of its 32 layers (the
-# bf16 model is 93.41 GB; 24 layers hold 70.19 GB of the card's 80), the
+# Phase 10: Mixtral-8x7B at full width cut to 16 of its 32 layers (the
+# bf16 model is 93.41 GB; 16 layers hold 46.96 GB of the card's 80), the
 # checkpoint of the provider path cut to 1 layer, the rows of the
 # card-vs-CPU MoE check (all-expert and dispatch) and the mean of its
 # activations' features (with a positive router column 0, most rows rank
 # expert 0 first, so it overflows its capacity at 1024 rows).
-MOE_LAYERS, MOE_PARAM_BYTES = 24, 70_185_263_104
+MOE_LAYERS, MOE_PARAM_BYTES = 16, 46_964_940_800
 MOE_CKPT_LAYERS, MOE_CKPT_BYTES = 1, 3_426_836_480
 MOE_ROWS = (8, 1024)
 MOE_H_MEAN = 0.05
@@ -411,13 +440,13 @@ MOE_H_MEAN = 0.05
 # engine of the phase, the warmup threads of the two starts, the fault
 # plan (a hang twice the watchdog, two flaky submits), the bound on the
 # trip's lateness and the K1 engine's KV bytes the recovery reallocates.
-OPS_LAYERS, OPS_CKPT_BYTES = 16, 9_080_938_496
+OPS_LAYERS, OPS_CKPT_BYTES = 8, 5_591_146_496
 OPS_MIN_FREE_DISK = 20e9
 OPS = dict(flight_events=4096, watchdog_s=2.0)
 OPS_STARTS = (0, 2)
 OPS_FAULTS = dict(hang_dispatch_s=4.0, hang_count=1, flaky_submit=2)
 OPS_TRIP_LATE_S = 0.5
-OPS_KV_BYTES = 536_870_912
+OPS_KV_BYTES = 268_435_456
 # Phases 5-6, 8 and 9 serve the first 16 of llama3-8b's 32 layers (a view
 # of the full weights, which phase 12 serves whole): their checks hold per
 # layer, and the script's time has to make room for phases 12 and 14.
@@ -433,18 +462,38 @@ RING_EARLY_TOKENS = 4
 RING_DEADLINE_S = 0.25
 # Phase 14: tensor parallelism, ranks of one gloo group sharing the card.
 # (a), (b), (e): llama3-8b at full width cut to TP_LAYERS layers, f32, on
-# K1 and K4 engines of TP_ENGINE's shape at tp = 2 and 4; (c) full depth,
-# bf16, the 12-request burst at tp = 2; (d) mixtral-8x7b at full width cut
+# K1 and K4 engines of TP_ENGINE's shape at tp = 2 and 4; (c)
+# TP_BF16_LAYERS layers, bf16, the 12-request burst at tp = 2; (d) mixtral-8x7b at full width cut
 # to TP_MOE_LAYERS layers, f32, at tp = 2.
 TP_DEGREES = (2, 4)
 TP_MODEL, TP_MOE_MODEL, TP_DEVICE = "llama3-8b", "mixtral-8x7b", "cuda"
 TP_LAYERS, TP_MOE_LAYERS = 4, 2
 TP_SEED, TP_MOE_SEED, TP_BF16_SEED = 21, 22, 23
+TP_BF16_LAYERS = 16
 TP_ENGINE = dict(num_slots=4, max_seq=256, prefill_buckets=(32, 64, 128, 256),
                  dtype="float32", max_sessions=4)
 TP_EDITIONS = {"K1": dict(), "K4": dict(kv_quant="int8", kv_pages=17, kv_page_tokens=PAGE_S)}
 TP_PROMPT_LENGTHS, TP_NEW_TOKENS = (17, 64, 100, 200), 16
 TP_LOGIT_ROWS, TP_LOGITS_TOL = 32, 1e-3
+# Phase 15: data and sequence parallelism, ranks of one gloo group sharing
+# the card. (a) dp = 2 x tp = 2 and (c) sp = 2 x tp = 2 on one spawn of
+# four ranks over phase 14's f32 weights (TP_MODEL, TP_LAYERS, TP_SEED);
+# (b) dp = 2, tp = 1, bf16 at full depth, on a spawn of two. (c) then
+# takes full depth in bf16 for the ring's times.
+DP_ENGINE = dict(TP_ENGINE, max_sessions=8)
+DP_EDITIONS = {"K1": dict(), "K4": dict(kv_quant="int8", kv_pages=18, kv_page_tokens=PAGE_S)}
+# Six sessions on four slots: e and f page a and b out, and a's return
+# lands on c's slot, on the other dp shard.
+DP_TURNS = (("a", 40), ("b", 24), ("c", 33), ("d", 20), ("e", 28), ("f", 36), ("a", 9),
+            ("c", 12))
+DP_BF16_SEED = 24
+SP_PROMPT_TOKENS, SP_NEW_TOKENS = 4000, 16
+SP_ENGINE = dict(num_slots=2, max_seq=8192, prefill_buckets=(256, 4096), dtype="float32",
+                 long_prefill_threshold=2048, max_sessions=0)
+SP_TIMED_ROUNDS = 2
+# Four ranks at full depth in bf16 on one card: each rank's caching
+# allocator grows its segments instead of keeping freed ones apart.
+DPSP_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 
 
 def lap(label: str, t0: float) -> float:
@@ -2440,7 +2489,7 @@ def moe_provider_path(card: str) -> None:
 
 def mixtral(card: str) -> dict:
     """Phase 10: the MoE layer on the card against the CPU (a);
-    mixtral-8x7b at full width, 24 layers, bf16 random weights drawn on
+    mixtral-8x7b at full width, MOE_LAYERS layers, bf16 random weights drawn on
     the card, serving the burst on the default engine (K1) and the int8 +
     paged one (K4) (b); the paged bf16 engine's (K3) greedy tokens equal
     to the contiguous one's (c); the provider path (d). Returns each
@@ -3300,13 +3349,15 @@ def tp_requests(submit, drive, vocab: int, session: bool) -> dict:
     return out
 
 
-def tp_serve(label: str, engine, fn) -> tuple:
-    """A lockstep run on every rank: rank 0 calls fn(lock) and stops the
-    loop, the others replicate. Returns (rank 0's result, launches, decode
-    steps), counted on this rank (``checked_launches``: a failed count
-    exits the rank, and spawn_ranks reports it)."""
+def tp_serve(label: str, engine, fn, warm: bool = True) -> tuple:
+    """A lockstep run on every rank (after a warmup unless ``warm`` is
+    False): rank 0 calls fn(lock) and stops the loop, the others
+    replicate. Returns (rank 0's result, launches, decode steps), counted
+    on this rank (``checked_launches``: a failed count exits the rank, and
+    spawn_ranks reports it)."""
     lock = LockstepEngine(engine)
-    lock.warmup()
+    if warm:
+        lock.warmup()
 
     def run():
         if not lock.is_leader:
@@ -3373,12 +3424,12 @@ def tp_rank(rank: int, world: int) -> dict:
 
 
 def tp_bf16(rank: int, world: int, mesh) -> dict:
-    """(c): llama3-8b at full depth, bf16, tp = 2: the 12-request burst
+    """(c): llama3-8b, TP_BF16_LAYERS layers, bf16, tp = 2: the 12-request burst
     through the leader; this rank's params bytes, peak memory and the
     leader's host and collective ms per decode step. The collectives of
     decode steps (those inside ``_run_decode_step``, whose time the host
     ms include) are counted apart from the rest (prefill's)."""
-    cfg = get_config(TP_MODEL)
+    cfg = get_config(TP_MODEL, num_layers=TP_BF16_LAYERS)
     params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_BF16_SEED),
                                TP_DEVICE, dtype=torch.bfloat16, mesh=mesh)
     eng = InferenceEngine(cfg, EngineConfig(tp=world), params=params, device=TP_DEVICE)
@@ -3576,7 +3627,7 @@ def tensor_parallel(card: str) -> dict:
                          f"expected {r['params_bytes_expected']}")
                 launches["K1"] += r["launches"]
             print("tp bf16 " + json.dumps(dict(
-                card=card, tp=world, model=f"{TP_MODEL} bf16, full depth",
+                card=card, tp=world, model=f"{TP_MODEL} bf16, {TP_BF16_LAYERS} layers",
                 params_bytes_per_rank=[r["params_bytes"] for r in c],
                 params_bytes_expected=c[0]["params_bytes_expected"],
                 peak_bytes_per_rank=[r["peak_bytes"] for r in c],
@@ -3605,6 +3656,456 @@ def tensor_parallel(card: str) -> dict:
     del eng, ref
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 15 --------------------------------------------------------------
+
+def dp_turns(vocab: int) -> list:
+    """DP_TURNS as (session id, new tokens)."""
+    rng = np.random.default_rng(16)
+    return [(sid, [int(t) for t in rng.integers(0, vocab, n)]) for sid, n in DP_TURNS]
+
+
+def dp_script(submit, drive, vocab: int, owner=None) -> dict:
+    """(a)'s session script, turn by turn, each turn on its session's
+    history; with ``owner(sid)`` also the dp shard each turn sat on."""
+    sp = SamplingParams(temperature=0.0, max_tokens=TP_NEW_TOKENS)
+    history, replies, shards = {}, [], []
+    for sid, new in dp_turns(vocab):
+        prompt = history.get(sid, []) + new
+        h = submit(prompt, sp, sid)
+        drive()
+        reply = h.collect_tokens(timeout=600)[0]
+        history[sid] = prompt + reply
+        replies.append(reply)
+        if owner is not None:
+            shards.append(owner(sid))
+    return dict(replies=replies, shards=shards)
+
+
+def dp_forward(params, cfg, mesh, tokens: np.ndarray) -> np.ndarray:
+    """(a)'s forward: each dp shard's row of ``tokens`` prefilled into a
+    cache of its own, then one decode step; [prefill last row, decode]
+    logits of every row, gathered over tp and dp."""
+    tp, dp = mesh.comm("tp"), mesh.comm("dp")
+    row = torch.tensor(tokens[dp.index:dp.index + 1], device=TP_DEVICE)
+    T = row.shape[1]
+    ck, cv = llama.init_kv_cache(cfg, 1, 2 * T, TP_DEVICE, dtype=torch.float32, tp=tp.size)
+    with torch.no_grad():
+        lg, _, _ = llama.forward(params, cfg, row, torch.arange(T, device=TP_DEVICE)[None],
+                                 ck, cv, torch.zeros(1, dtype=torch.int32, device=TP_DEVICE), tp)
+        nxt = row[:, :1]
+        lg1, _, _ = llama.forward(params, cfg, nxt, torch.full((1, 1), T, device=TP_DEVICE),
+                                  ck, cv, torch.full((1,), T, dtype=torch.int32,
+                                                     device=TP_DEVICE), tp)
+        both = torch.cat([lg[:, -1:], lg1], dim=1)
+        both = dp.all_gather(llama.gather_logits(both, tp), dim=0)
+    return both.cpu().numpy()
+
+
+def dp_rows(vocab: int) -> np.ndarray:
+    """Two prompt rows of TP_LOGIT_ROWS tokens, one per dp shard."""
+    return np.array([p[:TP_LOGIT_ROWS] for p in tp_prompts(vocab)[-2:]], np.int64)
+
+
+def sp_prompt(vocab: int) -> list:
+    rng = np.random.default_rng(17)
+    return [int(t) for t in rng.integers(0, vocab, SP_PROMPT_TOKENS)]
+
+
+def sp_serve(label: str, engine, prompt: list, count_ring: bool, warm: bool = True) -> tuple:
+    """One greedy request of SP_NEW_TOKENS + 1 tokens (the first and 16
+    more) through the lockstep leader; returns ((tokens, ring prefills),
+    launches, decode steps); the tokens and the count are None on the
+    followers."""
+    calls = []
+    if count_ring:
+        ring = engine._prefill_ring_fn
+
+        def counted(*a):
+            calls.append(1)
+            return ring(*a)
+
+        engine._prefill_ring_fn = counted
+
+    def fn(lock):
+        calls.clear()    # warmup's ring task ran before
+        h = lock.submit(prompt, SamplingParams(temperature=0.0, max_tokens=SP_NEW_TOKENS + 1))
+        return h.collect_tokens(timeout=900)[0], len(calls)
+
+    return tp_serve(label, engine, fn, warm)
+
+
+def sp_logits_err(params, cfg, mesh, prompt: list) -> float:
+    """(c): the ring prefill's logits against the dense prefill's on the
+    same ranks, over this sp rank's rows: the largest difference."""
+    tp, sp = mesh.comm("tp"), mesh.comm("sp")
+    T = 4096
+    toks = torch.zeros((1, T), dtype=torch.int64, device=TP_DEVICE)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=TP_DEVICE)
+    pos = torch.arange(T, device=TP_DEVICE)[None]
+    with torch.no_grad():
+        ring, _, _ = llama.forward_prefill_ring(params, cfg, toks, pos, tp, sp)
+        lo, hi = llama.sp_rows(T, sp)
+        dense = llama.forward_prefill(params, cfg, toks, pos, tp)[0][:, lo:hi]
+        err = float((ring - dense).abs().max())
+    del ring, dense
+    torch.cuda.empty_cache()
+    return err
+
+
+def dpsp_rank(rank: int) -> dict:
+    """Phase 15 (a) and (c) on one rank of a four-rank gloo group
+    (spawned): dp = 2 x tp = 2, then sp = 2 x tp = 2, over phase 14's f32
+    weights cut to TP_LAYERS layers; then (c) at full depth in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": rank}
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    mesh = make_mesh(dp=2, tp=2)
+    gen = torch.Generator(device=TP_DEVICE)
+    params = llama.init_params(cfg, gen.manual_seed(TP_SEED), TP_DEVICE, dtype=torch.float32,
+                               mesh=mesh)
+    t0 = time.monotonic()
+
+    def note(what: str) -> None:
+        if rank == 0:
+            print(f"phase 15 rank 0 {what} at {time.monotonic() - t0:.1f}s", flush=True)
+
+    logits = dp_forward(params, cfg, mesh, dp_rows(cfg.vocab_size))
+    out["dp_logits"] = logits if rank == 0 else None
+    for label in DP_EDITIONS:
+        eng = InferenceEngine(cfg, EngineConfig(**DP_ENGINE, **DP_EDITIONS[label], dp=2, tp=2),
+                              params=params, device=TP_DEVICE)
+
+        def requests(lock, eng=eng, label=label):
+            res = tp_requests(tp_lock_submit(lock), lambda: None, cfg.vocab_size, False)
+            if label == "K1":
+                res["script"] = dp_script(tp_lock_submit(lock), lambda: None, cfg.vocab_size,
+                                          lambda sid: eng._dp.owner(eng._sessions[sid].slot))
+            return res
+
+        res, launches, steps = tp_serve(label, eng, lambda lock: requests(lock))
+        pages = eng._ck.pool.shape[1] if eng.cfg.kv_pages else None
+        out[label] = dict(res=res, launches=launches, steps=steps,
+                          local_slots=int(eng._tokens.shape[0]), local_pages=pages)
+        del eng
+        note(f"(a) {label}")
+    # (c): the same ranks as sp = 2 x tp = 2 (this rank's tp slice is the
+    # same: tp is the fastest axis of both meshes).
+    mesh = make_mesh(sp=2, tp=2)
+    prompt = sp_prompt(cfg.vocab_size)
+    out["sp_logits_err"] = sp_logits_err(params, cfg, mesh, prompt)
+    note("(c) f32 logits")
+    sp_runs = {}
+    for name, fields, ring in (("ring", dict(sp=2, tp=2), True),
+                               ("dense", dict(dp=2, tp=2), False)):
+        # "dense": slot 0's dp shard serves the prompt as an sp = 1, tp = 2
+        # engine on ranks 0 and 1.
+        eng = InferenceEngine(cfg, EngineConfig(**SP_ENGINE, **fields), params=params,
+                              device=TP_DEVICE)
+        # Unwarmed: (a)'s engines warmed every program family but the ring,
+        # which the CPU tests warm.
+        res, launches, steps = sp_serve("K1", eng, prompt, ring, warm=False)
+        toks, rings = res or (None, None)
+        sp_runs[name] = dict(tokens=toks, ring_prefills=rings, launches=launches, steps=steps)
+        del eng
+        note(f"(c) f32 {name} engine")
+    out["sp"] = sp_runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sp_bf16"] = sp_bf16(rank, mesh, prompt)
+    note("(c) bf16")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def sp_bf16(rank: int, mesh, prompt: list) -> dict:
+    """(c) at full depth in bf16: the sp engine's ring prefill (the ring
+    forward, the sp gather of its rows, the insert) on the four ranks
+    against its dense prefill of the same bucket on ranks 0 and 1 (one sp
+    replica), both timed with the card synchronized, SP_TIMED_ROUNDS
+    rounds after one untimed; the ring's
+    point-to-point shifts' bytes and host seconds; then the greedy tokens
+    of the ring engine and of a dense dp = 2 x tp = 2 engine (slot 0's
+    shard: sp = 1), compared and printed (bf16 need not agree)."""
+    cfg = get_config(TP_MODEL)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_BF16_SEED),
+                               TP_DEVICE, dtype=torch.bfloat16, mesh=mesh)
+    # One slot a rank (the dense engine's two over dp = 2): four ranks'
+    # weights, caches and 4096-row prefills share the card.
+    fields = dict(SP_ENGINE, dtype="bfloat16")
+    eng = InferenceEngine(cfg, EngineConfig(**dict(fields, num_slots=1), sp=2, tp=2),
+                          params=params, device=TP_DEVICE)
+    n, T = len(prompt), 4096
+    toks = torch.zeros((1, T), dtype=torch.int32, device=TP_DEVICE)
+    toks[0, :n] = torch.tensor(prompt, device=TP_DEVICE)
+    pos = torch.arange(T, dtype=torch.int32, device=TP_DEVICE)[None]
+    greedy = SamplingParams(temperature=0.0)
+    args = eng._sampler_args(0, greedy)
+
+    def ring():
+        last, k, v = eng._prefill_ring_fn(eng.params, toks, pos, n - 1)
+        return eng._insert_fn(eng._ck, eng._cv, k, v, 0, last, *args)[0]
+
+    def dense():
+        return eng._prefill_insert_fn(eng.params, eng._ck, eng._cv, toks, pos, 0, n - 1,
+                                      *args)[0]
+
+    shift = eng._sp.op_stats
+    times, first = {}, {}
+    for name, fn in (("ring", ring), ("dense", dense)):
+        torch.cuda.empty_cache()
+        if name == "dense" and eng._sp.index != 0:
+            # One sp replica's tp pair (ranks 0 and 1) runs the dense
+            # prefill, as the dense engine's slot-0 shard does; the other
+            # pair waits: four 4,096-row dense prefills at once do not fit
+            # the card beside four ranks' weights.
+            torch.distributed.barrier()
+            continue
+        first[name] = int(fn())
+        ms = []
+        s0 = dict(shift.get("shift", {"calls": 0, "bytes": 0, "seconds": 0.0}))
+        for _ in range(SP_TIMED_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        s1 = shift.get("shift", s0)
+        # Per prefill: the rounds' shifts over the rounds.
+        times[name] = dict(ms=ms, shift_calls=(s1["calls"] - s0["calls"]) // SP_TIMED_ROUNDS,
+                           shift_bytes=(s1["bytes"] - s0["bytes"]) // SP_TIMED_ROUNDS,
+                           shift_s=(s1["seconds"] - s0["seconds"]) / SP_TIMED_ROUNDS)
+        if name == "dense":
+            torch.distributed.barrier()
+    out = dict(times=times, first_token=first)
+    del eng
+    torch.cuda.empty_cache()
+    for name, extra, count in (("ring", dict(sp=2, tp=2, num_slots=1), True),
+                               ("dense", dict(dp=2, tp=2), False)):
+        eng = InferenceEngine(cfg, EngineConfig(**dict(fields, **extra)), params=params,
+                              device=TP_DEVICE)
+        # Unwarmed: the f32 run warmed these shapes' programs already.
+        res, launches, steps = sp_serve("K1", eng, prompt, count, warm=False)
+        tok, rings = res or (None, None)
+        out[name] = dict(tokens=tok, ring_prefills=rings, launches=launches, steps=steps)
+        del eng
+        torch.cuda.empty_cache()
+    out["params_bytes"] = tree_bytes(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_bf16_rank(rank: int) -> dict:
+    """Phase 15 (b) on one rank of a two-rank gloo group (spawned): dp = 2,
+    tp = 1, llama3-8b at full depth in bf16, each rank the whole tree and
+    half the slots; the 12-request burst through the leader. The dp
+    group's collectives inside decode steps (the token gather) are counted
+    apart from the rest (the prefills' first-token broadcasts)."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TP_MODEL)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(DP_BF16_SEED),
+                               TP_DEVICE, dtype=torch.bfloat16)
+    eng = InferenceEngine(cfg, EngineConfig(dp=2), params=params, device=TP_DEVICE)
+    dp = eng._dp.comm
+    dec = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    run_step = eng._run_decode_step
+
+    def decode_step(*args):
+        c = dict(dp.stats)
+        try:
+            return run_step(*args)
+        finally:
+            for k in dec:
+                dec[k] += dp.stats[k] - c[k]
+
+    eng._run_decode_step = decode_step
+
+    def run_burst(lock):
+        reqs = burst(cfg.vocab_size, 12)
+        m0, c0 = dict(eng.metrics), {op: dict(st) for op, st in dp.op_stats.items()}
+        d0 = dict(dec)
+        t0 = time.monotonic()
+        res = [h.collect_tokens(timeout=900) for h in [lock.submit(p, sp) for p, sp in reqs]]
+        wall = time.monotonic() - t0
+        steps = eng.metrics["decode_steps"] - m0["decode_steps"]
+        host = {k: eng.metrics[k] - m0[k] for k in ("decode_dispatch_s", "decode_sync_s")}
+        bad = [f.finish_reason for _, f in res
+               if f.finish_reason not in (FinishReason.LENGTH, FinishReason.STOP)]
+        if bad or res[0][0] != res[-1][0]:
+            raise RuntimeError(f"(b) burst ended {bad}, or its repeated greedy prompt "
+                               "gave other tokens")
+        ops = {op: {k: st[k] - c0.get(op, {}).get(k, 0) for k in st}
+               for op, st in dp.op_stats.items()}
+        gather = {k: dec[k] - d0[k] for k in dec}
+        return dict(requests=len(reqs), generated_tokens=sum(len(t) for t, _ in res),
+                    wall_s=wall, decode_steps=steps,
+                    host_ms_per_decode_step=wall_decode_ms(host, steps),
+                    gather_calls=gather["calls"], gather_bytes=gather["bytes"],
+                    gather_calls_per_step=gather["calls"] / max(steps, 1),
+                    gather_ms_per_step=gather["seconds"] / max(steps, 1) * 1e3,
+                    gather_share_of_host=gather["seconds"] / max(sum(host.values()), 1e-9),
+                    broadcast=ops.get("broadcast", {}))
+
+    res, launches, steps = tp_serve("K1", eng, lambda lock: run_burst(lock))
+    out = dict(rank=rank, params_bytes=tree_bytes(eng.params),
+               kv_bytes=eng.metrics["kv_quant_device_bytes"], local_slots=eng._dp.per,
+               launches=launches, steps=steps, peak_bytes=torch.cuda.max_memory_allocated(),
+               res=res)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_references() -> dict:
+    """The tp = 1 side of (a) on this process: phase 14's f32 weights
+    whole, the forward rows, the greedy prompts on K1 and K4, and the
+    session script on K1, stepped inline."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_SEED),
+                               TP_DEVICE, dtype=torch.float32)
+    rows = torch.tensor(dp_rows(cfg.vocab_size), device=TP_DEVICE)
+    T = rows.shape[1]
+    ck, cv = llama.init_kv_cache(cfg, 2, 2 * T, TP_DEVICE, dtype=torch.float32)
+    with torch.no_grad():
+        lg, _, _ = llama.forward(params, cfg, rows, torch.arange(T, device=TP_DEVICE)[None]
+                                 .expand(2, T), ck, cv,
+                                 torch.zeros(2, dtype=torch.int32, device=TP_DEVICE))
+        lg1, _, _ = llama.forward(params, cfg, rows[:, :1],
+                                  torch.full((2, 1), T, device=TP_DEVICE), ck, cv,
+                                  torch.full((2,), T, dtype=torch.int32, device=TP_DEVICE))
+    ref = {"logits": torch.cat([lg[:, -1:], lg1], dim=1).cpu().numpy()}
+    for label in DP_EDITIONS:
+        eng = InferenceEngine(cfg, EngineConfig(**DP_ENGINE, **DP_EDITIONS[label]),
+                              params=params, device=TP_DEVICE)
+        submit, drive = tp_inline(eng)
+        ref[label] = tp_requests(submit, drive, cfg.vocab_size, False)
+        if label == "K1":
+            ref["script"] = dp_script(submit, drive, cfg.vocab_size)
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def data_sequence_parallel(card: str) -> dict:
+    """Phase 15: dp and sp, each rank a spawned process of one gloo group
+    on the one card. Returns each kernel's launches over every rank's
+    counted runs."""
+    print("phase 15: the dp and sp ranks share one card, so their group is gloo; every "
+          "collective and every ring shift is staged through host memory, and the one card "
+          "shows correctness, bytes and what staging costs, no multi-card speed", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 15 card memory before the spawns: {free} of {total} bytes free; this process "
+          f"holds {torch.cuda.memory_allocated()} allocated, {torch.cuda.memory_reserved()} "
+          "reserved", flush=True)
+    t0 = time.monotonic()
+    ref = dp_references()
+    print(f"phase 15 tp=1 references {time.monotonic() - t0:.1f}s", flush=True)
+    cfg = get_config(TP_MODEL, num_layers=TP_LAYERS)
+    launches = {"K1": 0, "K4": 0}
+    t0 = time.monotonic()
+    try:
+        ranks = spawn_ranks(dpsp_rank, 4, backend="gloo", env=DPSP_ENV, timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 15 (a)/(c): {e}")
+    spawn_s = time.monotonic() - t0
+    err = float(np.abs(ranks[0]["dp_logits"] - ref["logits"]).max())
+    if not err <= TP_LOGITS_TOL:
+        fail(f"phase 15 (a): prefill and decode logits at dp=2 x tp=2 differ from tp=1 by {err}")
+    for label in DP_EDITIONS:
+        got = ranks[0][label]["res"]
+        if got["greedy"] != ref[label]["greedy"]:
+            fail(f"phase 15 (a) {label}: greedy tokens differ from tp=1: "
+                 f"{got['greedy']} vs {ref[label]['greedy']}")
+        for r in ranks:
+            if r[label]["local_slots"] != DP_ENGINE["num_slots"] // 2:
+                fail(f"phase 15 (a) {label}: a rank holds {r[label]['local_slots']} slots")
+            launches[label] += r[label]["launches"]
+    script = ranks[0]["K1"]["res"]["script"]
+    if script["replies"] != ref["script"]["replies"]:
+        fail(f"phase 15 (a): the session script differs from tp=1: {script['replies']} vs "
+             f"{ref['script']['replies']}")
+    first_a, again_a = 0, [i for i, (sid, _) in enumerate(DP_TURNS) if sid == "a"][1]
+    if script["shards"][first_a] == script["shards"][again_a]:
+        fail(f"phase 15 (a): session a did not move across shards ({script['shards']})")
+    k4_pages = ranks[0]["K4"]["local_pages"]
+    if k4_pages != DP_EDITIONS["K4"]["kv_pages"] // 2:
+        fail(f"phase 15 (a): a K4 rank's pool holds {k4_pages} pages")
+    print("dp " + json.dumps(dict(
+        card=card, dp=2, tp=2, model=f"{TP_MODEL} f32, {TP_LAYERS} layers",
+        spawn_and_run_s=spawn_s, logits_max_abs_err=err, logits_tolerance=TP_LOGITS_TOL,
+        greedy_tokens={k: sum(map(len, ref[k]["greedy"])) for k in DP_EDITIONS},
+        session_turn_shards=script["shards"], k4_pages_per_shard=k4_pages,
+        per_rank={label: [dict(launches=r[label]["launches"], decode_steps=r[label]["steps"],
+                               local_slots=r[label]["local_slots"]) for r in ranks]
+                  for label in DP_EDITIONS},
+        peak_bytes=[r["peak_bytes"] for r in ranks])), flush=True)
+    # (c) f32: the ring against the dense engine on the same ranks.
+    sp_err = max(r["sp_logits_err"] for r in ranks)
+    if not sp_err <= TP_LOGITS_TOL:
+        fail(f"phase 15 (c): ring prefill logits differ from the dense prefill's by {sp_err}")
+    runs = ranks[0]["sp"]
+    if runs["ring"]["tokens"] != runs["dense"]["tokens"]:
+        fail(f"phase 15 (c): the ring engine's tokens {runs['ring']['tokens']} differ from the "
+             f"sp=1, tp=2 engine's {runs['dense']['tokens']}")
+    if runs["ring"]["ring_prefills"] != 1:
+        fail(f"phase 15 (c): {runs['ring']['ring_prefills']} ring prefills for one prompt")
+    for r in ranks:
+        for name in ("ring", "dense"):
+            launches["K1"] += r["sp"][name]["launches"] + r["sp_bf16"][name]["launches"]
+    b = [r["sp_bf16"] for r in ranks]
+    print("sp " + json.dumps(dict(
+        card=card, sp=2, tp=2, prompt_tokens=SP_PROMPT_TOKENS, bucket=4096,
+        f32=dict(model=f"{TP_MODEL} f32, {TP_LAYERS} layers", logits_max_abs_err=sp_err,
+                 logits_tolerance=TP_LOGITS_TOL, tokens_equal=True,
+                 new_tokens=len(runs["ring"]["tokens"])),
+        bf16=dict(model=f"{TP_MODEL} bf16, full depth",
+                  params_bytes_per_rank=[x["params_bytes"] for x in b],
+                  prefill_ms_per_rank={name: [x["times"][name]["ms"] for x in b
+                                              if name in x["times"]]
+                                       for name in ("ring", "dense")},
+                  ring_shifts_per_prefill=b[0]["times"]["ring"]["shift_calls"],
+                  ring_shift_bytes_per_prefill=b[0]["times"]["ring"]["shift_bytes"],
+                  ring_shift_ms_per_prefill=[x["times"]["ring"]["shift_s"] * 1e3 for x in b],
+                  first_token=b[0]["first_token"],
+                  tokens_agree=b[0]["ring"]["tokens"] == b[0]["dense"]["tokens"],
+                  ring_tokens=b[0]["ring"]["tokens"], dense_tokens=b[0]["dense"]["tokens"]),
+        peak_bytes=[r["peak_bytes"] for r in ranks])), flush=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b): dp = 2 alone, bf16 at full depth.
+    t0 = time.monotonic()
+    try:
+        ranks = spawn_ranks(dp_bf16_rank, 2, backend="gloo", env=DPSP_ENV, timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 15 (b): {e}")
+    cfg = get_config(TP_MODEL)
+    for r in ranks:
+        if r["params_bytes"] != 2 * cfg.num_params():
+            fail(f"phase 15 (b): a rank holds {r['params_bytes']} params bytes, not the whole "
+                 f"tree's {2 * cfg.num_params()}")
+        launches["K1"] += r["launches"]
+    print("dp bf16 " + json.dumps(dict(
+        card=card, dp=2, tp=1, model=f"{TP_MODEL} bf16, full depth",
+        spawn_and_run_s=time.monotonic() - t0,
+        params_bytes_per_rank=[r["params_bytes"] for r in ranks],
+        kv_bytes_per_rank=[r["kv_bytes"] for r in ranks],
+        local_slots=[r["local_slots"] for r in ranks],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+        launches_per_rank=[r["launches"] for r in ranks],
+        burst=ranks[0]["res"])), flush=True)
     return launches
 
 
@@ -3683,8 +4184,11 @@ def main() -> None:
     t = lap("phase 13", t)
     for label, n in tensor_parallel(card).items():
         launches[label] += n
-    lap("phase 14", t)
-    lap("phases 1-14", t_script)
+    t = lap("phase 14", t)
+    for label, n in data_sequence_parallel(card).items():
+        launches[label] += n
+    lap("phase 15", t)
+    lap("phases 1-15", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
     main_case, case_70b = cases[0], cases[4]
     entries = []

@@ -43,6 +43,14 @@ or int8; the weights in the model's dtype or int8, ``EngineConfig.quant``).
   all-done early-out), replayed on the card as one captured CUDA graph
   per chunk size (``graphs.py``), with each chunk's read started on the
   drainer thread at dispatch while the ring's self-gate allows it.
+- **Data and sequence parallelism** (``dp``, ``sp``, with ``tp``: one
+  process per rank of a ``dp x sp x tp`` job): each dp shard holds its
+  block of the slots, their caches and their share of the prefix pool
+  and page pool, and runs its slots' programs; every rank keeps the whole
+  host books (``dataparallel.py``). A fresh prompt whose bucket reaches
+  ``long_prefill_threshold`` prefills as ring attention split over the
+  sp ranks (``parallel/ring_attention.py``); the caches are replicated
+  over sp, and decode holds no sp collective.
 - **Everything stays on the device.** Sampled tokens feed the next step
   as device tensors; only each chunk's int32 ``[K, num_slots]`` tokens
   cross to the host, for streaming and stop logic.
@@ -72,12 +80,17 @@ import torch.distributed as dist
 
 from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.engine.coldstart import PHASE_CODES, ColdStartTracker, build_cache_dir
+from omnia_tpu_torch.engine.dataparallel import SlotShards, _DataParallelMixin
 from omnia_tpu_torch.engine.devloop import DevLoopState, validate_decode_ring
 from omnia_tpu_torch.engine.faults import FaultPlan
 from omnia_tpu_torch.engine.flight import FlightRecorder
 from omnia_tpu_torch.engine.interleave import _InflightPrefill, _InterleaveMixin
 from omnia_tpu_torch.engine.lifecycle import _LifecycleMixin
-from omnia_tpu_torch.engine.paged import _PagedKVMixin, validate_paged_config
+from omnia_tpu_torch.engine.paged import (
+    _PagedKVMixin,
+    dp_divisibility_error,
+    validate_paged_config,
+)
 from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
 from omnia_tpu_torch.engine.graphs import RingGraphs
 from omnia_tpu_torch.engine.placement import _PlacementMixin
@@ -105,56 +118,52 @@ from omnia_tpu_torch.parallel.sharding import shard_pytree
 
 logger = logging.getLogger(__name__)
 
-# Knobs this port does not implement yet: (field, ROADMAP item). Set
-# away from its default, each one is refused at construction.
-_UNPORTED_KNOBS = (("dp", "A13"), ("sp", "A13"))
-
-
-def _refuse_unported(ecfg: EngineConfig) -> None:
-    default = EngineConfig()
-    for field, item in _UNPORTED_KNOBS:
-        value = getattr(ecfg, field)
-        if value != getattr(default, field):
-            raise ValueError(
-                f"EngineConfig.{field}={value!r} is not ported to "
-                f"omnia_tpu_torch yet (ROADMAP {item})"
-            )
-
-
-def validate_tp(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
-    """Refuse a tensor-parallel engine that cannot run: the ring under tp
-    (ROADMAP A16), a degree that does not divide what it splits (the JAX
+def validate_parallel(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
+    """Refuse a parallel engine that cannot run: a degree below 1; the
+    ring under any degree above 1 (ROADMAP A16); a dp that does not
+    divide the slots or the prefix pool (the JAX engine's checks and
+    messages); a tp that does not divide what it splits (the JAX
     package's "tp divides num_kv_heads", and the heads, FFN or experts
-    and vocabulary), or a job that is not ``tp`` ranks of one process
-    group (``parallel/distributed.py``)."""
-    tp = ecfg.tp
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp == 1:
+    and vocabulary); or a job that is not ``dp * sp * tp`` ranks of one
+    process group (``parallel/distributed.py``)."""
+    degrees = {"dp": ecfg.dp, "sp": ecfg.sp, "tp": ecfg.tp}
+    for name, n in degrees.items():
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    if ecfg.num_slots % ecfg.dp != 0:
+        raise ValueError("num_slots must be divisible by dp")
+    n = ecfg.dp * ecfg.sp * ecfg.tp
+    if n == 1:
         return
+    label = ", ".join(f"{k}={v}" for k, v in degrees.items() if v > 1)
     if ecfg.decode_ring >= 2:
         raise ValueError(
-            f"decode_ring={ecfg.decode_ring} with tp={tp}: the ring's CUDA graph "
-            "cannot capture a gloo collective, and capturing NCCL collectives "
-            "needs more than one card (ROADMAP A16)")
+            f"decode_ring={ecfg.decode_ring} with {label}: the ring's CUDA graph "
+            "cannot capture a gloo collective (the tp reductions, the dp token "
+            "gather), and capturing NCCL collectives needs more than one card "
+            "(ROADMAP A16)")
+    if ecfg.prefix_cache_slots % ecfg.dp != 0:
+        raise ValueError(dp_divisibility_error("prefix_cache_slots",
+                                               ecfg.prefix_cache_slots, ecfg.dp))
+    tp = ecfg.tp
     split = {"num_kv_heads": mcfg.num_kv_heads, "num_heads": mcfg.num_heads,
              "vocab_size": mcfg.vocab_size}
     split.update({"num_experts": mcfg.num_experts} if mcfg.is_moe
                  else {"ffn_hidden_size": mcfg.ffn_hidden_size})
-    for name, n in split.items():
-        if n % tp:
-            raise ValueError(f"tp={tp} must divide {name}={n}")
+    for name, size in split.items():
+        if size % tp:
+            raise ValueError(f"tp={tp} must divide {name}={size}")
     world = dist.get_world_size() if dist.is_initialized() else None
-    if world != tp:
+    if world != n:
         raise ValueError(
-            f"EngineConfig.tp={tp} needs a torch.distributed process group of {tp} "
+            f"EngineConfig.{label} needs a torch.distributed process group of {n} "
             f"ranks, one engine per rank (omnia_tpu_torch.parallel.distributed); "
             f"have {'none' if world is None else world}")
 
 
 class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _SessionMixin,
                       _PrefixCacheMixin, _PlacementMixin, _PagedKVMixin, _LifecycleMixin,
-                      _WarmupMixin):
+                      _WarmupMixin, _DataParallelMixin):
     """Slot-based continuous-batching engine over one model."""
 
     def __init__(self, model_cfg: ModelConfig,
@@ -171,14 +180,25 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # The enum class final events carry; any enum with the same
         # values (the JAX package's FinishReason) may be passed.
         self._finish_reasons = finish_reasons or FinishReason
-        _refuse_unported(engine_cfg)
         validate_decode_ring(engine_cfg)
-        validate_tp(engine_cfg, model_cfg)
-        # Tensor parallelism: this rank's view of the tp mesh and the
-        # axis's Comm, which every forward and sampler takes (None at
-        # tp = 1: no collective anywhere).
-        self._mesh = make_mesh(tp=engine_cfg.tp) if engine_cfg.tp > 1 else None
-        self._tp = self._mesh.comm("tp") if self._mesh is not None else None
+        validate_paged_config(engine_cfg)
+        validate_parallel(engine_cfg, model_cfg)
+        # This rank's view of the dp x sp x tp mesh (None with every degree
+        # 1) and its axes' Comms: tp's every forward and sampler takes, sp's
+        # the ring prefill, dp's the slot shards' moves (each None at
+        # degree 1: no collective there).
+        mesh = None
+        if engine_cfg.dp * engine_cfg.sp * engine_cfg.tp > 1:
+            mesh = make_mesh(dp=engine_cfg.dp, sp=engine_cfg.sp, tp=engine_cfg.tp)
+        self._mesh = mesh
+        self._tp = mesh.comm("tp") if mesh is not None else None
+        self._sp = mesh.comm("sp") if mesh is not None else None
+        dp_index = mesh.index("dp") if mesh is not None else 0
+        dp_comm = mesh.comm("dp") if mesh is not None else None
+        self._dp = SlotShards(engine_cfg.num_slots, engine_cfg.dp, dp_index, dp_comm)
+        # A contiguous prefix pool's entries split over dp the same way.
+        self._dp_pool = SlotShards(engine_cfg.prefix_cache_slots, engine_cfg.dp, dp_index,
+                                   dp_comm)
         if engine_cfg.warmup_threads < 0:
             raise ValueError("warmup_threads must be >= 0")
         self._gr_on = bool(engine_cfg.grammar)
@@ -188,7 +208,6 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             raise ValueError("engine max_seq exceeds model max_seq_len")
         self._dtype = resolve_dtype(engine_cfg.dtype)
         self._kv_quant = validate_kv_quant(engine_cfg.kv_quant)
-        validate_paged_config(engine_cfg)
         validate_spec_config(engine_cfg)
         self._seed = seed
         self.clock = time.monotonic
@@ -214,8 +233,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # Fault injection (faults.py); None outside tests and smoke runs.
         self._fault_plan: Optional[FaultPlan] = None
 
-        progs = build_programs(model_cfg, engine_cfg, self._tp)
+        progs = build_programs(model_cfg, engine_cfg, self._tp, self._sp)
         self._prefill_insert_fn = progs.prefill_insert
+        # The ring prefill and its insert (sp > 1, else None).
+        self._prefill_ring_fn = progs.prefill_ring
+        self._insert_fn = progs.insert
         self._decode_fns = progs.decode_fns
         self._step_fn = progs.step
         # The captured ring chunks (graphs.py): on the card with the ring
@@ -426,14 +448,14 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         also the loader overlap's scratch state. Touches no books."""
         if self.cfg.kv_pages > 0:
             return self._alloc_paged_kv()
-        return llama.init_kv_cache(self.model_cfg, self.cfg.num_slots, self.cfg.max_seq,
+        return llama.init_kv_cache(self.model_cfg, self._dp.per, self.cfg.max_seq,
                                    self.device, dtype=self._dtype, kv_quant=self._kv_quant,
                                    tp=self.cfg.tp)
 
     def _init_device_state(self):
         """(Re)allocate the KV caches (and the page books) and per-slot
-        device state."""
-        B, dev = self.cfg.num_slots, self.device
+        device state, at this dp shard's slots (all of them at dp = 1)."""
+        B, dev = self._dp.per, self.device
         if self._ring_graphs is not None:
             # The old graphs point at the state about to be freed: let
             # their last replay finish, then drop them.
@@ -451,7 +473,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
                 # device entries died with the old one, host-tier entries
                 # survive.
                 self._pk, self._pv = llama.init_kv_cache(
-                    self.model_cfg, self.cfg.prefix_cache_slots,
+                    self.model_cfg, self._dp_pool.per,
                     self.cfg.prefix_buckets()[-1], dev, dtype=self._dtype,
                     kv_quant=self._kv_quant, tp=self.cfg.tp,
                 )
@@ -476,8 +498,8 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             self._gactive = torch.zeros(B, dtype=torch.bool, device=dev)
             self._gbias_zero = torch.zeros(V, dtype=torch.float32, device=dev)
             # What each slot's table rows hold, so that placing the same
-            # grammar again skips the upload.
-            self._gslot_key = [None] * B
+            # grammar again skips the upload: host books, every slot's.
+            self._gslot_key = [None] * self.cfg.num_slots
         self._tokens = torch.zeros(B, dtype=torch.int32, device=dev)
         self._positions = torch.zeros(B, dtype=torch.int32, device=dev)  # next write row
         self._temp = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -487,8 +509,10 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
         self._stop_ids = torch.full((B, MAX_DEVICE_STOP_IDS), -1,
                                     dtype=torch.int32, device=dev)
+        # Each slot's sampler key from its global index, as the JAX engine
+        # seeds its whole batch.
         self._key_data = torch.stack(
-            [make_slot_key_data(self._seed + 1 + i, dev) for i in range(B)]
+            [make_slot_key_data(self._seed + 1 + i, dev) for i in range(self._dp.lo, self._dp.hi)]
         )
         # The ring's per-slot grammar EOS (-1 = none): only the ring's
         # grammar edition reads it.

@@ -201,7 +201,9 @@ class _InterleaveMixin:
         # Park the placing slot's frozen decode row at the piece's end:
         # the piece is written first, so the decode half's garbage lands
         # at the new frontier.
-        self._positions[pf.slot_idx] = off + take
+        li = self._dp.local(pf.slot_idx)
+        if li is not None:
+            self._positions[li] = off + take
         # Paged pool: owned pages through the piece's bucket end for the
         # placing slot, and one decode row for every active slot.
         self._prepare_slot_write(pf.slot_idx, off, min(off + bucket, self.cfg.max_seq))
@@ -215,15 +217,23 @@ class _InterleaveMixin:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :take] = pf.prompt[off:off + take]
         ppos = (off + np.arange(bucket, dtype=np.int32))[None, :]
-        args = (self.params, self._ck, self._cv, self._tokens, self._positions, self._active,
-                self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
-                self._top_k, torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(ppos).to(self.device), pf.slot_idx,
-                self._scalar(off, torch.int32))
+        decode = (self.params, self._ck, self._cv, self._tokens, self._positions, self._active,
+                  self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
+                  self._top_k)
+        args = decode + (torch.from_numpy(toks).to(self.device),
+                         torch.from_numpy(ppos).to(self.device), li,
+                         self._scalar(off, torch.int32))
         gargs = (self._gstate, self._gtable, self._gactive) if self._gr_on else ()
         t_dispatch = time.monotonic()
         first_tok = new_pkd = greedy = None
-        if final:
+        if li is None:
+            # Another dp shard places: this shard takes the step's decode
+            # half alone (the verify window with it when speculating).
+            if plan is not None:
+                out = self._verify_decode_fn(*decode, *spec_args, *gargs)
+            else:
+                out = self._decode_fns[1](*decode, *gargs)
+        elif final:
             sp = pf.request.params
             out = mixed_sample_fns[bucket](*args, *spec_args, take - 1,
                                            *self._sampler_args(pf.slot_idx, sp),
@@ -231,12 +241,14 @@ class _InterleaveMixin:
         else:
             out = mixed_fns[bucket](*args, *spec_args, *gargs)
         if plan is not None:
-            greedy, out = out[-1], out[:-1]
-        if final:
+            greedy, out = self._dp.gather(out[-1], dim=0), out[:-1]
+        if final and li is not None:
             first_tok, new_pkd = out[-2:]
             out = out[:-2]
         self._adopt_decode_state(out)
-        dtoks = out[-1]
+        dtoks = self._dp.gather(out[-1], dim=1)
+        if final:
+            first_tok = self._first_token(first_tok, pf.slot_idx)
         dispatch_s = time.monotonic() - t_dispatch
         self.metrics["decode_dispatch_s"] += dispatch_s
         self.metrics["decode_steps"] += 1
@@ -277,7 +289,8 @@ class _InterleaveMixin:
         # shared the prefix pages).
         self._trim_slot_pages(slot_idx, len(prompt))
         self.metrics["prefill_steps"] += 1
-        self._key_data[slot_idx] = new_pkd
+        if new_pkd is not None:
+            self._key_data[self._dp.local(slot_idx)] = new_pkd
         self._prefilling = None
         with self._lock:
             self._placing -= 1
@@ -307,7 +320,8 @@ class _InterleaveMixin:
         slot.clear()
         # Paged pool: only the pages below the consumed frontier stay.
         self._trim_slot_pages(pf.slot_idx, quiesce_row)
-        self._positions[pf.slot_idx] = quiesce_row
+        if self._dp.local(pf.slot_idx) is not None:
+            self._positions[self._dp.local(pf.slot_idx)] = quiesce_row
         with self._lock:
             self._placing -= 1
 

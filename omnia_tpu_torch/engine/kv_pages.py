@@ -22,6 +22,13 @@ Conventions:
   write start that must survive).
 - ``covered[slot]`` is the dispatched-write high-water mark in rows —
   the baseline the decode pre-allocation extends from.
+- Under data parallelism (``shards`` > 1, the engine's dp) the page ids
+  split into one block of ``num_pages // shards`` per dp shard, each
+  with its own trash page (its first) and its own free list, and a slot
+  gets pages only from its own shard's block (slot ``i`` belongs to shard
+  ``i // (num_slots // shards)``). Page ids stay global in the books; a
+  shard's device pool holds its block, at ``pid - base(slot)``. With one
+  shard this is the JAX package's allocator, decision for decision.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ class PageAllocator:
     """One free list over the device page pool. Engine-thread-owned
     (same discipline as the session registry): no locking here."""
 
-    def __init__(self, num_pages: int, page_tokens: int, num_slots: int):
+    def __init__(self, num_pages: int, page_tokens: int, num_slots: int, shards: int = 1):
         if num_pages < 2:
             raise ValueError(
                 f"kv_pages={num_pages} must be >= 2 (page 0 is the reserved "
@@ -47,10 +54,15 @@ class PageAllocator:
             raise ValueError(f"kv_page_tokens={page_tokens} must be >= 1")
         self.num_pages = num_pages
         self.page_tokens = page_tokens
-        # LIFO free list, seeded so the first allocations hand out pages
-        # 1, 2, 3, … — deterministic across replicas replaying one event
-        # stream (multi-host lockstep).
-        self._free = list(range(num_pages - 1, 0, -1))
+        self.shards = shards
+        self.shard_pages = num_pages // shards
+        self._shard_slots = num_slots // shards
+        # LIFO free lists, one per shard, each seeded so the first
+        # allocations hand out the shard's pages base + 1, base + 2, … —
+        # deterministic across replicas replaying one event stream
+        # (multi-host lockstep).
+        self._frees = [list(range((s + 1) * self.shard_pages - 1, s * self.shard_pages, -1))
+                       for s in range(shards)]
         self.refs: dict[int, int] = {}
         self.slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
         self.covered = [0] * num_slots
@@ -60,12 +72,31 @@ class PageAllocator:
 
     @property
     def total(self) -> int:
-        """Usable pages (the reserved trash page excluded)."""
-        return self.num_pages - 1
+        """Usable pages (the reserved trash pages excluded)."""
+        return self.num_pages - self.shards
 
     @property
     def free_count(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._frees)
+
+    @property
+    def _free(self) -> list[int]:
+        """Every free page, shard by shard."""
+        return [pid for free in self._frees for pid in free]
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self._shard_slots
+
+    def base(self, slot: int) -> int:
+        """The first page id of the slot's shard: its trash page."""
+        return self.shard_of(slot) * self.shard_pages
+
+    def page_shard(self, pid: int) -> int:
+        return pid // self.shard_pages
+
+    def free_for(self, slot: int) -> int:
+        """Free pages the slot can take: its shard's."""
+        return len(self._frees[self.shard_of(slot)])
 
     def fragmentation(self) -> float:
         """Internal slack of slot-referenced pages: 1 - (covered rows /
@@ -81,13 +112,14 @@ class PageAllocator:
 
     # -- allocation core ------------------------------------------------
 
-    def _alloc(self) -> int:
-        if not self._free:
+    def _alloc(self, shard: int = 0) -> int:
+        free = self._frees[shard]
+        if not free:
             raise PoolExhausted(
                 f"kv page pool exhausted: all {self.total} pages of "
                 f"{self.page_tokens} tokens are referenced"
             )
-        pid = self._free.pop()
+        pid = free.pop()
         self.refs[pid] = 1
         return pid
 
@@ -95,13 +127,14 @@ class PageAllocator:
         r = self.refs.get(pid, 0)
         if r <= 1:
             self.refs.pop(pid, None)
-            self._free.append(pid)
+            self._frees[self.page_shard(pid)].append(pid)
         else:
             self.refs[pid] = r - 1
 
-    def alloc_pages(self, n: int) -> list[int]:
-        """n fresh exclusive pages (refs=1 each, owned by the caller)."""
-        return [self._alloc() for _ in range(n)]
+    def alloc_pages(self, n: int, shard: int = 0) -> list[int]:
+        """n fresh exclusive pages of a shard (refs=1 each, owned by the
+        caller)."""
+        return [self._alloc(shard) for _ in range(n)]
 
     def release_pages(self, pages: list[int]) -> None:
         """Drop one reference from each page (prefix-entry drop/demote)."""
@@ -145,10 +178,11 @@ class PageAllocator:
             return actions
         ps = self.page_tokens
         pages = self.slot_pages[slot]
+        shard = self.shard_of(slot)
         for pos in range(from_row // ps, (through_row - 1) // ps + 1):
             if pos < len(pages) and self.refs.get(pages[pos], 0) == 1:
                 continue  # already exclusive
-            new = self._alloc()
+            new = self._alloc(shard)
             copy_src = None
             if pos < len(pages):
                 old = pages[pos]
@@ -159,7 +193,7 @@ class PageAllocator:
                 pages[pos] = new
             else:
                 while len(pages) < pos:  # defensive: gaps never occur
-                    pages.append(self._alloc())
+                    pages.append(self._alloc(shard))
                 pages.append(new)
             actions.append((pos, new, copy_src))
         self.covered[slot] = max(self.covered[slot], through_row)
@@ -205,7 +239,8 @@ class PageAllocator:
         self.covered[slot] = covered_rows
 
     def table_row(self, slot: int, num_positions: int) -> list[int]:
-        """The slot's full table row, TRASH-padded — always written
-        whole so the device update is one fixed-shape scatter."""
+        """The slot's full table row, padded with its shard's trash page —
+        always written whole so the device update is one fixed-shape
+        scatter."""
         pages = self.slot_pages[slot]
-        return pages + [TRASH] * (num_positions - len(pages))
+        return pages + [self.base(slot) + TRASH] * (num_positions - len(pages))

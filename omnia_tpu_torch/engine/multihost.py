@@ -1,9 +1,11 @@
 """Lockstep serving: one engine per rank, every rank stepping the same
 stream (port of ``omnia_tpu/engine/multihost.py``).
 
-A tensor-parallel engine (``EngineConfig.tp > 1``) is one process per
-rank, and every step it runs holds collectives: all ranks must run the
-SAME step sequence or the collectives deadlock. As in the JAX package,
+A parallel engine (``EngineConfig`` dp, sp or tp above 1) is one process
+per rank of a ``dp x sp x tp`` job, and its steps hold collectives (the
+tp reductions, the dp token gather and first-token broadcasts, the sp
+ring): all ranks must run the SAME step sequence or the collectives
+deadlock. As in the JAX package,
 every rank runs identical host control flow on identical inputs:
 
 - Every rank builds the same InferenceEngine over its slice of the model.

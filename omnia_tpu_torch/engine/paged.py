@@ -28,6 +28,15 @@ finished slot's pages to another slot while chunks that still wrote the
 finished slot's frozen row are in flight. A copy-on-write page copy is
 enqueued before the table row that points at the copy, and both before
 the write, all on the one stream.
+
+Under data parallelism (``dp``) each dp shard's rank holds ``kv_pages //
+dp`` pages, its own trash page first, and a table row per slot of its
+own; the books (``PageAllocator(shards=dp)``) stay whole on every rank
+and give a slot only pages of its shard, so only the slot's owner
+touches the device. A prefix entry's page run lives on the shard that
+published it: a slot of another shard that maps it gets a copy in fresh
+pages of its own (copy-on-map: gathered by the entry's shard, broadcast
+over dp, scattered by the slot's), never a read across ranks.
 """
 
 from __future__ import annotations
@@ -45,9 +54,22 @@ from omnia_tpu_torch.models.paged_kv import PagedKV
 logger = logging.getLogger(__name__)
 
 
+def dp_divisibility_error(name: str, value: int, dp: int) -> str:
+    """The pool-vs-mesh divisibility message (the JAX package's): the
+    offending values and the nearest valid sizes."""
+    lo = (value // dp) * dp
+    hi = lo + dp
+    near = f"{lo} or {hi}" if lo > 0 else f"{hi}"
+    return (
+        f"{name}={value} must be divisible by dp={dp} so each "
+        f"data-parallel shard holds an equal share of the pool; "
+        f"nearest valid sizes: {near}"
+    )
+
+
 def validate_paged_config(cfg) -> None:
     """Construction-time validation of the kv_pages knobs (the JAX
-    package's checks and messages; the mesh check waits for dp)."""
+    package's checks and messages)."""
     if cfg.kv_pages <= 0:
         return
     if cfg.kv_pages < 2:
@@ -64,6 +86,13 @@ def validate_paged_config(cfg) -> None:
             f"[num_slots, max_seq/kv_page_tokens]); valid sizes include "
             f"{divisors or [cfg.max_seq]}"
         )
+    if cfg.kv_pages % max(cfg.dp, 1) != 0:
+        raise ValueError(dp_divisibility_error("kv_pages", cfg.kv_pages, cfg.dp))
+    if cfg.dp > 1 and cfg.kv_pages // cfg.dp < 2:
+        raise ValueError(
+            f"kv_pages={cfg.kv_pages} over dp={cfg.dp} leaves a shard "
+            f"{cfg.kv_pages // cfg.dp} pages: each shard's first is its trash "
+            f"page, so every shard needs >= 2")
 
 
 class _PagedKVMixin:
@@ -74,13 +103,14 @@ class _PagedKVMixin:
     # -- device state ----------------------------------------------------
 
     def _alloc_paged_kv(self):
-        """Fresh (ck, cv) PagedKV pair: pools and one all-trash table."""
+        """Fresh (ck, cv) PagedKV pair: this dp shard's pool and one
+        all-trash table over its slots."""
         cfg = self.cfg
         pool_k, pool_v = llama.init_kv_cache(
-            self.model_cfg, cfg.kv_pages, cfg.kv_page_tokens, self.device,
+            self.model_cfg, cfg.kv_pages // cfg.dp, cfg.kv_page_tokens, self.device,
             dtype=self._dtype, kv_quant=self._kv_quant, tp=cfg.tp,
         )
-        table = torch.zeros((cfg.num_slots, cfg.num_page_positions()),
+        table = torch.zeros((self._dp.per, cfg.num_page_positions()),
                             dtype=torch.int32, device=self.device)
         return PagedKV(pool_k, table), PagedKV(pool_v, table)
 
@@ -90,7 +120,8 @@ class _PagedKVMixin:
         cfg = self.cfg
         self._ck, self._cv = self._alloc_paged_kv()
         self._pk = self._pv = None  # the prefix pool shares this pool
-        self._pages = PageAllocator(cfg.kv_pages, cfg.kv_page_tokens, cfg.num_slots)
+        self._pages = PageAllocator(cfg.kv_pages, cfg.kv_page_tokens, cfg.num_slots,
+                                    shards=cfg.dp)
         if self._prefix_pool is not None:
             # Device page runs died with the pool; host-tier entries
             # survive.
@@ -104,17 +135,25 @@ class _PagedKVMixin:
             self.metrics["prefix_cache_evictions"] = self._prefix_pool.evictions
         self._update_page_metrics()
 
+    def _local_pages(self, pages: list[int]) -> list[int]:
+        """Page ids in their shard's device pool."""
+        return [p % self._pages.shard_pages for p in pages]
+
     def _sync_table_row(self, slot_idx: int) -> None:
         """Write one slot's whole TRASH-padded table row to the device,
-        stream-ordered and without waiting (a pinned staging row)."""
+        stream-ordered and without waiting (a pinned staging row); on the
+        slot's dp shard only, in its pool's page ids."""
+        li = self._dp.local(slot_idx)
+        if li is None:
+            return
         row = torch.tensor(
-            self._pages.table_row(slot_idx, self.cfg.num_page_positions()),
+            self._local_pages(self._pages.table_row(slot_idx, self.cfg.num_page_positions())),
             dtype=torch.int32,
         )
         table = self._ck.table
         if table.is_cuda:
             row = row.pin_memory()
-        table[slot_idx].copy_(row, non_blocking=table.is_cuda)
+        table[li].copy_(row, non_blocking=table.is_cuda)
 
     def _update_page_metrics(self) -> None:
         a = self._pages
@@ -136,18 +175,20 @@ class _PagedKVMixin:
         if through_row <= from_row:
             return
         need = self._pages.writes_needed(slot_idx, from_row, through_row)
-        if need > self._pages.free_count and not self._reclaim_pages(
+        if need > self._pages.free_for(slot_idx) and not self._reclaim_pages(
                 need, protect_slot=slot_idx):
             raise PoolExhausted(
                 f"kv page pool exhausted writing rows [{from_row}, "
                 f"{through_row}) of slot {slot_idx}: need {need} pages, "
-                f"{self._pages.free_count} free of {self._pages.total} "
+                f"{self._pages.free_for(slot_idx)} free of {self._pages.total} "
                 f"(size kv_pages up, or lower concurrency)"
             )
         acts = self._pages.prepare_write(slot_idx, from_row, through_row)
-        for _pos, new_page, copy_src in acts:
-            if copy_src is not None:
-                self._page_copy_fn(self._ck, self._cv, copy_src, new_page)
+        if self._dp.local(slot_idx) is not None:
+            for _pos, new_page, copy_src in acts:
+                if copy_src is not None:
+                    src, dst = self._local_pages([copy_src, new_page])
+                    self._page_copy_fn(self._ck, self._cv, src, dst)
         if acts:
             self._sync_table_row(slot_idx)
             self._update_page_metrics()
@@ -195,18 +236,22 @@ class _PagedKVMixin:
         self._free_slot_pages(slot_idx)
         self._prepare_slot_write(slot_idx, 0, int(rows))
 
-    def _reclaim_pages(self, need: int, protect_slot: int = -1) -> bool:
-        """Free pages until ``need`` are: demote least-recently-used
-        unpinned prefix entries to the host tier, then offload idle
-        sessions (never the one on ``protect_slot``). A demotion whose
-        pages a live slot still shares frees nothing now, so the loop
-        falls through to an offload. False when neither frees a page:
-        every page is held by live work."""
-        while self._pages.free_count < need:
-            before = self._pages.free_count
+    def _reclaim_pages(self, need: int, protect_slot: int) -> bool:
+        """Free pages of ``protect_slot``'s dp shard until ``need`` are:
+        demote least-recently-used unpinned prefix entries of that shard
+        to the host tier, then offload the shard's idle sessions (never
+        the one on ``protect_slot``). A demotion whose pages a live slot
+        still shares frees nothing now, so the loop falls through to an
+        offload. False when neither frees a page: every page is held by
+        live work."""
+        a = self._pages
+        shard = a.shard_of(protect_slot)
+        while a.free_for(protect_slot) < need:
+            before = a.free_for(protect_slot)
             if self._prefix_pool is not None:
                 cands = [e for e in self._prefix_pool.entries()
-                         if e.pages is not None and e.refs == 0]
+                         if e.pages is not None and e.refs == 0
+                         and a.page_shard(e.pages[0]) == shard]
                 if cands:
                     # Entries whose pages actually free first, LRU within.
                     def key(e):
@@ -214,17 +259,17 @@ class _PagedKVMixin:
                         return (not frees, e.last_used)
 
                     self._paged_demote_entry(min(cands, key=key))
-            if self._pages.free_count > before:
+            if a.free_for(protect_slot) > before:
                 continue
             idle = [
                 (sess.last_used, sid)
                 for sid, sess in self._sessions.items()
                 if sess.slot is not None and sess.slot != protect_slot
-                and not self._slots[sess.slot].active
+                and a.shard_of(sess.slot) == shard and not self._slots[sess.slot].active
             ]
             if idle:
                 self._offload_session(self._sessions[min(idle)[1]])
-            if self._pages.free_count <= before:
+            if a.free_for(protect_slot) <= before:
                 return False
         return True
 
@@ -240,17 +285,18 @@ class _PagedKVMixin:
         npg = -(-matched // ps)
         # The slot's stale pages free first: they may cover the promote.
         self._free_slot_pages(slot_idx)
+        a = self._pages
         if entry.pages is None and entry.host_k is not None:
             npg_e = -(-len(entry.tokens) // ps)
             if not self._reclaim_pages(npg_e, protect_slot=slot_idx):
                 return False
-            pages = self._pages.alloc_pages(npg_e)
-            bucket = self.cfg.page_bucket_for(npg_e)
-            idx = torch.tensor(pages + [TRASH] * (bucket - npg_e), dtype=torch.int32,
-                               device=self.device)
-            self._scatter_pages_fn(self._ck, self._cv, idx,
-                                   kv_device(entry.host_k, self.device),
-                                   kv_device(entry.host_v, self.device))
+            # Promoted into the slot's shard (host rows are on every rank).
+            pages = a.alloc_pages(npg_e, a.shard_of(slot_idx))
+            if self._dp.local(slot_idx) is not None:
+                bucket = self.cfg.page_bucket_for(npg_e)
+                self._scatter_pages_fn(self._ck, self._cv, self._page_index(pages, bucket),
+                                       kv_device(entry.host_k, self.device),
+                                       kv_device(entry.host_v, self.device))
             entry.pages = pages  # the entry owns these references
             entry.host_k = entry.host_v = None
             self.metrics["prefix_cache_host_hits"] += 1
@@ -258,8 +304,43 @@ class _PagedKVMixin:
             # A stale radix path after a device reset: rebuild on miss.
             self._prefix_pool.drop_entry(entry)
             return False
-        self._pages.adopt(slot_idx, entry.pages[:npg], matched)
+        if a.page_shard(entry.pages[0]) != a.shard_of(slot_idx):
+            return self._copy_on_map(entry, slot_idx, npg, matched)
+        a.adopt(slot_idx, entry.pages[:npg], matched)
         self._sync_table_row(slot_idx)
+        self._update_page_metrics()
+        return True
+
+    def _page_index(self, pages: list[int], bucket: int) -> torch.Tensor:
+        """A page run's ids in its shard's pool, padded with the trash page
+        to ``bucket`` pages: the operand of a run's gather or scatter."""
+        return torch.tensor(self._local_pages(pages) + [TRASH] * (bucket - len(pages)),
+                            dtype=torch.int32, device=self.device)
+
+    def _page_run(self, pages: list[int], bucket: int):
+        """A page run [L, bucket, R, H, D] (cache representation) on every
+        rank: gathered by the pages' dp shard, broadcast over dp."""
+        return self._rows_from(
+            self._pages.page_shard(pages[0]),
+            lambda: self._gather_pages_fn(self._ck, self._cv, self._page_index(pages, bucket)),
+            self._rows_like(self._ck.pool, (bucket,), 2))
+
+    def _copy_on_map(self, entry, slot_idx: int, npg: int, matched: int) -> bool:
+        """Seed a slot from an entry whose pages live on another dp shard:
+        the entry's first ``npg`` pages, copied into fresh pages of the
+        slot's own shard. The slot shares nothing with the entry, whose
+        pages stay where they are."""
+        ps = self.cfg.kv_page_tokens
+        if self._pages.free_for(slot_idx) < npg and not self._reclaim_pages(
+                npg, protect_slot=slot_idx):
+            return False
+        bucket = self.cfg.page_bucket_for(npg)
+        k, v = self._page_run(entry.pages[:npg], bucket)
+        self._prepare_slot_write(slot_idx, 0, npg * ps)
+        self._pages.covered[slot_idx] = matched
+        if self._dp.local(slot_idx) is not None:
+            idx = self._page_index(self._pages.slot_pages[slot_idx], bucket)
+            self._scatter_pages_fn(self._ck, self._cv, idx, k, v)
         self._update_page_metrics()
         return True
 
@@ -280,10 +361,7 @@ class _PagedKVMixin:
         (TRASH-padded to its bucket) copied to host RAM verbatim, its
         device pages released."""
         npg = -(-len(entry.tokens) // self.cfg.kv_page_tokens)
-        bucket = self.cfg.page_bucket_for(npg)
-        idx = torch.tensor(entry.pages + [TRASH] * (bucket - npg), dtype=torch.int32,
-                           device=self.device)
-        k, v = self._gather_pages_fn(self._ck, self._cv, idx)
+        k, v = self._page_run(entry.pages, self.cfg.page_bucket_for(npg))
         host_k, host_v = kv_host(k), kv_host(v)
         self._pages.release_pages(entry.pages)
         entry.pages = None

@@ -6,6 +6,13 @@ own rows, or rows seeded from the shared-prefix pool (or from row 0
 for a long prompt). A grammar request gets its start-state mask on the
 first token and its table and FSM state in the slot's device rows.
 
+Under data parallelism every rank places every request in its host
+books; only the slot's owner shard runs the slot's programs and writes
+its device rows, and the first token reaches the other shards by one
+broadcast over dp (``dataparallel.py``). A fresh prompt whose bucket
+reaches ``long_prefill_threshold`` (and splits over sp) prefills as the
+ring (``prefill_ring`` then ``insert``).
+
 Grammars are duck-typed: one compiled by this package or by the JAX
 package serves alike, since placement reads only ``view``, ``key`` and
 ``eos_id`` and a view's ``table``, ``start``, ``advance`` and
@@ -35,9 +42,11 @@ class _PlacementMixin:
     """Placement methods of :class:`InferenceEngine`."""
 
     def _sampling_key(self, slot_idx: int, sp: SamplingParams) -> torch.Tensor:
+        """The first-token sampler's key: the request's seed, else the
+        slot's own key (read on the slot's dp shard)."""
         if sp.seed is not None:
             return make_slot_key_data(sp.seed, self.device)
-        return self._key_data[slot_idx]
+        return self._key_data[self._dp.local(slot_idx)]
 
     def _scalar(self, value, dtype) -> torch.Tensor:
         return torch.tensor([value], dtype=dtype, device=self.device)
@@ -83,8 +92,10 @@ class _PlacementMixin:
         if not self._gr_on:
             return
         g = request.grammar
+        li = self._dp.local(slot_idx)
         if g is None:
-            self._gactive[slot_idx] = False
+            if li is not None:
+                self._gactive[li] = False
             return
         sp = request.params
         view = g.view(self.model_cfg.vocab_size, sp.stop_token_ids)
@@ -101,11 +112,13 @@ class _PlacementMixin:
                     f"grammar needs {view.num_states} states, engine "
                     f"grammar_max_states is {self.cfg.grammar_max_states}"
                 )
-            self._gtable[slot_idx, :view.num_states] = torch.from_numpy(
-                np.ascontiguousarray(view.table)).to(self.device)
+            if li is not None:
+                self._gtable[li, :view.num_states] = torch.from_numpy(
+                    np.ascontiguousarray(view.table)).to(self.device)
             self._gslot_key[slot_idx] = gkey
-        self._gstate[slot_idx] = state0
-        self._gactive[slot_idx] = True
+        if li is not None:
+            self._gstate[li] = state0
+            self._gactive[li] = True
         slot = self._slots[slot_idx]
         slot.gr_view = view
         slot.gr_state = view.start  # _emit_token advances past first_tok
@@ -217,28 +230,30 @@ class _PlacementMixin:
             stop_ids |= {request.grammar.eos_id}
         slot.stop_ids = stop_ids
 
-        self._tokens[slot_idx] = first_tok
-        self._positions[slot_idx] = n
-        self._active[slot_idx] = True
-        self._temp[slot_idx] = sp.temperature
-        self._top_p[slot_idx] = sp.top_p
-        self._top_k[slot_idx] = sp.top_k
-        # Device-side finish state: emissions still allowed after the
-        # first token. It must equal the host's finish schedule exactly
-        # (generated >= max_tokens or length >= max_seq - 2). Stop ids
-        # past MAX_DEVICE_STOP_IDS are checked on the host only.
-        budget = min(sp.max_tokens - 1, self.cfg.max_seq - 2 - n)
-        self._budget[slot_idx] = max(budget, 0)
-        ids = list(sp.stop_token_ids)
-        if request.grammar is not None and request.grammar.eos_id not in ids:
-            ids.append(request.grammar.eos_id)
-        ids = ids[:MAX_DEVICE_STOP_IDS]
-        ids += [-1] * (MAX_DEVICE_STOP_IDS - len(ids))
-        self._stop_ids[slot_idx] = torch.tensor(ids, dtype=torch.int32)
-        if self._geos is not None:
-            # The ring's per-slot grammar EOS (-1 = none), set at every
-            # placement so that a previous occupant's id never leaks.
-            self._geos[slot_idx] = request.grammar.eos_id if request.grammar is not None else -1
+        li = self._dp.local(slot_idx)
+        if li is not None:
+            self._tokens[li] = first_tok
+            self._positions[li] = n
+            self._active[li] = True
+            self._temp[li] = sp.temperature
+            self._top_p[li] = sp.top_p
+            self._top_k[li] = sp.top_k
+            # Device-side finish state: emissions still allowed after the
+            # first token. It must equal the host's finish schedule exactly
+            # (generated >= max_tokens or length >= max_seq - 2). Stop ids
+            # past MAX_DEVICE_STOP_IDS are checked on the host only.
+            budget = min(sp.max_tokens - 1, self.cfg.max_seq - 2 - n)
+            self._budget[li] = max(budget, 0)
+            ids = list(sp.stop_token_ids)
+            if request.grammar is not None and request.grammar.eos_id not in ids:
+                ids.append(request.grammar.eos_id)
+            ids = ids[:MAX_DEVICE_STOP_IDS]
+            ids += [-1] * (MAX_DEVICE_STOP_IDS - len(ids))
+            self._stop_ids[li] = torch.tensor(ids, dtype=torch.int32)
+            if self._geos is not None:
+                # The ring's per-slot grammar EOS (-1 = none), set at every
+                # placement so that a previous occupant's id never leaks.
+                self._geos[li] = request.grammar.eos_id if request.grammar is not None else -1
         first = int(first_tok)
         self._attach_grammar(slot_idx, request, first)
         if self._flight is not None:
@@ -259,18 +274,39 @@ class _PlacementMixin:
         # Paged pool: the prefill writes the whole bucket, so exclusive
         # pages must cover it before dispatch (PoolExhausted otherwise).
         self._prepare_slot_write(slot_idx, 0, bucket)
+        li = self._dp.local(slot_idx)
+        if li is None:
+            # Another dp shard's slot: its owner prefills.
+            return self._first_token(None, slot_idx)
+        toks_d = torch.from_numpy(toks).to(self.device)
+        pos_d = torch.from_numpy(pos).to(self.device)
+        if (self._prefill_ring_fn is not None and bucket >= self.cfg.long_prefill_threshold
+                and bucket % self.cfg.sp == 0):
+            # The ring: the sp-split prefill, its chunk then inserted.
+            last, k_chunk, v_chunk = self._prefill_ring_fn(self.params, toks_d, pos_d, n - 1)
+            first_tok = self._run_insert(k_chunk, v_chunk, slot_idx, last, sp, request)
+            return self._first_token(first_tok, slot_idx)
         t0 = time.monotonic()
         first_tok, new_kd = self._prefill_insert_fn(
-            self.params, self._ck, self._cv,
-            torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(pos).to(self.device),
-            slot_idx, n - 1, *self._sampler_args(slot_idx, sp),
+            self.params, self._ck, self._cv, toks_d, pos_d,
+            li, n - 1, *self._sampler_args(slot_idx, sp),
             *self._grammar_args(request, sp),
         )
         if self._flight is not None and request is not None:
             self._flight.note_prefill_piece(request.request_id, n, bucket,
                                             time.monotonic() - t0)
-        self._key_data[slot_idx] = new_kd
+        self._key_data[li] = new_kd
+        return self._first_token(first_tok, slot_idx)
+
+    def _run_insert(self, k_chunk, v_chunk, slot_idx: int, last_logits, sp: SamplingParams,
+                    request: Optional[Request] = None):
+        """The ring prefill's chunk into the slot (on its owner shard) and
+        its first token sampled."""
+        li = self._dp.local(slot_idx)
+        first_tok, new_kd = self._insert_fn(self._ck, self._cv, k_chunk, v_chunk, li,
+                                            last_logits, *self._sampler_args(slot_idx, sp),
+                                            *self._grammar_args(request, sp))
+        self._key_data[li] = new_kd
         return first_tok
 
     def _extend_pieces(self, start: int, count: int) -> list[tuple[int, int, int]]:
@@ -303,28 +339,34 @@ class _PlacementMixin:
         self._prepare_slot_write(slot_idx, off, off + b)
         return (self.params, self._ck, self._cv,
                 torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(pos).to(self.device), slot_idx,
+                torch.from_numpy(pos).to(self.device), self._dp.local(slot_idx),
                 self._scalar(off, torch.int32))
 
     def _chunked_extend(self, slot_idx: int, prompt: list[int], reuse: int,
                         sp: SamplingParams, request: Optional[Request] = None):
         """Incremental prefill of prompt[reuse:] against the slot's
-        resident (or seeded) rows; only the last piece samples."""
+        resident (or seeded) rows; only the last piece samples. The pieces
+        run on the slot's dp shard; every shard books their pages."""
         pieces = self._extend_pieces(reuse, len(prompt) - reuse)
         rid = request.request_id if request is not None else ""
+        li = self._dp.local(slot_idx)
         for off, take, b in pieces[:-1]:
             args = self._piece_args(slot_idx, prompt, off, take, b)
             t0 = time.monotonic()
-            self._extend_nosample_fn(*args)
+            if li is not None:
+                self._extend_nosample_fn(*args)
             if self._flight is not None and rid:
                 self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
         off, take, b = pieces[-1]
         args = self._piece_args(slot_idx, prompt, off, take, b)
         t0 = time.monotonic()
-        first_tok, new_kd = self._extend_fn(*args, take - 1, *self._sampler_args(slot_idx, sp),
-                                            *self._grammar_args(request, sp))
+        first_tok = None
+        if li is not None:
+            first_tok, new_kd = self._extend_fn(*args, take - 1,
+                                                *self._sampler_args(slot_idx, sp),
+                                                *self._grammar_args(request, sp))
+            self._key_data[li] = new_kd
         if self._flight is not None and rid:
             self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
-        self._key_data[slot_idx] = new_kd
         self.metrics["extend_steps"] += len(pieces)
-        return first_tok
+        return self._first_token(first_tok, slot_idx)

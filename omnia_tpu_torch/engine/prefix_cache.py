@@ -26,6 +26,14 @@ registered (``register_prefix``). Eviction is LRU over entries that no
 resident seeder holds. :class:`PrefixPool` is the host-side books, a
 copy of the JAX package's; ``_PrefixCacheMixin`` wires placement,
 publish and refcounts into :class:`InferenceEngine`.
+
+Under data parallelism the contiguous pool's entries split over dp like
+the slots (entry ``j`` on shard ``j // (prefix_cache_slots // dp)``) and
+the books stay whole on every rank. A store or seed between a slot and
+an entry of one shard runs there; across shards the source's owner reads
+the rows, broadcasts them over dp, and the destination's owner writes
+them. A demoted entry's host rows are on every rank (paged entries:
+engine/paged.py).
 """
 
 from __future__ import annotations
@@ -421,13 +429,14 @@ class _PrefixCacheMixin:
             if not self._paged_adopt_entry(entry, slot_idx, matched):
                 return 0
         elif entry.on_device:
-            self._prefix_seed_fn(self._ck, self._cv, self._pk, self._pv,
-                                 entry.pool_idx, slot_idx, entry.bucket)
+            self._pool_seed(entry.pool_idx, slot_idx, entry.bucket)
         elif entry.host_k is not None:
             # Host tier: page the rows back through the slot restore, then
             # promote the entry while they are hot.
-            self._restore_fn(self._ck, self._cv, kv_device(entry.host_k, self.device),
-                             kv_device(entry.host_v, self.device), slot_idx)
+            li = self._dp.local(slot_idx)
+            if li is not None:
+                self._restore_fn(self._ck, self._cv, kv_device(entry.host_k, self.device),
+                                 kv_device(entry.host_v, self.device), li)
             self.metrics["prefix_cache_host_hits"] += 1
             self._promote_entry(entry, slot_idx)
         else:
@@ -444,8 +453,7 @@ class _PrefixCacheMixin:
             return
         if demoted is not None:
             self._demote_rows(demoted)
-        self._prefix_store_fn(self._pk, self._pv, self._ck, self._cv, slot_idx, idx,
-                              entry.bucket)
+        self._pool_store(slot_idx, idx, entry.bucket)
         entry.pool_idx = idx
         entry.host_k = entry.host_v = None
 
@@ -514,14 +522,50 @@ class _PrefixCacheMixin:
         if demoted is not None:
             self._demote_rows(demoted)
         bucket = self.cfg.prefix_bucket_for(candidate)
-        self._prefix_store_fn(self._pk, self._pv, self._ck, self._cv, slot_idx, idx, bucket)
+        self._pool_store(slot_idx, idx, bucket)
         pool.insert(tokens, bucket, idx, registered)
         self.metrics["prefix_cache_insertions"] += 1
 
     def _demote_rows(self, entry: PrefixEntry) -> None:
         """Page a demoted entry's rows to the host tier. The copy to host
         completes before the vacated pool entry is overwritten."""
-        k, v = self._prefix_offload_fn(self._pk, self._pv, entry.pool_idx, entry.bucket)
+        k, v = self._pool_rows(entry.pool_idx, entry.bucket)
         entry.pool_idx = None
         self._prefix_pool.demoted_to_host(entry, kv_host(k), kv_host(v))
         self.metrics["prefix_cache_evictions"] = self._prefix_pool.evictions
+
+    # -- transfers between slots and pool entries ----------------------
+
+    def _pool_rows(self, idx: int, rows: int):
+        """Pool entry ``idx``'s rows [0, rows) as [L, rows, H, D] on every
+        rank: its dp shard's read, broadcast over dp."""
+        lp = self._dp_pool.local(idx)
+        return self._rows_from(self._dp_pool.owner(idx),
+                               lambda: self._prefix_offload_fn(self._pk, self._pv, lp, rows),
+                               self._rows_like(self._pk, (rows,), 3))
+
+    def _pool_store(self, slot_idx: int, idx: int, rows: int) -> None:
+        """A slot's rows [0, rows) → pool entry ``idx``: the store program
+        where one dp shard holds both, else the slot's rows broadcast
+        from its shard and written into the entry by the entry's."""
+        ls, lp = self._dp.local(slot_idx), self._dp_pool.local(idx)
+        if self._dp.owner(slot_idx) == self._dp_pool.owner(idx):
+            if ls is not None:
+                self._prefix_store_fn(self._pk, self._pv, self._ck, self._cv, ls, lp, rows)
+            return
+        k, v = self._slot_rows(slot_idx, rows)
+        if lp is not None:
+            self._restore_fn(self._pk, self._pv, k, v, lp)
+
+    def _pool_seed(self, idx: int, slot_idx: int, rows: int) -> None:
+        """Pool entry ``idx``'s rows [0, rows) → a slot: the seed program
+        where one dp shard holds both, else the entry's rows broadcast
+        from its shard and written into the slot by the slot's."""
+        ls, lp = self._dp.local(slot_idx), self._dp_pool.local(idx)
+        if self._dp.owner(slot_idx) == self._dp_pool.owner(idx):
+            if ls is not None:
+                self._prefix_seed_fn(self._ck, self._cv, self._pk, self._pv, lp, ls, rows)
+            return
+        k, v = self._pool_rows(idx, rows)
+        if ls is not None:
+            self._restore_fn(self._ck, self._cv, k, v, ls)

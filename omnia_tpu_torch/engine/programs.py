@@ -39,6 +39,13 @@
   cache, ``PagedKV(pool, table[slot:slot+1])`` of a paged one. A T == 1
   piece on the card therefore runs the engine's own decode-attention
   kernel with B = 1.
+- ``prefill_ring`` / ``insert`` (``sp > 1``): a long fresh prompt's
+  prefill as ring attention, each sp rank computing its block of the
+  bucket's rows through every layer; the KV rows are then gathered over
+  sp and the last real row's logits broadcast from the sp rank that
+  holds it, so every sp rank leaves with the whole chunk. ``insert``
+  writes the chunk into the slot's rows (every sp rank's cache: they are
+  replicas) and samples the first token.
 - ``offload`` / ``restore``: a session's leading rows out to a device
   copy ``[L, rows, Hkv, D]`` (the caller moves it to the host) and back
   into a slot's rows 0..rows-1, verbatim in the cache's representation.
@@ -58,6 +65,10 @@ chunk takes the per-slot FSM state, tables and active flags: each step
 gathers each slot's ``[V]`` row ``gtable[b, gstate[b]]``, masks the
 tokens whose entry is negative, and advances the state on the device.
 Without it the programs take none of these operands.
+
+Data parallelism (``dp``) changes no program: each rank's programs run
+at its shard's local batch and local slot rows, and the engine moves
+what crosses shards (``dataparallel.py``).
 
 Every program runs with grad mode off, as JAX programs never
 differentiate: a trainer's params serve as they are.
@@ -95,6 +106,9 @@ from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
 class EnginePrograms:
     prefill_insert: Callable
     decode_fns: dict[int, Callable]
+    # The ring prefill and its insert (sp > 1, else None).
+    prefill_ring: Optional[Callable]
+    insert: Optional[Callable]
     # One decode step (``_step``): what the captured ring chunk replays.
     step: Callable
     extend: Callable
@@ -122,10 +136,11 @@ class EnginePrograms:
     mixed_spec_sample: dict[int, Callable] = dataclasses.field(default_factory=dict)
 
 
-def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None) -> EnginePrograms:
+def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> EnginePrograms:
     """The engine's programs; with ``tp`` (the "tp" axis's Comm) every
     forward runs this rank's slice and every sampler reads the gathered
-    logits."""
+    logits; with ``sp`` (the "sp" axis's Comm) the ring prefill runs this
+    rank's block of rows."""
     max_seq = ecfg.max_seq
     paged = ecfg.kv_pages > 0
 
@@ -158,6 +173,30 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None) -> EngineProgr
         _put(ck, k_chunk, slot, 0)
         _put(cv, v_chunk, slot, 0)
         return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k, g)
+
+    def prefill_ring(params, tokens, positions, last_idx: int):
+        """tokens, positions [1, bucket], the whole prompt on every sp rank
+        → (the row ``last_idx``'s logits [1, V] (this rank's vocab slice
+        under tp), k_chunk, v_chunk [L, 1, bucket, Hkv, D]) on every sp
+        rank: the ring forward of this rank's rows, then the KV rows
+        gathered over sp and the logits broadcast by the rank that holds
+        row ``last_idx``."""
+        logits, k_rows, v_rows = llama.forward_prefill_ring(params, cfg, tokens, positions,
+                                                            tp, sp)
+        block = logits.shape[1]
+        holder = last_idx // block
+        row = logits[:, last_idx - holder * block] if sp.index == holder else logits[:, 0]
+        last = sp.broadcast(row, holder)
+        return last, sp.all_gather(k_rows, dim=2), sp.all_gather(v_rows, dim=2)
+
+    def insert(ck, cv, k_chunk, v_chunk, slot: int, last_logits, key_data, temp, top_p,
+               top_k, *g):
+        """The ring prefill's chunk [L, 1, bucket, Hkv, D] into the slot's
+        rows 0..bucket-1, then the first token sampled from its last real
+        row's logits [1, V] → (token 0-d int32, new key_data [2])."""
+        _put(ck, k_chunk, slot, 0)
+        _put(cv, v_chunk, slot, 0)
+        return _sample_one(last_logits, key_data, temp, top_p, top_k, g)
 
     def extend_nosample(params, ck, cv, tokens, positions, slot: int, write_start):
         """tokens, positions [1, T]; write_start int32 [1] → logits
@@ -345,8 +384,11 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None) -> EngineProgr
                torch.where(vmask[:, None], key_data, o_kd), o_gs)
         return _outputs(ck, cv, out, bool(g)), tok[None]
 
+    ring_on = ecfg.sp > 1
     progs = dict(
         prefill_insert=prefill_insert,
+        prefill_ring=prefill_ring if ring_on else None,
+        insert=insert if ring_on else None,
         # decode_ring > 0 swaps the whole decode family for the ring
         # edition; ring off builds the programs it always had.
         decode_fns={k: make_decode(k, ring=ecfg.decode_ring > 0) for k in ecfg.chunk_variants()},
@@ -470,5 +512,6 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None) -> EngineProgr
     # require grad (a trainer's) serve directly and record no graph.
     off = torch.no_grad()
     return EnginePrograms(**{
-        name: {b: off(f) for b, f in fn.items()} if isinstance(fn, dict) else off(fn)
+        name: {b: off(f) for b, f in fn.items()} if isinstance(fn, dict)
+        else fn if fn is None else off(fn)
         for name, fn in progs.items()})

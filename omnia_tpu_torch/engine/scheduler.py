@@ -28,6 +28,10 @@ at dispatch while the ring's self-gate allows it (``ring_drains``), and a
 pipeline holding ``capacity`` unread chunks reads its oldest before the
 next one is enqueued (``ring_full_stalls``). Mixed steps ride the same
 pipeline.
+
+Under data parallelism each rank's chunk runs over its shard's slots, and
+one all-gather over dp per chunk joins the shards' ``[K, num_slots //
+dp]`` tokens into the ``[K, num_slots]`` every rank's books read.
 """
 
 from __future__ import annotations
@@ -358,7 +362,8 @@ class _SchedulerMixin:
 
     def _run_decode_step(self, chunk: int, dl_steps: Optional[np.ndarray] = None):
         """Enqueue one decode chunk; device state advances to its outputs
-        at once. Returns its tokens [K, B], unread. The ring edition takes
+        at once. Returns its tokens [K, B] (every dp shard's), unread. The
+        ring edition takes
         the deadline-step budget ``dl_steps`` and, with the grammar, the
         per-slot grammar EOS; on the card it replays the chunk's graph."""
         t_dispatch = time.monotonic()
@@ -380,7 +385,7 @@ class _SchedulerMixin:
             # The ring's deadline carry (before toks) is dropped: the next
             # dispatch computes the budget afresh.
             self._adopt_decode_state(out)
-            toks = out[-1]
+            toks = self._dp.gather(out[-1], dim=1)
         self.metrics["decode_dispatch_s"] += time.monotonic() - t_dispatch
         self.metrics["decode_steps"] += int(toks.shape[0])
         return toks
@@ -555,7 +560,8 @@ class _SchedulerMixin:
             # A constrained generation brought to a valid stop.
             if reason is FinishReason.STOP and slot.gr_view.is_accepting(slot.gr_state):
                 self.metrics["grammar_rejections_avoided"] += 1
-            self._gactive[slot_idx] = False
+            if self._dp.local(slot_idx) is not None:
+                self._gactive[self._dp.local(slot_idx)] = False
         # Sessionful: record which rows the next turn may reuse, BEFORE the
         # terminal event is observable. The last emitted token's row is
         # written only if another decode step ran, so it is left out. The
@@ -581,10 +587,12 @@ class _SchedulerMixin:
         # with active False it only rewrites its frozen row: row 0 of an
         # unpinned slot, which the next placement's prefill overwrites
         # (through trash when paged), or the session's frontier.
-        self._positions[slot_idx] = quiesce_row
-        self._tokens[slot_idx] = 0
-        self._temp[slot_idx] = 0.0
-        self._active[slot_idx] = False
+        li = self._dp.local(slot_idx)
+        if li is not None:
+            self._positions[li] = quiesce_row
+            self._tokens[li] = 0
+            self._temp[li] = 0.0
+            self._active[li] = False
         self._push_final(handle, rid, reason, num_prompt_tokens=n_prompt,
                          num_generated_tokens=generated)
         self.metrics["requests_finished"] += 1

@@ -16,6 +16,13 @@ export payload carries every head, in the JAX engine's format, so one
 taken at tp = 2 imports at tp = 1 and back: ``export_session`` gathers
 the heads over the ranks (a collective: every rank exports the session
 together) and ``import_session`` keeps this rank's slice.
+
+Under data parallelism a session's host rows are sent over dp on
+offload: the slot's owner shard reads them and broadcasts them, so every
+rank holds the same host rows (its tp slice of the heads), and a later
+turn may restore them into a slot of any shard, written by that slot's
+owner. Every rank therefore exports the same payload too; the leader's
+is the one a caller reads.
 """
 
 from __future__ import annotations
@@ -160,7 +167,7 @@ class _SessionMixin:
             self.metrics["prefix_cache_offload_elisions"] += 1
         elif valid > 0:
             rows = self.cfg.restore_bucket_for(valid)
-            k, v = self._offload_fn(self._ck, self._cv, slot_idx, rows)
+            k, v = self._slot_rows(slot_idx, rows)
             sess.host_k = kv_host(k)
             sess.host_v = kv_host(v)
             self.metrics["session_offloads"] += 1
@@ -172,10 +179,13 @@ class _SessionMixin:
 
     def _restore_session(self, sess: _SessionKV, slot_idx: int) -> None:
         """Copy a host-paged session's rows back into a slot, byte for
-        byte (a paged slot gets its pages and table row first)."""
+        byte (a paged slot gets its pages and table row first); written
+        on the slot's dp shard."""
         self._prepare_slot_restore(slot_idx, sess.host_k)
-        self._restore_fn(self._ck, self._cv, kv_device(sess.host_k, self.device),
-                         kv_device(sess.host_v, self.device), slot_idx)
+        li = self._dp.local(slot_idx)
+        if li is not None:
+            self._restore_fn(self._ck, self._cv, kv_device(sess.host_k, self.device),
+                             kv_device(sess.host_v, self.device), li)
         sess.host_k = sess.host_v = None
         sess.slot = slot_idx
         self._slots[slot_idx].session_id = sess.session_id

@@ -398,9 +398,11 @@ class _SpecDecodeMixin:
         return True
 
     def _plan_tensors(self, plan: _SpecPlan) -> tuple:
-        dev = self.device
-        return (torch.from_numpy(plan.toks).to(dev), torch.from_numpy(plan.pos).to(dev),
-                torch.from_numpy(plan.wstart).to(dev), torch.from_numpy(plan.vmask).to(dev))
+        """The plan's operands for this rank's slots (its dp shard's rows;
+        the host plans every slot)."""
+        dev, lo, hi = self.device, self._dp.lo, self._dp.hi
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
+                     for a in (plan.toks, plan.pos, plan.wstart, plan.vmask))
 
     def _prepare_verify_pages(self) -> None:
         """Paged pool: every active slot's window rows get owned pages
@@ -426,10 +428,11 @@ class _SpecDecodeMixin:
                 self._budget, self._stop_ids, self._key_data, self._temp, self._top_p,
                 self._top_k, *self._plan_tensors(plan), *gargs)
             self._adopt_decode_state(out)
-            dtoks, greedy = out[-2:]
+            dtoks, greedy = self._dp.gather(out[-2], dim=1), out[-1]
         else:
             toks, pos, wstart, _vmask = self._plan_tensors(plan)
             greedy = self._verify_fn(self.params, self._ck, self._cv, toks, pos, wstart, *gargs)
+        greedy = self._dp.gather(greedy, dim=0)
         dispatch_s = time.monotonic() - t_dispatch
         self.metrics["decode_dispatch_s"] += dispatch_s
         t_sync = time.monotonic()
@@ -494,12 +497,14 @@ class _SpecDecodeMixin:
                 # chunk continues from it (the device budget is not
                 # decremented: it only over-allows, and the host's finish
                 # check fires first).
-                self._tokens[i] = int(s.emitted[-1])
-                self._positions[i] = s.length
-                if s.gr_view is not None and emit:
-                    # _emit_token advanced the host FSM mirror; the device
-                    # state advances only inside a decode step.
-                    self._gstate[i] = s.gr_state
+                li = self._dp.local(i)
+                if li is not None:
+                    self._tokens[li] = int(s.emitted[-1])
+                    self._positions[li] = s.length
+                    if s.gr_view is not None and emit:
+                        # _emit_token advanced the host FSM mirror; the
+                        # device state advances only inside a decode step.
+                        self._gstate[li] = s.gr_state
         self.metrics["spec_index_bytes"] = _ENTRY_BYTES * sum(
             s.spec_index.entries() for s in self._slots if s.spec_index is not None)
         if self._flight is not None:

@@ -3,9 +3,9 @@
 included).
 
 ``EngineConfig`` keeps every field of the JAX package's, with the same
-defaults, so one set of field values configures both engines. Knobs
-whose feature is not ported yet are refused by the engine when set away
-from their default (see ``engine/engine.py``).
+defaults, so one set of field values configures both engines. The
+engine refuses a combination it cannot run, naming its ROADMAP item
+(``decode_ring >= 2`` above degree 1, see ``engine/engine.py``).
 """
 
 from __future__ import annotations

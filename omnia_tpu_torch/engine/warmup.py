@@ -32,8 +32,11 @@ ran in. Warmup writes only scratch rows and restores the device state
 and the metrics it touched, so it cannot perturb what requests get.
 
 Under tensor parallelism every task's forward holds collectives, so every
-rank must run the same task list in the same order. The ranks first
-compare a digest of their lists and raise on a mismatch; a rank that
+rank must run the same task list in the same order. Under dp every shard
+warms its own programs on its own first slot (the slot-addressed tasks,
+which a request runs on its slot's owner only, included); under sp the
+ring tasks' forwards hold the ring's collectives. The ranks of the whole
+job first compare a digest of their lists and raise on a mismatch; a rank that
 never arrives (or stops between tasks) makes the others' next collective
 raise after the process group's timeout (``parallel/distributed.py``)
 instead of hanging.
@@ -62,7 +65,7 @@ from omnia_tpu_torch.engine.coldstart import (
 from omnia_tpu_torch.engine.graphs import NO_DEADLINE
 from omnia_tpu_torch.engine.types import SamplingParams
 from omnia_tpu_torch.models.kv_quant import kv_device, kv_host
-from omnia_tpu_torch.parallel.collectives import all_gather
+from omnia_tpu_torch.parallel.collectives import all_gather, world_comm
 
 logger = logging.getLogger(__name__)
 
@@ -107,8 +110,9 @@ class _WarmupMixin:
             return toks, pos, 0, self._scalar(0, torch.int32)
 
         def first(b: int) -> tuple:
-            """The first-token sampler's operands after a b-token piece."""
-            return (b - 1, *self._sampler_args(0, sp), *self._grammar_args(None, sp))
+            """The first-token sampler's operands after a b-token piece, for
+            this shard's first slot (global index ``self._dp.lo``)."""
+            return (b - 1, *self._sampler_args(self._dp.lo, sp), *self._grammar_args(None, sp))
 
         def no_deadline() -> np.ndarray:
             return np.full((cfg.num_slots,), NO_DEADLINE, np.int32)
@@ -133,6 +137,18 @@ class _WarmupMixin:
 
         for b in cfg.usable_buckets():
             add("prefill", f"bucket{b}", prefill_task(b))
+
+        def ring_task(b):
+            def run(st):
+                toks, pos, _, _ = piece(b)
+                last, k_chunk, v_chunk = self._prefill_ring_fn(self.params, toks, pos, b - 1)
+                self._insert_fn(st.ck, st.cv, k_chunk, v_chunk, 0, last, *first(b)[1:])
+            return run
+
+        if self._prefill_ring_fn is not None:
+            for b in cfg.usable_buckets():
+                if b >= cfg.long_prefill_threshold and b % cfg.sp == 0:
+                    add("ring", f"bucket{b}", ring_task(b))
 
         def extend_task(b):
             def run(st):
@@ -175,7 +191,7 @@ class _WarmupMixin:
             add("decode", f"chunk{chunk}", decode_task(chunk))
 
         def verify_operands() -> tuple:
-            B, W = cfg.num_slots, cfg.spec_window()
+            B, W = self._dp.per, cfg.spec_window()
             zeros = torch.zeros((B, W + 1), dtype=torch.int32, device=dev)
             pos = torch.arange(W + 1, dtype=torch.int32, device=dev).expand(B, W + 1)
             return (zeros, pos.contiguous(), zeros[:, 0].contiguous(),
@@ -209,19 +225,19 @@ class _WarmupMixin:
         return tasks
 
     def _agree_on_tasks(self, program_keys: list) -> None:
-        """Under tp: every rank's warmup task list must be this one, in
+        """Under a mesh: every rank's warmup task list must be this one, in
         this order (their collectives pair up call by call). Raises on
-        every rank when one differs."""
-        if self._tp is None:
+        every rank of the job when one differs."""
+        if self._mesh is None:
             return
         digest = hashlib.sha256("\n".join(program_keys).encode()).digest()
         mine = torch.tensor([int.from_bytes(digest[:7], "big"), len(program_keys)],
                             dtype=torch.int64, device=self.device)
-        every = all_gather(mine[None], self._tp, dim=0).tolist()
+        every = all_gather(mine[None], world_comm(), dim=0).tolist()
         differ = [r for r, v in enumerate(every) if v != every[0]]
         if differ:
             raise RuntimeError(
-                f"warmup task lists differ across tp ranks (rank 0 vs ranks {differ}: "
+                f"warmup task lists differ across ranks (rank 0 vs ranks {differ}: "
                 f"{[every[0]] + [every[r] for r in differ]} as [digest, count]); "
                 "every rank must build the same EngineConfig")
 

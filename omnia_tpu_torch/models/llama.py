@@ -28,6 +28,11 @@
   weights' shapes. Under tp the forwards return this rank's vocab slice
   of the logits; ``gather_logits`` joins what a sampler reads. With
   ``tp=None`` no collective runs.
+- **Sequence parallelism** (``sp``, the "sp" axis's Comm):
+  ``forward_prefill_ring`` runs a long fresh prompt's rows in blocks, one
+  per sp rank, with ring attention over the ranks. The caches are
+  replicated over sp and over dp (the engine holds each dp shard's
+  slots), so no other forward takes an sp or dp collective.
 - **MoE** (``cfg.num_experts > 0``): the MLP is ``ops/moe.py::moe_mlp``,
   all experts below 64 rows of a forward (B·T) and capacity dispatch
   from 64 on, so a program gives the JAX package's tokens when it calls
@@ -273,11 +278,13 @@ def _layers(params: dict) -> list[dict]:
 
 
 def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
-           tp: Optional[Comm] = None):
+           tp: Optional[Comm] = None, attn_fn=None):
     """One layer. With ck/cv None the attention is over the chunk's own
     keys (fresh prefill) and the chunk's (k, v) is returned; otherwise
     the rows are written into ck/cv in place and attention reads them.
-    The head counts are the local weights' (this rank's heads under tp)."""
+    The head counts are the local weights' (this rank's heads under tp).
+    ``attn_fn(q, k, v, q_positions)`` replaces the attention op (the ring
+    prefill's)."""
     B, T, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     q = qdot(h, p["attn"]["wq"]).reshape(B, T, -1, cfg.head_dim)
@@ -291,7 +298,7 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
         _write_kv(ck, k, write_index)
         _write_kv(cv, v, write_index)
         ck_eff, cv_eff = ck, cv
-    attn = gqa_attention(q, ck_eff, cv_eff, q_positions)
+    attn = (attn_fn or gqa_attention)(q, ck_eff, cv_eff, q_positions)
     x = x + qdot(attn.reshape(B, T, -1), p["attn"]["wo"], tp)
     h2 = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     if cfg.is_moe:
@@ -346,22 +353,57 @@ def gather_logits(logits, tp: Optional[Comm]):
 
 
 def forward_prefill(params, cfg: ModelConfig, tokens, q_positions,
-                    tp: Optional[Comm] = None):
+                    tp: Optional[Comm] = None, attn_fn=None):
     """Fresh-sequence prefill: attention over the chunk itself.
 
     tokens, q_positions: int [B, T] → (logits [B, T, V] f32 (this rank's
     vocab slice under tp), k_chunk, v_chunk [L, B, T, Hkv, D]) for the
-    engine to place."""
+    engine to place. ``attn_fn`` overrides the attention op (the ring
+    prefill's)."""
     _check_tp(params, cfg, tp)
     x = _embed(params, cfg, tokens, tp)
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     ks, vs = [], []
     for p in _layers(params):
-        x, k, v = _layer(x, p, cfg, cos, sin, q_positions, None, None, None, tp)
+        x, k, v = _layer(x, p, cfg, cos, sin, q_positions, None, None, None, tp, attn_fn)
         ks.append(k)
         vs.append(v)
     return _logits(params, cfg, x), torch.stack(ks), torch.stack(vs)
+
+
+def sp_rows(T: int, sp: Optional[Comm]) -> tuple[int, int]:
+    """The rows [lo, hi) of a T-row sequence that this sp rank holds: its
+    contiguous block of T / sp (all of them without an sp axis)."""
+    if sp is None:
+        return 0, T
+    if T % sp.size:
+        raise ValueError(f"seq len {T} not divisible by sp={sp.size}")
+    n = T // sp.size
+    return sp.index * n, (sp.index + 1) * n
+
+
+def forward_prefill_ring(params, cfg: ModelConfig, tokens, q_positions,
+                         tp: Optional[Comm] = None, sp: Optional[Comm] = None):
+    """Long-context prefill: ``forward_prefill``'s contract for this sp
+    rank's rows. tokens, q_positions: int [B, T], the whole fresh
+    sequence (positions the arange: the ring takes causality from global
+    row index), T divisible by sp. The rank computes only its block of
+    ``T / sp`` rows (``sp_rows``) through every layer, attention running
+    as causal ring attention over the "sp" axis
+    (``parallel/ring_attention.py``), so the O(T²) attention of a long
+    prompt splits over the ring. Returns this rank's rows: (logits [B,
+    T/sp, V] f32 (its vocab slice under tp), k_chunk, v_chunk [L, B,
+    T/sp, Hkv, D]); the engine gathers the KV rows over sp."""
+    from omnia_tpu_torch.parallel.ring_attention import ring_attention
+
+    lo, hi = sp_rows(tokens.shape[1], sp)
+
+    def ring(q, k, v, _q_positions):
+        return ring_attention(q, k, v, sp)
+
+    return forward_prefill(params, cfg, tokens[:, lo:hi], q_positions[:, lo:hi], tp,
+                           attn_fn=ring)
 
 
 def _layer_cache(cache, i: int):

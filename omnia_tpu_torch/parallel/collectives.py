@@ -1,15 +1,22 @@
-"""The collectives of the tensor-parallel path, over one process group.
+"""The collectives of the parallel paths, over one process group.
 
 The JAX package writes no collective: GSPMD inserts them where a sharded
-product needs one. Here every rank is a process of its own, so the model
-calls them explicitly, and only these:
+product needs one, and ring attention's ``ppermute``. Here every rank is
+a process of its own, so the model and the engine call them explicitly,
+and only these:
 
 - ``all_reduce_sum``: after a row-parallel product (``wo``, ``wd``, the
   experts' combine, the vocab-parallel embedding lookup);
 - ``all_reduce_max``: W8A8's per-row activation amax before a
   row-parallel product quantizes its slice of the row;
-- ``all_gather``: the vocab-split logits a sampler reads, and the KV
-  heads of an exported session.
+- ``all_gather``: the vocab-split logits a sampler reads, the KV
+  heads of an exported session; over "dp" each shard's decode tokens;
+  over "sp" a ring prefill's KV rows;
+- ``broadcast``: over "dp" what one shard's slot produced (a first
+  token, a session's or a prefix entry's rows); over "sp" the logits of
+  the rank that holds a ring prefill's last row;
+- ``Comm.shift``: ring attention's K/V block to the next rank of the
+  "sp" ring (point-to-point send and receive, the ``ppermute`` analog).
 
 Each takes the :class:`Comm` of the axis, or None. **With None (tp = 1)
 it returns its input and launches nothing**, so a tp = 1 forward runs
@@ -40,7 +47,8 @@ class Comm:
     and the collectives over it. ``stats`` counts the calls, the bytes
     this rank contributed and, on gloo, the host seconds they took, the
     staging copies included (a NCCL call is asynchronous and is counted
-    without seconds)."""
+    without seconds); ``op_stats`` splits them by operation
+    ("all_reduce", "all_gather", "broadcast", "shift")."""
 
     def __init__(self, group, size: int, index: int):
         self.group = group
@@ -48,15 +56,22 @@ class Comm:
         self.index = index
         self.backend = dist.get_backend(group)
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.op_stats: dict = {}
 
     def _staged(self, x: torch.Tensor) -> bool:
         return x.is_cuda and self.backend != "nccl"
 
-    def _tally(self, x: torch.Tensor, t0: Optional[float]) -> None:
-        self.stats["calls"] += 1
-        self.stats["bytes"] += x.numel() * x.element_size()
-        if t0 is not None:
-            self.stats["seconds"] += time.perf_counter() - t0
+    def _tally(self, op: str, x: torch.Tensor, t0: Optional[float]) -> None:
+        seconds = time.perf_counter() - t0 if t0 is not None else 0.0
+        per_op = self.op_stats.setdefault(op, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        for stats in (self.stats, per_op):
+            stats["calls"] += 1
+            stats["bytes"] += x.numel() * x.element_size()
+            stats["seconds"] += seconds
+
+    def _global(self, index: int) -> int:
+        """The job rank of this group's rank ``index``."""
+        return dist.get_global_rank(self.group, index) if self.group is not None else index
 
     def _start(self, x: torch.Tensor) -> Optional[float]:
         if self.backend == "nccl":
@@ -72,7 +87,7 @@ class Comm:
         buf = x.to("cpu" if self._staged(x) else x.device, wide, copy=True)
         dist.all_reduce(buf, op=op, group=self.group)
         out = buf.to(x.device, x.dtype)
-        self._tally(x, t0)
+        self._tally("all_reduce", x, t0)
         return out
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -90,19 +105,50 @@ class Comm:
         if x.dtype in _HALF:
             out = out.view(x.dtype)
         out = out.to(x.device)
-        self._tally(x, t0)
+        self._tally("all_gather", x, t0)
         return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """x from group rank ``src`` on every rank (a new tensor; x is
         read on ``src`` only)."""
         t0 = self._start(x)
-        buf = x.cpu() if self._staged(x) else x.clone()
-        dist.broadcast(buf, src=dist.get_global_rank(self.group, src)
-                       if self.group is not None else src, group=self.group)
-        out = buf.to(x.device)
-        self._tally(x, t0)
+        buf = _as_bytes(x)
+        buf = buf.cpu() if self._staged(x) else buf.clone()
+        dist.broadcast(buf, src=self._global(src), group=self.group)
+        out = _from_bytes(buf, x).to(x.device)
+        self._tally("broadcast", x, t0)
         return out
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring step: x goes to the next rank of the axis (index + 1
+        mod size) and the previous rank's x comes back (a new tensor). A
+        send and a receive posted together, so no rank waits on another's
+        order; on gloo a CUDA tensor is staged through host memory, on
+        NCCL it moves card to card."""
+        t0 = self._start(x)
+        buf = _as_bytes(x)
+        buf = buf.cpu() if self._staged(x) else buf
+        recv = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, self._global((self.index + 1) % self.size),
+                          self.group),
+               dist.P2POp(dist.irecv, recv, self._global((self.index - 1) % self.size),
+                          self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = _from_bytes(recv, x).to(x.device)
+        self._tally("shift", x, t0)
+        return out
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A 16-bit float as its bytes (gloo takes no int16 and not every
+    16-bit float), contiguous; any other tensor contiguous."""
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype in _HALF and x.dim() > 0 else x
+
+
+def _from_bytes(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return buf.view(like.dtype) if like.dtype in _HALF and like.dim() > 0 else buf
 
 
 def world_comm() -> Comm:

@@ -11,10 +11,20 @@ rank is a process of its own, so the mesh is this rank's view of the
 job: the axes' sizes, this rank's coordinate on each, and one process
 group (a :class:`~omnia_tpu_torch.parallel.collectives.Comm`) per axis
 of more than one rank. Ranks are laid out in the JAX package's axis
-order, ("dp", "pp", "sp", "tp"), tp the fastest-varying.
+order, ("dp", "pp", "sp", "tp"), tp the fastest-varying: rank
+``(d * sp + s) * tp + t`` sits at dp = d, sp = s, tp = t.
 
-Only tensor parallelism is ported: a degree above 1 on "dp", "sp" or
-"pp" raises, naming its ROADMAP item.
+An axis's group holds the ranks that differ only on that axis: each dp
+shard has its own tp group, each (dp, tp) pair its own sp ring, each
+(sp, tp) pair its own dp group. ``dist.new_group`` is collective over
+the whole job, so every rank creates every group of every axis, in one
+fixed order, including the groups it is not in; a job keeps the groups
+of each mesh shape it made, so that the engine and its checkpoint
+loader share them. An axis that spans the whole job uses the default
+group.
+
+The pipeline axis is not ported: a degree above 1 on "pp" raises,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,7 +37,12 @@ import torch.distributed as dist
 from omnia_tpu_torch.parallel.collectives import Comm
 
 # Axes whose degree may not exceed 1 yet: (axis, ROADMAP item).
-_UNPORTED_AXES = (("dp", "A13 (dp)"), ("sp", "A13 (sp)"), ("pp", "A13 (pp)"))
+_UNPORTED_AXES = (("pp", "A13 (c)"),)
+
+# The groups made for each mesh shape of this job: {(dims, world group):
+# {axis: group}}. new_group is collective, so a shape's groups are made
+# once, by every rank, in the same order.
+_GROUPS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +72,46 @@ class Mesh:
         return self.comms.get(axis)
 
 
+def _axis_groups(dims: dict, world: int) -> dict:
+    """{axis: the process group of this rank's line along it} for every
+    axis of more than one rank, made (once per shape) by every rank."""
+    key = (tuple(dims.items()), id(dist.group.WORLD))
+    if key in _GROUPS:
+        return _GROUPS[key]
+    rank = dist.get_rank()
+    strides, step = {}, 1
+    for axis in reversed(dims):
+        strides[axis] = step
+        step *= dims[axis]
+    groups = {}
+    for axis, size in dims.items():
+        if size == 1:
+            continue
+        if size == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        others = [a for a in dims if a != axis]
+        # Every line along `axis`: fix the other coordinates, vary this one.
+        bases = [0]
+        for a in others:
+            bases = [b + i * strides[a] for b in bases for i in range(dims[a])]
+        for base in sorted(bases):
+            ranks = [base + i * strides[axis] for i in range(size)]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    _GROUPS[key] = groups
+    return groups
+
+
 def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
               world: Optional[int] = None, rank: Optional[int] = None) -> Mesh:
-    """This rank's mesh of dp x pp x sp x tp ranks: the first
-    ``dp*pp*sp*tp`` ranks of the job, in ("dp", "pp", "sp", "tp") order.
+    """This rank's mesh of dp x pp x sp x tp ranks, in ("dp", "pp", "sp",
+    "tp") order.
 
     ``world`` and ``rank`` default to the initialized process group's
-    (1 and 0 without one). A tp axis of more than one rank needs the
-    process group, and (dp, sp and pp being 1) spans the whole job."""
+    (1 and 0 without one). A mesh of more than one rank needs the process
+    group, and spans the whole job: one rank per mesh position."""
     if dist.is_initialized():
         world = dist.get_world_size() if world is None else world
         rank = dist.get_rank() if rank is None else rank
@@ -74,25 +121,36 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
     if world < n:
         raise ValueError(f"mesh {dp}x{pp}x{sp}x{tp} needs {n} devices, have {world}")
     for axis, item in _UNPORTED_AXES:
-        degree = {"dp": dp, "sp": sp, "pp": pp}[axis]
+        degree = {"pp": pp}[axis]
         if degree > 1:
             raise ValueError(f"mesh axis {axis}={degree} is not ported to "
                              f"omnia_tpu_torch yet (ROADMAP {item})")
-    dims = [("dp", dp), ("pp", pp), ("sp", sp), ("tp", tp)]
-    shape = {name: size for name, size in dims if size > 1 or name in ("dp", "tp")}
+    dims = {"dp": dp, "sp": sp, "tp": tp}
+    shape = {name: size for name, size in (("dp", dp), ("pp", pp), ("sp", sp), ("tp", tp))
+             if size > 1 or name in ("dp", "tp")}
+    label = ", ".join(f"{a}={s}" for a, s in dims.items() if s > 1)
     comms = {}
-    if tp > 1:
+    if n > 1:
+        if world != n:
+            # One rank per mesh position: the mesh is the whole job.
+            raise ValueError(f"a {label} mesh needs a job of {n} ranks, have {world}")
         if not dist.is_initialized():
             raise RuntimeError(
-                f"a tp={tp} mesh needs a torch.distributed process group "
+                f"a {label} mesh needs a torch.distributed process group "
                 "(omnia_tpu_torch.parallel.distributed.maybe_initialize_distributed)")
-        if world != tp:
-            # With dp, sp and pp at 1 the tp group is the whole job.
-            raise ValueError(f"a tp={tp} mesh needs a job of {tp} ranks, have {world}")
-        comms["tp"] = Comm(dist.group.WORLD, tp, rank)
-    coords = dict.fromkeys(shape, 0)
-    coords["tp"] = rank % tp
+        for axis, group in _axis_groups(dims, world).items():
+            comms[axis] = Comm(group, dims[axis], _coords(rank, dims)[axis])
+    coords = {axis: c for axis, c in _coords(rank, dims).items() if axis in shape}
     return Mesh(shape=shape, coords=coords, comms=comms)
+
+
+def _coords(rank: int, dims: dict) -> dict:
+    """A rank's index on each axis of ``dims`` (the last the fastest)."""
+    coords = {}
+    for axis in reversed(dims):
+        coords[axis] = rank % dims[axis]
+        rank //= dims[axis]
+    return {axis: coords[axis] for axis in dims}
 
 
 def single_device_mesh() -> Mesh:

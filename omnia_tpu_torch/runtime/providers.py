@@ -14,7 +14,7 @@ quantizes layer by layer as it places the weights
 never reaches the card; the JAX builder loads full precision and its
 engine quantizes afterwards. Both give the same int8 tree.
 
-Tensor parallelism: ``tp`` passes through to the engine. When the
+Parallelism: ``dp``, ``sp`` and ``tp`` pass through to the engine. When the
 distributed env is set (``OMNIA_COORDINATOR_ADDR``,
 ``parallel/distributed.py``) ``build_engine`` joins the process group, each
 rank's loader reads only its slice, and the engine comes back wrapped in
@@ -61,12 +61,11 @@ class ProviderSpec:
 
 
 # The EngineConfig fields a spec's options may set: the JAX package's
-# build_engine list, and decode_ring, which that list drops (a spec
-# asking for the ring gets it here). Knobs this port does not implement
-# yet (dp) are refused by the engine.
+# build_engine list, and decode_ring, sp and long_prefill_threshold,
+# which that list drops (a spec asking for them gets them here).
 _ENGINE_OPTIONS = frozenset({
     "num_slots", "max_seq", "prefill_buckets", "dtype",
-    "dp", "tp", "decode_chunk", "decode_pipeline",
+    "dp", "tp", "sp", "long_prefill_threshold", "decode_chunk", "decode_pipeline",
     "spec_decode", "spec_decode_max", "spec_gate_window",
     "quant", "kv_quant", "max_sessions",
     "prefix_cache_slots", "prefix_cache_rows",
@@ -116,9 +115,10 @@ def build_engine(spec: ProviderSpec, *, warmup: bool = False, device=None,
         # The engine calls the loader once, after validating its config,
         # under its weights_load phase with byte progress.
         def params(progress_cb=None):
-            # Under tp each rank reads its own slice (the mesh the engine
-            # builds, made the same way).
-            mesh = make_mesh(tp=ecfg.tp) if ecfg.tp > 1 else None
+            # Under a mesh each rank reads its own tp slice (the mesh the
+            # engine builds, made the same way: it shares its groups).
+            mesh = (make_mesh(dp=ecfg.dp, sp=ecfg.sp, tp=ecfg.tp)
+                    if ecfg.dp * ecfg.sp * ecfg.tp > 1 else None)
             return ckpt_io.load_params(ckpt, cfg, dtype=dtype, device=device,
                                        quant=ecfg.quant, progress_cb=progress_cb, mesh=mesh)
     else:

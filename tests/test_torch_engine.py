@@ -133,12 +133,12 @@ def test_no_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("knob", [dict(dp=2), dict(tp=2), dict(sp=2),
                                   dict(tp=2, decode_ring=2)])
 def test_unported_knob_raises(knob):
-    """dp and sp are not ported (ROADMAP A13); tp is, but refused without a
-    process group of tp ranks, and with the decode ring (ROADMAP A16)."""
-    if knob == dict(tp=2):
-        match = "needs a torch.distributed process group of 2 ranks"
+    """dp, sp and tp are ported, but refused without a process group of
+    dp * sp * tp ranks, and with the decode ring (ROADMAP A16)."""
+    if knob == dict(tp=2, decode_ring=2):
+        match = "ROADMAP A16"
     else:
-        match = "ROADMAP"
+        match = "needs a torch.distributed process group of 2 ranks"
     with pytest.raises(ValueError, match=match):
         InferenceEngine(get_config("test-tiny"),
                         EngineConfig(**ENGINE_FIELDS, **knob), device="cpu")

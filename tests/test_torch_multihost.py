@@ -203,6 +203,6 @@ def test_warmup_mismatch_raises_within_a_bound(env, case):
                              env=env, timeout_s=120, rank_timeout_s=3.0)
     if case == "config":
         for r in got:
-            assert "warmup task lists differ across tp ranks" in r["error"]
+            assert "warmup task lists differ across ranks" in r["error"]
     else:
         assert got[0]["error"] is not None and got[0]["seconds"] < 15, got[0]

@@ -1,7 +1,8 @@
-"""The NCCL route of the port's tensor parallelism, one rank per card:
-the NCCL branches of ``parallel/collectives.py::Comm`` and of
+"""The NCCL route of the port's tensor, data and sequence parallelism,
+one rank per card: the NCCL branches of ``parallel/collectives.py::Comm``
+(the sp ring's point-to-point shift among them) and of
 ``engine/multihost.py::LockstepEngine``, which the gloo tests and
-``chip_smoke.py`` phase 14 (ranks sharing one card) never take. This
+``chip_smoke.py`` phases 14 and 15 (ranks sharing one card) never take. This
 file imports neither jax nor omnia_tpu, so run it on a host with two or
 more cards without the suite's conftest:
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dpsp_workers as dpsp_workers
 import torch_tp_workers as workers
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.parallel.launch import spawn_ranks
@@ -58,3 +60,42 @@ def check_values(got: list) -> None:
     for label in workers.NCCL_CACHES:
         assert got[0][label] == got[0][f"{label}_tp1"], label
         assert all(len(t) == 12 for t in got[0][label])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [dict(dp=2, tp=2), dict(sp=2, tp=2)],
+                         ids=["dp2_tp2", "sp2_tp2"])
+def test_nccl_dp_sp_collectives_and_lockstep_tokens(dims):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(dpsp_workers.nccl_mesh_job, 4, args=(dims,), backend="nccl",
+                      timeout_s=600, rank_timeout_s=120)
+    for r, g in enumerate(got):
+        assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
+    check_mesh_values(got, dims)
+
+
+def check_mesh_values(got: list, dims: dict) -> None:
+    """The ring shift brings each rank the rows of the previous rank of
+    its sp ring (rank - tp, cyclically, at sp = 2 x tp = 2); the dp gather
+    joins the tokens of the ranks of its dp group (rank mod tp, + tp) in
+    shard order; the leader's tokens equal its tp = 1 engine's, and under
+    sp the 20-token prompt took the ring on every rank."""
+    tp = dims["tp"]
+    xs = [workers.nccl_rows(r) for r in range(len(got))]
+    for r, g in enumerate(got):
+        if "sp" in dims:
+            prev = (r - tp) % len(got)
+            np.testing.assert_array_equal(g["shift"], xs[prev])
+            np.testing.assert_array_equal(
+                g["shift_bf16"], torch.from_numpy(xs[prev]).bfloat16().float().numpy())
+        else:
+            t = r % tp
+            toks = [np.arange(8, dtype=np.int32).reshape(4, 2) + 100 * q for q in (t, t + tp)]
+            np.testing.assert_array_equal(g["gather"], np.concatenate(toks, 1))
+    for label in workers.NCCL_CACHES:
+        assert got[0][label] == got[0][f"{label}_tp1"], label
+        assert all(len(t) == 12 for t in got[0][label])
+        if "sp" in dims:
+            assert all(g[f"{label}_rings"] == 1 for g in got)

@@ -1,8 +1,10 @@
 """The port's sharding by spec (``omnia_tpu_torch/parallel``) against the
-JAX package's, in one process: the spec trees of ``llama.param_specs``,
+JAX package's: the spec trees of ``llama.param_specs``,
 ``kv_cache_specs``, ``paged_kv_specs`` and ``quant.quantize_param_specs``
 entry for entry (dense, MoE, tied, untied); ``shard_pytree`` slices whose
-ranks join back into the whole tree; and ``make_mesh``'s errors."""
+ranks join back into the whole tree; ``make_mesh``'s errors; and, over
+eight spawned gloo ranks, ``make_mesh(dp=2, sp=2, tp=2)``'s layout and
+its axes' groups."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import jax
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
+
+import torch_dpsp_workers as workers
 
 from omnia_tpu.models import get_config as jget_config
 from omnia_tpu.models import kv_quant as jkvq
@@ -19,6 +23,7 @@ from omnia_tpu.models import quant as jquant
 from omnia_tpu.parallel import make_mesh as jmake_mesh
 from omnia_tpu_torch.engine import EngineConfig, InferenceEngine
 from omnia_tpu_torch.models import get_config, llama, quant
+from omnia_tpu_torch.parallel.launch import spawn_ranks
 from omnia_tpu_torch.parallel.mesh import Mesh, make_mesh, single_device_mesh
 from omnia_tpu_torch.parallel.sharding import P, gather_pytree, shard_pytree
 
@@ -136,8 +141,30 @@ def test_make_mesh_size_error_equals_jax(dims, devices8):
 
 @pytest.mark.parametrize("axis", ["dp", "sp", "pp"])
 def test_make_mesh_refuses_unported_axes(axis):
-    with pytest.raises(ValueError, match=f"{axis}=2 is not ported.*ROADMAP A13"):
+    """pp is not ported (ROADMAP A13 (c)); dp and sp are, and a mesh of
+    them is refused only over a job of the wrong size (one rank per mesh
+    position)."""
+    if axis == "pp":
+        match = "pp=2 is not ported.*ROADMAP A13"
+    else:
+        match = f"a {axis}=2 mesh needs a job of 2 ranks, have 8"
+    with pytest.raises(ValueError, match=match):
         make_mesh(**{axis: 2}, world=8)
+
+
+def test_make_mesh_dp_sp_tp_builds_under_an_eight_rank_group():
+    """make_mesh(dp=2, sp=2, tp=2) over a job of 8 ranks: rank (d * 2 + s)
+    * 2 + t sits at (d, s, t), and each axis's group is its line, the
+    ranks that differ only there, in the axis's order."""
+    got = spawn_ranks(workers.mesh_job, 8, args=(dict(dp=2, sp=2, tp=2),), backend="gloo",
+                      timeout_s=300)
+    for rank, out in enumerate(got):
+        d, s, t = rank // 4, rank // 2 % 2, rank % 2
+        assert out["shape"] == {"dp": 2, "sp": 2, "tp": 2}
+        assert out["coords"] == {"dp": d, "sp": s, "tp": t}
+        assert out["lines"] == {"dp": ([s * 2 + t, 4 + s * 2 + t], d),
+                                "sp": ([d * 4 + t, d * 4 + 2 + t], s),
+                                "tp": ([d * 4 + s * 2, d * 4 + s * 2 + 1], t)}
 
 
 def test_make_mesh_tp_needs_a_process_group():
