@@ -289,18 +289,42 @@ Phases, each failing loudly (exit code != 0, no result line):
    KV bytes per rank, peak memory, host ms per decode step, the dp token
    gather's calls and ms per step and the prefills' broadcasts apart.
 
+16. Pipeline parallelism and the sharded trainer, after phase 15, one
+   spawn of four ranks of one gloo group sharing the card (every
+   collective and stage-to-stage send staged through host memory). (a)
+   llama3-1b width cut to 4 layers, f32, TF32 off, B = 4, T = 33, the
+   tree drawn by init_fn from one seed on every rank: at pp = 2 x tp = 2
+   pipeline_forward's logits and gathered KV within 1e-4 of one rank's
+   forward_prefill at M = 1, 2 and 4; one train_step at pp = 2 x tp = 2
+   and one at dp = 2 x tp = 2 against one rank's from the same tree: the
+   loss within 1e-5 relative on every rank, every gathered gradient leaf
+   within 1e-4 of its largest entry, every param after the update within
+   phase 13 (a)'s bound (rank 0 takes the one-rank step). (b) llama3-1b
+   at full width and depth, f32, pp = 2 x tp = 2, M = 2, phase 13 (b)'s
+   seed and batch (B = 4, T = 513), three train_steps: each rank's params
+   bytes exactly the reckoning (a quarter of every projection, half of
+   each layer norm, of embed and of lm_head, the final norm whole), the
+   first loss within 1e-5 of phase 13 (b)'s, the loss falling; each
+   rank's peak memory, ms per step, and its tp all-reduces' and pp sends'
+   calls, bytes and seconds beside the GPipe bubble (S - 1) / (M + S - 1)
+   = 1/3. (c) The trained shards gathered into one tree on rank 0 and
+   served on K1 there, as phase 13 (c) does: the CPU's greedy tokens,
+   num_layers x decode steps launches.
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
 for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
 11, ``train`` and ``embed`` lines for phase 13, ``tp`` lines for phase
-14, ``dp``, ``sp`` and ``dp bf16`` lines for phase 15, each phase's seconds
+14, ``dp``, ``sp`` and ``dp bf16`` lines for phase 15, a ``pp`` line for
+phase 16, each phase's seconds
 (``phase N took``) and the whole run's, a
 ``kernels`` JSON line (launches: each kernel's count over its
 engine's burst and session runs, phase 7's bursts for K1 and K4, phase
 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
 phase 10's runs for K1, K3 and K4, phase 11's runs for K1 and K4, and
-phase 12's ring runs for K1 and K4, phase 13's trained weights
-served on K1, and phases 14's and 15's runs on every rank for K1 and K4;
+phase 12's ring runs for K1 and K4, phase 13's and phase 16's trained
+weights served on K1, and phases 14's and 15's runs on every rank for K1
+and K4;
 times at the llama3-8b decode shape, and at the llama3-70b one beside
 them), then the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.
@@ -320,6 +344,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -343,6 +368,8 @@ from omnia_tpu_torch.ops import decode_attention as da
 from omnia_tpu_torch.memory import TorchEmbedder
 from omnia_tpu_torch.parallel.launch import spawn_ranks
 from omnia_tpu_torch.parallel.mesh import make_mesh
+from omnia_tpu_torch.parallel.pipeline import pipeline_forward
+from omnia_tpu_torch.parallel.sharding import P, gather_leaf, tree_map_specs
 from omnia_tpu_torch.runtime.providers import ProviderSpec, build_engine
 from omnia_tpu_torch.train import make_train_step
 from omnia_tpu_torch.train.trainer import leaves
@@ -2992,6 +3019,19 @@ EMBED_F32_ATOL = 1e-5
 EMBED_TIMED = 5
 
 
+def first_step_bound(p, a, b, lr: float, eps: float) -> torch.Tensor:
+    """How far apart two params p may lie after AdamW's first step from one
+    value, given their gradients a and b. Step 1 moves a param by lr * g /
+    (|g| + eps) (the bias corrections cancel), whose slope in g is eps /
+    (|g| + eps)^2: two gradients of one sign move it apart by at most lr |a
+    - b| eps / (min(|a|, |b|) + eps)^2, of opposite signs by lr |a - b| /
+    eps; beside that, 1e-5 lr for the update's own rounding and 4 f32 ulps
+    of the param."""
+    g_min = torch.where(a.sign() == b.sign(), torch.minimum(a.abs(), b.abs()), 0.0)
+    return (lr * ((a - b).abs() * eps / (g_min + eps) ** 2).clamp(max=2.0)
+            + 1e-5 * lr + 4 * torch.finfo(torch.float32).eps * p.abs())
+
+
 def train_check(card: str) -> dict:
     """Phase 13 (a): one train_step at llama3-1b width cut to 2 layers, f32,
     on the card and on the CPU from the same params and tokens (B = 1, T =
@@ -3000,12 +3040,7 @@ def train_check(card: str) -> dict:
     cut, so the host needs that much free memory.
     Held: the loss and every gradient leaf within TRAIN_RTOL of the CPU's
     (of the leaf's largest entry), and every param after the update within
-    what the two gradients imply. Step 1 of AdamW moves a param by lr * g /
-    (|g| + eps) (the bias corrections cancel), whose slope in g is eps /
-    (|g| + eps)^2: two gradients a and b of one sign move it apart by at
-    most lr |a - b| eps / (min(|a|, |b|) + eps)^2, of opposite signs by lr
-    |a - b| / eps; beside that, 1e-5 lr for the update's own rounding and
-    4 f32 ulps of the param."""
+    what the two gradients imply (``first_step_bound``)."""
     cfg = get_config("llama3-1b", num_layers=2)
     host_bytes = 16 * cfg.num_params()
     card_params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(13), "cuda",
@@ -3036,9 +3071,7 @@ def train_check(card: str) -> dict:
             if not err <= TRAIN_RTOL:
                 fail(f"phase 13 (a) {path}: gradient card vs CPU {err} of its largest entry")
             grad_err = max(grad_err, err)
-            g_min = torch.where(a.sign() == b.sign(), torch.minimum(a.abs(), b.abs()), 0.0)
-            bound = (lr * ((a - b).abs() * eps / (g_min + eps) ** 2).clamp(max=2.0)
-                     + 1e-5 * lr + 4 * torch.finfo(torch.float32).eps * p.abs())
+            bound = first_step_bound(p, a, b, lr, eps)
             dp = (p - q.cuda()).abs()
             ratio = (dp / bound).max().item()
             if not ratio <= 1.0:
@@ -3163,13 +3196,14 @@ def train_full(card: str):
     return state, tokens.cpu().numpy(), out
 
 
-def serve_trained(card: str, state, tokens: np.ndarray):
-    """Phase 13 (c): the trained params (requiring grad) served as they are
-    by an engine on the card (contiguous f32 cache, K1) and by one on the
-    CPU over detached copies: 4 greedy requests whose prompts open rows of
-    the training batch. The card's K1 launches must equal num_layers x
-    decode steps, its caches must stay out of autograd, and the tokens must
-    equal the CPU's. Returns (K1 launches, what was measured)."""
+def serve_trained(card: str, state, tokens: np.ndarray, phase: str = "phase 13 (c)"):
+    """Phase 13 (c) (and 16 (c)): the trained params (requiring grad)
+    served as they are by an engine on the card (contiguous f32 cache, K1)
+    and by one on the CPU over detached copies: 4 greedy requests whose
+    prompts open rows of the training batch. The card's K1 launches must
+    equal num_layers x decode steps, its caches must stay out of autograd,
+    and the tokens must equal the CPU's. Returns (K1 launches, what was
+    measured)."""
     cfg = get_config("llama3-1b")
     fields = dict(num_slots=4, max_seq=128, prefill_buckets=(32,), dtype="float32",
                   max_sessions=0)
@@ -3185,9 +3219,9 @@ def serve_trained(card: str, state, tokens: np.ndarray):
     engine = InferenceEngine(cfg, EngineConfig(**fields), params=state.params, seed=0,
                              device="cuda")
     got, launches = checked_launches("K1", engine, lambda: greedy(engine),
-                                     "phase 13 (c) K1 llama3-1b trained f32")
+                                     f"{phase} K1 llama3-1b trained f32")
     if engine._ck.requires_grad or engine._ck.grad_fn is not None:
-        fail("phase 13 (c): serving params that require grad recorded an autograd graph")
+        fail(f"{phase}: serving params that require grad recorded an autograd graph")
     steps = engine.metrics["decode_steps"]
     del engine
     t0 = time.monotonic()
@@ -3196,11 +3230,11 @@ def serve_trained(card: str, state, tokens: np.ndarray):
                                   device="cpu"))
     cpu_s = time.monotonic() - t0
     if got != want:
-        fail(f"phase 13 (c): the card's greedy tokens part from the CPU's at "
+        fail(f"{phase}: the card's greedy tokens part from the CPU's at "
              f"{first_divergence(got, want)}")
     out = dict(requests=len(prompts), tokens=sum(map(len, got)), decode_steps=steps,
                launches=launches, cpu_engine_s=cpu_s)
-    print("phase 13 (c) trained weights served " + json.dumps(out), flush=True)
+    print(f"{phase} trained weights served " + json.dumps(out), flush=True)
     return launches, out
 
 
@@ -3298,7 +3332,7 @@ def training(card: str) -> dict:
     11 (every earlier weight freed): (a) train card vs CPU, (b) llama3-1b
     trained at full size, (c) its trained weights served, (d) the
     embedding forward and TorchEmbedder at llama3-8b. Returns K1's
-    launches."""
+    launches and (b)'s first loss (phase 16 (b) holds its own to it)."""
     gc.collect()
     torch.cuda.empty_cache()
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -3317,7 +3351,7 @@ def training(card: str) -> dict:
     embed = embed_check(card)
     print("train " + json.dumps(dict(train, check=check, served=served)), flush=True)
     print("embed " + json.dumps(embed), flush=True)
-    return {"K1": launches}
+    return {"K1": launches}, train["losses"][0]
 
 
 # -- phase 14 --------------------------------------------------------------
@@ -4136,6 +4170,230 @@ def moe_check_tp(card: str, ref: dict, ranks: list, cfg) -> None:
         launches_per_rank=[r["launches"] for r in ranks])), flush=True)
 
 
+# -- phase 16 --------------------------------------------------------------
+
+# Phase 16: pipeline parallelism and the sharded trainer, ranks of one gloo
+# group sharing the card. (a) llama3-1b width cut to PP_LAYERS layers, f32:
+# pp = 2 x tp = 2 and dp = 2 x tp = 2 against one rank; (b) llama3-1b whole
+# at pp = 2 x tp = 2 (phase 13 (b)'s seed and batch); (c) its weights,
+# gathered, served on K1.
+PP_MODEL = "llama3-1b"
+PP_LAYERS = 4
+PP_SEED = 16
+PP_CHECK_BATCH = (4, 33)                   # (a): 32 input tokens a row
+PP_COUNTS = (1, 2, 4)
+PP_MESHES = {"pp2_tp2": dict(pp=2, tp=2), "dp2_tp2": dict(dp=2, tp=2)}
+PP_TOL = 1e-4                              # f32, TF32 off: summation order only
+PP_LOSS_RTOL = 1e-5
+PP_FULL = dict(pp=2, tp=2)
+PP_MICROBATCHES = 2
+PP_STEPS = 3
+PP_KV_SPEC = P("pp", None, None, "tp", None)       # a stage's KV chunk
+
+
+def pp_rank_bytes(cfg, pp: int, tp: int) -> int:
+    """One rank's f32 params under param_specs_pp: its 1 / (pp tp) of every
+    projection, 1 / pp of the layer norms, 1 / tp of embed and of lm_head,
+    and the final norm whole."""
+    L, D, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    projections = 2 * D * cfg.q_dim + 2 * D * cfg.kv_dim + 3 * D * cfg.ffn_hidden_size
+    return 4 * (L * projections // (pp * tp) + 2 * L * D // pp + 2 * V * D // tp + D)
+
+
+def pp_reference(cfg, tok, pos) -> dict:
+    """(a)'s one-rank side, on rank 0: the same seeded tree whole, its
+    prefill and one train_step (the grads and the updated params kept,
+    the moments dropped)."""
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(PP_SEED),
+                               TP_DEVICE, dtype=torch.float32)
+    with torch.no_grad():
+        ref = dict(zip(("logits", "k", "v"),
+                       llama.forward_prefill(params, cfg, tok[:, :-1], pos)))
+    init_fn, step = make_train_step(cfg, device=TP_DEVICE)
+    state, loss = step(init_fn(params=params), tok)
+    opt = state.opt_state.defaults
+    ref.update(loss=float(loss), lr=opt["lr"], eps=opt["eps"],
+               grads={path: p.grad for path, p in leaves(params)},
+               params={path: p.detach() for path, p in leaves(params)})
+    return ref
+
+
+def pp_check(rank: int) -> dict:
+    """(a) on one of four ranks: per mesh of PP_MESHES, init_fn's slices of
+    the seeded tree; under pp, pipeline_forward at each M of PP_COUNTS
+    (logits, and the KV chunks gathered); one train_step, its gradient
+    and updated params gathered leaf by leaf. Rank 0 holds each against
+    the one-rank reference (pp_reference) and returns the errors."""
+    cfg = get_config(PP_MODEL, num_layers=PP_LAYERS)
+    B, T = PP_CHECK_BATCH
+    tok = torch.from_numpy(np.random.default_rng(PP_SEED).integers(
+        0, cfg.vocab_size, PP_CHECK_BATCH).astype(np.int32)).to(TP_DEVICE)
+    pos = torch.arange(T - 1, dtype=torch.int32, device=TP_DEVICE).expand(B, -1)
+    ref = pp_reference(cfg, tok, pos) if rank == 0 else None
+    out = {}
+    for label, dims in PP_MESHES.items():
+        mesh = make_mesh(**dims)
+        init_fn, step = make_train_step(cfg, mesh=mesh, device=TP_DEVICE)
+        state = init_fn(torch.Generator(device=TP_DEVICE).manual_seed(PP_SEED))
+        res = {}
+        if "pp" in dims:
+            for m in PP_COUNTS:
+                with torch.no_grad():
+                    got = dict(zip(("logits", "k", "v"), pipeline_forward(
+                        state.params, cfg, tok[:, :-1], pos, mesh, m)))
+                    got["k"], got["v"] = (gather_leaf(got[n], PP_KV_SPEC, mesh) for n in "kv")
+                if ref is not None:
+                    res[f"forward_err_M{m}"] = {n: (got[n] - ref[n]).abs().max().item()
+                                                for n in got}
+                del got
+        state, loss = step(state, tok)
+        res["loss"] = float(loss)
+        grad_err, ratio = {}, 0.0
+        specs = dict(leaves(llama.mesh_param_specs(cfg, mesh)))
+        for path, p in leaves(state.params):
+            g, w = (gather_leaf(x, specs[path], mesh) for x in (p.grad, p.detach()))
+            if ref is not None:
+                b = ref["grads"][path]
+                grad_err[path] = ((g - b).abs().max() / b.abs().max()).item()
+                bound = first_step_bound(w, g, b, ref["lr"], ref["eps"])
+                ratio = max(ratio, ((w - ref["params"][path]).abs() / bound).max().item())
+            del g, w
+        if ref is not None:
+            res.update(loss_ref=ref["loss"], grad_err_of_largest=grad_err,
+                       param_worst_share_of_bound=ratio)
+        out[label] = res
+        del state, step, init_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_full(rank: int, card: str) -> dict:
+    """(b) and (c) on one of four ranks: llama3-1b whole at pp = 2 x tp =
+    2, drawn by init_fn from phase 13 (b)'s seed, PP_STEPS train_steps on
+    phase 13 (b)'s batch with PP_MICROBATCHES microbatches: each step's
+    loss and host ms (synchronized), this rank's params bytes, peak memory
+    and its tp and pp collectives' calls, bytes and seconds. Then the
+    trained tree gathered leaf by leaf onto rank 0, which serves it on K1
+    (serve_trained)."""
+    cfg = get_config(PP_MODEL)
+    mesh = make_mesh(**PP_FULL)
+    init_fn, step = make_train_step(cfg, mesh=mesh, num_microbatches=PP_MICROBATCHES,
+                                    device=TP_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(torch.Generator(device=TP_DEVICE).manual_seed(13))
+    out = dict(params_bytes=sum(p.numel() * p.element_size() for _, p in leaves(state.params)))
+    tokens = np.random.default_rng(13).integers(0, cfg.vocab_size, TRAIN_BATCH).astype(np.int32)
+    tok = torch.from_numpy(tokens).to(TP_DEVICE)
+    losses, ms = [], []
+    for _ in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tok)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    # A copy: (c)'s gathers count on the same Comms.
+    out.update(losses=losses, step_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+               op_stats=json.loads(json.dumps({axis: mesh.comm(axis).op_stats
+                                               for axis in ("tp", "pp")})))
+    params = _to(state.params, TP_DEVICE)
+    del state, step, init_fn                   # the grads and AdamW's moments
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def keep(spec, x):
+        whole = gather_leaf(x, spec, mesh)     # a collective: every rank gathers
+        return whole if rank == 0 else None
+
+    tree = tree_map_specs(keep, llama.param_specs_pp(cfg), params)
+    if rank == 0:
+        out["launches"], out["served"] = serve_trained(
+            card, types.SimpleNamespace(params=tree), tokens, "phase 16 (c)")
+    return out
+
+
+def pp_rank(rank: int, card: str) -> dict:
+    """Phase 16 on one rank of four (spawned): (a), then (b) and (c)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "check": pp_check(rank)}
+    out.update(pp_full(rank, card))
+    return out
+
+
+def pipeline_parallel(card: str, first_loss: float) -> dict:
+    """Phase 16: pipeline parallelism and the sharded trainer, each rank a
+    spawned process of one gloo group on the one card. ``first_loss`` is
+    phase 13 (b)'s, on the same seed and batch. Returns K1's launches."""
+    print("phase 16: the pp and tp ranks share one card, so their group is gloo; every "
+          "collective and every stage-to-stage send is staged through host memory, and the "
+          "one card shows correctness, bytes and what staging costs, no multi-card speed",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    try:
+        ranks = spawn_ranks(pp_rank, 4, args=(card,), backend="gloo", env=DPSP_ENV,
+                            timeout_s=900)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 16: {e}")
+    spawn_s = time.monotonic() - t0
+    check = ranks[0]["check"]
+    for label, res in check.items():
+        for m in PP_COUNTS if label == "pp2_tp2" else ():
+            errs = res[f"forward_err_M{m}"]
+            if not max(errs.values()) <= PP_TOL:
+                fail(f"phase 16 (a) {label} M={m}: logits and KV differ from one rank's "
+                     f"prefill by {errs}")
+        for r in ranks:
+            loss = r["check"][label]["loss"]
+            if not abs(loss - res["loss_ref"]) <= PP_LOSS_RTOL * abs(res["loss_ref"]):
+                fail(f"phase 16 (a) {label}: rank {r['rank']}'s loss {loss}, one rank's "
+                     f"{res['loss_ref']}")
+        worst = max(res["grad_err_of_largest"], key=res["grad_err_of_largest"].get)
+        if not res["grad_err_of_largest"][worst] <= PP_TOL:
+            fail(f"phase 16 (a) {label} {worst}: gradient {res['grad_err_of_largest'][worst]} "
+                 "of its largest entry from one rank's")
+        if not res["param_worst_share_of_bound"] <= 1.0:
+            fail(f"phase 16 (a) {label}: params after the update "
+                 f"{res['param_worst_share_of_bound']:.3g} x their bound")
+    cfg = get_config(PP_MODEL)
+    want_bytes = pp_rank_bytes(cfg, PP_FULL["pp"], PP_FULL["tp"])
+    for r in ranks:
+        if r["params_bytes"] != want_bytes:
+            fail(f"phase 16 (b): rank {r['rank']} holds {r['params_bytes']} params bytes, "
+                 f"reckoned {want_bytes}")
+        if not np.allclose(r["losses"], ranks[0]["losses"], rtol=PP_LOSS_RTOL, atol=0):
+            fail(f"phase 16 (b): rank {r['rank']}'s losses {r['losses']} differ from rank 0's")
+    losses = ranks[0]["losses"]
+    if first_loss is not None and not abs(losses[0] - first_loss) <= PP_LOSS_RTOL * abs(first_loss):
+        fail(f"phase 16 (b): first loss {losses[0]}, phase 13 (b)'s {first_loss}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 16 (b): the loss did not fall over {PP_STEPS} steps: {losses}")
+    S, M = PP_FULL["pp"], PP_MICROBATCHES
+
+    def per_step(axis: str) -> dict:
+        return {op: {k: v / PP_STEPS for k, v in st.items()}
+                for op, st in ranks[0]["op_stats"][axis].items()}
+
+    print("pp " + json.dumps(dict(
+        card=card, spawn_and_run_s=spawn_s,
+        check=dict(model=f"{PP_MODEL} width, {PP_LAYERS} layers, f32",
+                   batch=list(PP_CHECK_BATCH), tolerance=PP_TOL, loss_rtol=PP_LOSS_RTOL,
+                   **{label: dict(res, grad_err_of_largest=max(
+                       res["grad_err_of_largest"].values())) for label, res in check.items()}),
+        train=dict(model=f"{PP_MODEL}, {cfg.num_layers} layers, f32", mesh=PP_FULL,
+                   microbatches=M, batch=list(TRAIN_BATCH), losses=losses,
+                   phase13_first_loss=first_loss,
+                   step_ms_per_rank=[r["step_ms"] for r in ranks],
+                   params_bytes_per_rank=[r["params_bytes"] for r in ranks],
+                   params_bytes_reckoned=want_bytes,
+                   peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+                   rank0_tp_per_step=per_step("tp"), rank0_pp_per_step=per_step("pp"),
+                   gpipe_bubble=(S - 1) / (M + S - 1)),
+        served=ranks[0]["served"])), flush=True)
+    return {"K1": ranks[0]["launches"]}
+
+
 def main() -> None:
     t_script = time.monotonic()
     card = device_line()
@@ -4179,7 +4437,8 @@ def main() -> None:
     for label, n in ops_layer(card).items():
         launches[label] += n
     t = lap("phase 11", t)
-    for label, n in training(card).items():
+    trained, first_loss = training(card)
+    for label, n in trained.items():
         launches[label] += n
     t = lap("phase 13", t)
     for label, n in tensor_parallel(card).items():
@@ -4187,8 +4446,11 @@ def main() -> None:
     t = lap("phase 14", t)
     for label, n in data_sequence_parallel(card).items():
         launches[label] += n
-    lap("phase 15", t)
-    lap("phases 1-15", t_script)
+    t = lap("phase 15", t)
+    for label, n in pipeline_parallel(card, first_loss).items():
+        launches[label] += n
+    lap("phase 16", t)
+    lap("phases 1-16", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
     main_case, case_70b = cases[0], cases[4]
     entries = []

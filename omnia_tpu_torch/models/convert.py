@@ -47,14 +47,14 @@ def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None, mesh=None
     ``device``, its floating weights cast to ``dtype`` (default: each
     leaf's own dtype). A quantized weight's int8 values and f32 scales
     keep their dtypes. With a ``mesh`` (and the model's ``cfg``) the
-    result is this rank's slice by ``llama.param_specs`` (quantized:
+    result is this rank's slice by ``llama.mesh_param_specs`` (quantized:
     ``quant.quantize_param_specs``), cut on the host before it moves."""
     if mesh is None:
         return _convert(tree, device, dtype)
-    from omnia_tpu_torch.models.llama import param_specs
+    from omnia_tpu_torch.models.llama import mesh_param_specs
     from omnia_tpu_torch.parallel.sharding import shard_pytree
 
-    specs = param_specs(cfg)
+    specs = mesh_param_specs(cfg, mesh)
     mode = quant.detect_mode(tree)
     if mode is not None:
         specs = quant.quantize_param_specs(specs, cfg, mode)

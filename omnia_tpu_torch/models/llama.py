@@ -27,7 +27,13 @@
   vocab-parallel embedding lookup. Head counts come from the local
   weights' shapes. Under tp the forwards return this rank's vocab slice
   of the logits; ``gather_logits`` joins what a sampler reads. With
-  ``tp=None`` no collective runs.
+  ``tp=None`` no collective runs. Under autograd the collectives carry
+  their transposes (``parallel/collectives.py``): the normed activation
+  entering q/k/v, ``wg``/``wu``, the experts and the head goes through
+  ``copy_in``, whose gradient is summed over tp, so a replicated leaf
+  (the norms, the router) gets the whole gradient on every rank.
+- **Pipeline parallelism** (``param_specs_pp``): the stacked layer axis
+  split over "pp"; ``parallel/pipeline.py`` runs the stages.
 - **Sequence parallelism** (``sp``, the "sp" axis's Comm):
   ``forward_prefill_ring`` runs a long fresh prompt's rows in blocks, one
   per sp rank, with ring attention over the ranks. The caches are
@@ -62,7 +68,7 @@ from omnia_tpu_torch.ops.attention import gqa_attention
 from omnia_tpu_torch.ops.moe import moe_mlp
 from omnia_tpu_torch.ops.norms import rms_norm
 from omnia_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from omnia_tpu_torch.parallel.collectives import Comm, all_gather, all_reduce_sum
+from omnia_tpu_torch.parallel.collectives import Comm, all_gather, all_reduce_sum, copy_in
 from omnia_tpu_torch.parallel.sharding import P, shard_leaf
 
 
@@ -77,18 +83,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     by tensor directly in ``dtype`` on ``device`` (the generator's device),
     so no f32 copy of the model ever exists. Same shapes and stds as the
     JAX package; not the same numbers. With a ``mesh`` each leaf is cut to
-    this rank's slice (``param_specs``) as soon as it is drawn: the
+    this rank's slice (``mesh_param_specs``) as soon as it is drawn: the
     values are the unsharded tree's, and one whole leaf at most exists."""
     L, D, F_, V = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
-    specs = param_specs(cfg)
+    specs = mesh_param_specs(cfg, mesh)
+
+    def cut(t, spec):
+        return t if mesh is None else shard_leaf(t, spec, mesh)
 
     def normal(shape, spec, std=0.02):
         t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
         t.mul_(std)
-        return t if mesh is None else shard_leaf(t, spec, mesh)
+        return cut(t, spec)
 
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=dtype)
+    def ones(shape, spec):
+        return cut(torch.ones(shape, device=device, dtype=dtype), spec)
 
     out_std = 0.02 / (2 * L) ** 0.5
     sa, sm = specs["layers"]["attn"], specs["layers"]["mlp"]
@@ -109,8 +118,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params = {
         "embed": normal((V, D), specs["embed"]),
         "layers": {
-            "ln1": ones((L, D)),
-            "ln2": ones((L, D)),
+            "ln1": ones((L, D), specs["layers"]["ln1"]),
+            "ln2": ones((L, D), specs["layers"]["ln2"]),
             "attn": {
                 "wq": normal((L, D, cfg.q_dim), sa["wq"]),
                 "wk": normal((L, D, cfg.kv_dim), sa["wk"]),
@@ -119,7 +128,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             },
             "mlp": mlp,
         },
-        "final_norm": ones((D,)),
+        "final_norm": ones((D,), specs["final_norm"]),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V), specs["lm_head"])
@@ -164,6 +173,31 @@ def param_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = P(None, "tp")
     return specs
+
+
+def param_specs_pp(cfg: ModelConfig) -> dict:
+    """``param_specs`` with the stacked layer axis split over "pp" as
+    well: each pipeline stage holds its contiguous L / pp layers, each
+    sliced over "tp" as before. embed, the final norm and lm_head stay
+    replicated over "pp"."""
+    specs = param_specs(cfg)
+
+    def stage(tree):
+        if isinstance(tree, P):
+            return P("pp", *tree[1:])
+        return {k: stage(v) for k, v in tree.items()}
+
+    specs["layers"] = stage(specs["layers"])
+    return specs
+
+
+def mesh_param_specs(cfg: ModelConfig, mesh) -> dict:
+    """The spec tree a tree on ``mesh`` is cut by: ``param_specs_pp`` when
+    the mesh has a "pp" axis (only a pipeline runs on one), else
+    ``param_specs``."""
+    if mesh is not None and "pp" in mesh.axis_names:
+        return param_specs_pp(cfg)
+    return param_specs(cfg)
 
 
 def kv_cache_specs(kv_quant=None) -> tuple:
@@ -220,6 +254,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, device,
 
 
 def _dense_mlp(h, p, tp: Optional[Comm]):
+    h = copy_in(h, tp)
     gate = qdot(h, p["wg"])
     up = qdot(h, p["wu"])
     return qdot(F.silu(gate) * up, p["wd"], tp)
@@ -286,7 +321,7 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
     ``attn_fn(q, k, v, q_positions)`` replaces the attention op (the ring
     prefill's)."""
     B, T, _ = x.shape
-    h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    h = copy_in(rms_norm(x, p["ln1"], cfg.rms_norm_eps), tp)
     q = qdot(h, p["attn"]["wq"]).reshape(B, T, -1, cfg.head_dim)
     k = qdot(h, p["attn"]["wk"]).reshape(B, T, -1, cfg.head_dim)
     v = qdot(h, p["attn"]["wv"]).reshape(B, T, -1, cfg.head_dim)
@@ -317,24 +352,29 @@ def _check_tp(params, cfg: ModelConfig, tp: Optional[Comm]) -> None:
                          f"not a tp={n} slice")
 
 
-def _embed(params, cfg: ModelConfig, tokens, tp: Optional[Comm]):
-    """The embedding lookup; under tp vocab-parallel: each rank looks up
-    the ids in its vocab slice (zero rows elsewhere) and the SUM over
-    ranks gives every row once."""
-    table = params["embed"]
-    if tp is None:
-        return table[tokens]
+def _vocab_rows(table, tokens, tp: Comm):
+    """(row of each id in this rank's vocab slice, clamped; whether the id
+    lies in the slice)."""
     V = table.shape[0]
     local = tokens.long() - tp.index * V
     inside = (local >= 0) & (local < V)
-    rows = table[local.clamp(0, V - 1)] * inside[..., None].to(table.dtype)
-    return all_reduce_sum(rows, tp)
+    return local.clamp(0, V - 1), inside
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _lookup(table, tokens, tp: Optional[Comm]):
+    """The embedding lookup; under tp vocab-parallel: each rank looks up
+    the ids in its vocab slice (zero rows elsewhere) and the SUM over
+    ranks gives every row once."""
+    if tp is None:
+        return table[tokens]
+    local, inside = _vocab_rows(table, tokens, tp)
+    return all_reduce_sum(table[local] * inside[..., None].to(table.dtype), tp)
+
+
+def _logits(params, cfg: ModelConfig, x, tp: Optional[Comm] = None):
     """f32 logits over the local vocabulary: all of it, or this rank's
     slice under tp (``gather_logits`` joins them)."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    x = copy_in(rms_norm(x, params["final_norm"], cfg.rms_norm_eps), tp)
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"].T).float()
     return qdot(x, params["lm_head"]).float()
@@ -342,8 +382,8 @@ def _logits(params, cfg: ModelConfig, x):
 
 def gather_logits(logits, tp: Optional[Comm]):
     """The whole vocabulary's logits from each rank's slice (the logits
-    a sampler reads; identical bytes on every rank). With ``tp=None`` the
-    logits themselves."""
+    a sampler or a loss reads; identical bytes on every rank; the
+    gradient's slice goes back). With ``tp=None`` the logits themselves."""
     return all_gather(logits, tp, dim=-1)
 
 
@@ -361,7 +401,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, q_positions,
     engine to place. ``attn_fn`` overrides the attention op (the ring
     prefill's)."""
     _check_tp(params, cfg, tp)
-    x = _embed(params, cfg, tokens, tp)
+    x = _lookup(params["embed"], tokens, tp)
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     ks, vs = [], []
@@ -369,7 +409,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, q_positions,
         x, k, v = _layer(x, p, cfg, cos, sin, q_positions, None, None, None, tp, attn_fn)
         ks.append(k)
         vs.append(v)
-    return _logits(params, cfg, x), torch.stack(ks), torch.stack(vs)
+    return _logits(params, cfg, x, tp), torch.stack(ks), torch.stack(vs)
 
 
 def sp_rows(T: int, sp: Optional[Comm]) -> tuple[int, int]:
@@ -426,14 +466,14 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
     Returns (logits [B, T, V] f32 (this rank's vocab slice under tp),
     cache_k, cache_v)."""
     _check_tp(params, cfg, tp)
-    x = _embed(params, cfg, tokens, tp)
+    x = _lookup(params["embed"], tokens, tp)
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     index = _write_index(cache_k, write_start, tokens.shape[1])
     for i, p in enumerate(_layers(params)):
         x, _, _ = _layer(x, p, cfg, cos, sin, q_positions,
                          _layer_cache(cache_k, i), _layer_cache(cache_v, i), index, tp)
-    return _logits(params, cfg, x), cache_k, cache_v
+    return _logits(params, cfg, x, tp), cache_k, cache_v
 
 
 def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
@@ -441,7 +481,7 @@ def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
     T] → the last layer's output [B, T, D], before the final norm."""
     _check_tp(params, cfg, tp)
     B, T = tokens.shape
-    x = _embed(params, cfg, tokens, tp)
+    x = _lookup(params["embed"], tokens, tp)
     q_positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     for p in _layers(params):
@@ -465,7 +505,9 @@ def forward_embed(params, cfg: ModelConfig, tokens, mask, tp: Optional[Comm] = N
 def forward_train(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
     """Full causal forward with no cache (training and scoring): tokens
     int [B, T] → logits [B, T, V] f32, the whole vocabulary on every rank
-    under tp. Differentiable for T > 1 without tp; a T == 1 call on the
-    card runs the decode kernel, which has no backward and refuses inputs
-    that need a gradient."""
-    return gather_logits(_logits(params, cfg, _hidden(params, cfg, tokens, tp)), tp)
+    under tp. Differentiable for T > 1, under tp too: each sliced leaf
+    gets its slice of the whole gradient and each replicated one the
+    whole gradient, on every rank. A T == 1 call on the card runs the
+    decode kernel, which has no backward and refuses inputs that need a
+    gradient."""
+    return gather_logits(_logits(params, cfg, _hidden(params, cfg, tokens, tp), tp), tp)

@@ -29,7 +29,9 @@ JAX package's tokens calls with its shapes and its pad rows.
   whole. Routing and the capacity C (over the global E) are computed on
   every rank alike, so the kept and dropped assignments are the
   single-device ones; each rank runs only its experts' rows and the
-  partial outputs are summed over the ranks.
+  partial outputs are summed over the ranks. Under autograd the tokens
+  entering the experts and the combine weights pass ``copy_in``, so the
+  router and the activations get the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum
+from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum, copy_in
 
 
 def route_sparse(h: torch.Tensor, router_w: torch.Tensor, num_experts_per_tok: int):
@@ -82,8 +84,8 @@ def moe_dense(h: torch.Tensor, p: dict, num_experts_per_tok: int,
     combine = route_topk(h, p["router"], num_experts_per_tok).reshape(B * T, -1)  # [BT, E]
     if comm is not None:
         e0, n = _local_experts(p, comm)
-        combine = combine[:, e0:e0 + n]
-    expert_out = _experts(h.reshape(1, B * T, d), p)                     # [E, BT, d]
+        combine = copy_in(combine, comm)[:, e0:e0 + n]
+    expert_out = _experts(copy_in(h, comm).reshape(1, B * T, d), p)      # [E, BT, d]
     out = torch.einsum("ne,end->nd", combine.to(h.dtype), expert_out)
     return all_reduce_sum(out, comm).reshape(B, T, d)
 
@@ -104,7 +106,7 @@ def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
     flat = h.reshape(N, d)
     top_w, top_i = route_sparse(flat, p["router"], K)                    # [N, K]
     e_flat = top_i.reshape(NK)                                           # token-major
-    w_flat = top_w.reshape(NK)
+    w_flat = copy_in(top_w, comm).reshape(NK)
     tok_of = torch.arange(N, device=dev).repeat_interleave(K)
 
     order = torch.argsort(e_flat, stable=True)
@@ -118,7 +120,7 @@ def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
     dest = torch.where(keep, e_s * capacity + pos, E * capacity)
 
     xs = torch.zeros((E * capacity + 1, d), dtype=flat.dtype, device=dev)
-    xs[dest] = flat[t_s]              # only the trash row receives duplicates
+    xs[dest] = copy_in(flat, comm)[t_s]   # only the trash row receives duplicates
     e0, n = _local_experts(p, comm)
     lo, hi = e0 * capacity, (e0 + n) * capacity
     ys = _experts(xs[lo:hi].view(n, capacity, d), p)                     # [E/tp, C, d]

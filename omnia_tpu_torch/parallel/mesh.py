@@ -12,19 +12,18 @@ job: the axes' sizes, this rank's coordinate on each, and one process
 group (a :class:`~omnia_tpu_torch.parallel.collectives.Comm`) per axis
 of more than one rank. Ranks are laid out in the JAX package's axis
 order, ("dp", "pp", "sp", "tp"), tp the fastest-varying: rank
-``(d * sp + s) * tp + t`` sits at dp = d, sp = s, tp = t.
+``((d * pp + p) * sp + s) * tp + t`` sits at dp = d, pp = p, sp = s,
+tp = t.
 
-An axis's group holds the ranks that differ only on that axis: each dp
-shard has its own tp group, each (dp, tp) pair its own sp ring, each
-(sp, tp) pair its own dp group. ``dist.new_group`` is collective over
+An axis's group holds the ranks that differ only on that axis: each (dp,
+pp, sp) position has its own tp group, each (dp, sp, tp) position its
+own pipeline of pp stages, each (dp, pp, tp) one its own sp ring, each
+(pp, sp, tp) one its own dp group. ``dist.new_group`` is collective over
 the whole job, so every rank creates every group of every axis, in one
 fixed order, including the groups it is not in; a job keeps the groups
 of each mesh shape it made, so that the engine and its checkpoint
 loader share them. An axis that spans the whole job uses the default
 group.
-
-The pipeline axis is not ported: a degree above 1 on "pp" raises,
-naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,9 +34,6 @@ from typing import Optional
 import torch.distributed as dist
 
 from omnia_tpu_torch.parallel.collectives import Comm
-
-# Axes whose degree may not exceed 1 yet: (axis, ROADMAP item).
-_UNPORTED_AXES = (("pp", "A13 (c)"),)
 
 # The groups made for each mesh shape of this job: {(dims, world group):
 # {axis: group}}. new_group is collective, so a shape's groups are made
@@ -120,14 +116,8 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
     n = dp * tp * sp * pp
     if world < n:
         raise ValueError(f"mesh {dp}x{pp}x{sp}x{tp} needs {n} devices, have {world}")
-    for axis, item in _UNPORTED_AXES:
-        degree = {"pp": pp}[axis]
-        if degree > 1:
-            raise ValueError(f"mesh axis {axis}={degree} is not ported to "
-                             f"omnia_tpu_torch yet (ROADMAP {item})")
-    dims = {"dp": dp, "sp": sp, "tp": tp}
-    shape = {name: size for name, size in (("dp", dp), ("pp", pp), ("sp", sp), ("tp", tp))
-             if size > 1 or name in ("dp", "tp")}
+    dims = {"dp": dp, "pp": pp, "sp": sp, "tp": tp}
+    shape = {name: size for name, size in dims.items() if size > 1 or name in ("dp", "tp")}
     label = ", ".join(f"{a}={s}" for a, s in dims.items() if s > 1)
     comms = {}
     if n > 1:

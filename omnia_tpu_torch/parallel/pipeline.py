@@ -1,0 +1,183 @@
+"""Pipeline parallelism: the GPipe schedule over the mesh's "pp" axis
+(port of ``omnia_tpu/parallel/pipeline.py``).
+
+Each pp stage holds L / pp contiguous layers (``llama.param_specs_pp``
+splits the stacked layer axis, so a stage's tree is the model's tree with
+fewer layers). A batch is cut into M microbatches and run in M + S - 1
+ticks: at tick t stage s runs microbatch t - s through its layers and
+keeps that microbatch's KV, then sends its output to stage s + 1
+(``collectives.stage_send``: JAX's ``ppermute`` with pairs (i, i + 1) and
+no S - 1 -> 0 edge; the send and the receive of a tick posted together).
+The last stage's outputs are broadcast, as bytes, to every stage, where
+the JAX package reduces them in f32 (exact either way: the other stages
+add zeros), and every rank computes the head.
+
+tp runs inside each stage as in ``llama._layer``. Under dp each shard
+takes its contiguous B / dp rows of the batch and cuts those into the M
+microbatches (GSPMD cuts the whole batch; the math is the same, row by
+row).
+
+**Gradients.** The schedule is differentiable, as JAX's ``lax.scan`` is:
+the sends carry their transposes, and a scalar token, threaded through
+the embedding lookup, every send and the output broadcast, makes each
+rank's backward reach every send of its stage in one order (last tick
+first), even a stage whose output the loss never reads. Only stage 0
+looks the tokens up; going back, the lookup's gradient is broadcast from
+stage 0 over "pp", so every stage's ``embed`` gets it once, and the head's
+part, which every stage computes alike, once too.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from omnia_tpu_torch.models.config import ModelConfig
+from omnia_tpu_torch.parallel.collectives import Comm, all_gather, broadcast, copy_in, stage_send
+
+
+class _Lookup(torch.autograd.Function):
+    """Stage 0's embedding lookup (vocab-parallel under tp: a SUM of each
+    rank's rows), an empty tensor on the other stages. Backward: stage 0's
+    gradient of the looked-up rows, broadcast over "pp", lands on this
+    rank's rows of the table on every stage."""
+
+    @staticmethod
+    def forward(ctx, token, table, tokens, shape, tp: Optional[Comm], pp: Comm):
+        from omnia_tpu_torch.models.llama import _lookup
+
+        ctx.save_for_backward(tokens)
+        ctx.tp, ctx.pp, ctx.shape, ctx.table = tp, pp, shape, (table.shape, table.dtype)
+        rows = table.new_empty(0) if pp.index else _lookup(table, tokens, tp)
+        return token.clone(), rows
+
+    @staticmethod
+    def backward(ctx, g_token, g_rows):
+        from omnia_tpu_torch.models.llama import _vocab_rows
+
+        (tokens,) = ctx.saved_tensors
+        (V, D), dtype = ctx.table
+        if ctx.pp.index:
+            g_rows = torch.empty(ctx.shape, dtype=dtype, device=tokens.device)
+        g_rows = ctx.pp.broadcast(g_rows.contiguous(), 0, "broadcast_backward").reshape(-1, D)
+        g_table = torch.zeros((V, D), dtype=dtype, device=tokens.device)
+        if ctx.tp is None:
+            g_table.index_add_(0, tokens.reshape(-1).long(), g_rows)
+        else:
+            local, inside = _vocab_rows(g_table, tokens, ctx.tp)
+            g_table.index_add_(0, local.reshape(-1), g_rows * inside.reshape(-1, 1).to(dtype))
+        return g_token, g_table, None, None, None, None
+
+
+def check_schedule(B: int, cfg: ModelConfig, mesh, num_microbatches: Optional[int]) -> int:
+    """The microbatch count M (default: the pp size), after JAX's two
+    checks and the port's own: each dp shard's B / dp rows must split
+    into the M microbatches."""
+    S, dp = mesh.size("pp"), mesh.size("dp")
+    M = num_microbatches or S
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by {M} microbatches")
+    if cfg.num_layers % S:
+        raise ValueError(f"{cfg.num_layers} layers not divisible by pp={S}")
+    if B % (dp * M):
+        raise ValueError(f"batch {B} does not split into dp={dp} shards of {M} microbatches")
+    return M
+
+
+def dp_rows(B: int, mesh) -> slice:
+    """The contiguous rows of a B-row batch that this rank's dp shard runs."""
+    n = B // mesh.size("dp")
+    return slice(mesh.index("dp") * n, (mesh.index("dp") + 1) * n)
+
+
+def dp_params(params, mesh):
+    """The tree as each dp shard uses it: every leaf is replicated over
+    "dp", so going back its gradient is summed over the shards
+    (``copy_in``); the leaves themselves where autograd records nothing."""
+    dp = mesh.comm("dp")
+    if isinstance(params, dict):
+        return {k: dp_params(v, mesh) for k, v in params.items()}
+    return copy_in(params, dp)
+
+
+def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int,
+                  keep_kv: bool = True):
+    """This rank's part of the schedule over its dp shard's rows.
+
+    tokens, q_positions: int [b, T], the shard's rows; params: this rank's
+    slice by ``param_specs_pp``. Returns (the last stage's output [b, T,
+    D] on every stage, this stage's k_chunk, v_chunk [L / pp, b, T, Hkv /
+    tp, D], or None without ``keep_kv``)."""
+    from omnia_tpu_torch.models.llama import _check_tp, _layer, _layers, _lookup
+    from omnia_tpu_torch.ops.rope import rope_cos_sin
+
+    _check_tp(params, cfg, mesh.comm("tp"))
+    tp, pp = mesh.comm("tp"), mesh.comm("pp")
+    S, s = mesh.size("pp"), mesh.index("pp")
+    b, T = tokens.shape
+    mb = b // M
+    table = params["embed"]
+    shape = (b, T, cfg.hidden_size)
+    if pp is None:
+        x = _lookup(table, tokens, tp)
+    else:
+        token = torch.zeros((), device=tokens.device, requires_grad=torch.is_grad_enabled())
+        token, x = _Lookup.apply(token, table, tokens, shape, tp, pp)
+    cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    layers = _layers(params)
+    state, outs, ks, vs = None, [], [], []
+    for t in range(M + S - 1):
+        m = t - s
+        y = None
+        if 0 <= m < M:
+            rows = slice(m * mb, (m + 1) * mb)
+            h = x[rows] if s == 0 else state
+            kv = []
+            for p in layers:
+                h, k, v = _layer(h, p, cfg, cos[rows], sin[rows], q_positions[rows],
+                                 None, None, None, tp)
+                kv.append((k, v))
+            if keep_kv:
+                ks.append(torch.stack([k for k, _ in kv]))
+                vs.append(torch.stack([v for _, v in kv]))
+            if s == S - 1:
+                outs.append(h)
+            else:
+                y = h
+        like = None
+        if s > 0 and 0 <= m + 1 < M:
+            like = torch.empty((mb, T, cfg.hidden_size), dtype=table.dtype, device=table.device)
+        if y is not None or like is not None:
+            token, state = stage_send(token, y, like, pp)
+    out = torch.cat(outs) if s == S - 1 else torch.empty(shape, dtype=table.dtype,
+                                                         device=table.device)
+    if pp is not None:
+        _, out = broadcast(token, out, pp, S - 1)
+    if not keep_kv:
+        return out, None, None
+    return out, torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+
+
+def pipeline_forward(params, cfg: ModelConfig, tokens, q_positions, mesh,
+                     num_microbatches: Optional[int] = None):
+    """Pipelined fresh prefill over the mesh's "pp" axis, with
+    ``llama.forward_prefill``'s contract: tokens, q_positions int [B, T]
+    (the whole batch, on every rank) → (logits [B, T, V] f32 on every
+    rank, this stage's k_chunk, v_chunk [L / pp, B, T, Hkv / tp, D]).
+
+    B must divide by ``num_microbatches`` (default: the pp size, the
+    least M that keeps every stage busy between fill and drain), and
+    under dp each shard's B / dp rows too. Params must be this rank's
+    slice by ``llama.param_specs_pp``. Differentiable; the trainer's
+    ``pipeline_loss_fn`` differentiates the same schedule."""
+    from omnia_tpu_torch.models.llama import _logits, gather_logits
+
+    B, T = tokens.shape
+    M = check_schedule(B, cfg, mesh, num_microbatches)
+    rows = dp_rows(B, mesh)
+    params = dp_params(params, mesh)
+    out, k, v = stage_forward(params, cfg, tokens[rows], q_positions[rows], mesh, M)
+    logits = gather_logits(_logits(params, cfg, out, mesh.comm("tp")), mesh.comm("tp"))
+    dp = mesh.comm("dp")
+    return all_gather(logits, dp, dim=0), all_gather(k, dp, dim=1), all_gather(v, dp, dim=1)

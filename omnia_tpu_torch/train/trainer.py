@@ -2,7 +2,7 @@
 ``omnia_tpu/train/trainer.py``).
 
 - Next-token cross-entropy over ``llama.forward_train`` (log-softmax in
-  f32) and an AdamW update, on one device.
+  f32) and an AdamW update, on one device or over a mesh.
 - The default optimizer is ``optax.adamw(1e-4)``: AdamW with optax's
   betas, eps and weight decay (1e-4; ``torch.optim.AdamW``'s own default
   is 1e-2), the decay applied to every leaf, norms included, as optax's
@@ -14,8 +14,17 @@
   default, as in JAX). The trainer leaves
   ``torch.backends.cuda.matmul.allow_tf32`` at PyTorch's default (False),
   so an f32 product on the card is f32.
-- The dp/tp mesh and the pp-microbatched pipeline are ROADMAP A13:
-  ``mesh=``, ``num_microbatches=`` and ``pipeline_loss_fn`` raise.
+- **On a mesh** every rank holds its slice of the tree by
+  ``llama.param_specs`` (tp over heads, FFN, experts and vocab), or by
+  ``param_specs_pp`` when the mesh has "pp" (the layers split over the
+  stages; the step then runs ``pipeline_loss_fn``, the GPipe schedule of
+  ``parallel/pipeline.py``). Each rank takes the global batch and runs
+  its dp shard's contiguous rows; the loss is the global mean on every
+  rank. The collectives carry their transposes, so after ``backward``
+  each sliced leaf holds its slice of the global gradient and each
+  replicated leaf (over tp, pp or dp) the same global gradient on every
+  rank. AdamW is elementwise, and optax's default has no clipping, so the
+  sharded update is JAX's global one.
 """
 
 from __future__ import annotations
@@ -29,11 +38,11 @@ import torch
 from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.models import ModelConfig, llama
 from omnia_tpu_torch.models.convert import params_from_jax
+from omnia_tpu_torch.parallel.collectives import all_reduce_sum
+from omnia_tpu_torch.parallel.pipeline import check_schedule, dp_params, dp_rows, stage_forward
 
 # A factory over the parameter list, e.g. ``adamw(1e-4)``.
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
-
-_NOT_PORTED = "is not ported to omnia_tpu_torch yet (ROADMAP A13: the parallel paths)"
 
 
 @dataclasses.dataclass
@@ -61,17 +70,42 @@ def leaves(tree, path: str = "") -> list[tuple[str, object]]:
     return [(path, tree)]
 
 
-def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy. tokens: int [B, T]."""
-    logits = llama.forward_train(params, cfg, tokens[:, :-1])
+def _nll(logits, tokens):
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return nll.mean()
 
 
+def _global_mean(loss, mesh):
+    """The mean of the dp shards' losses (each a mean over as many rows)
+    on every rank; each shard's gradient is its share."""
+    return all_reduce_sum(loss, mesh.comm("dp")) / mesh.size("dp")
+
+
+def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy. tokens: int [B, T]. On a mesh
+    (without "pp") ``params`` is this rank's slice by ``param_specs``,
+    tokens the global batch, and the rank runs its dp shard's rows."""
+    if mesh is None:
+        return _nll(llama.forward_train(params, cfg, tokens[:, :-1]), tokens)
+    tokens = tokens[dp_rows(tokens.shape[0], mesh)]
+    logits = llama.forward_train(dp_params(params, mesh), cfg, tokens[:, :-1], mesh.comm("tp"))
+    return _global_mean(_nll(logits, tokens), mesh)
+
+
 def pipeline_loss_fn(params, cfg: ModelConfig, tokens, mesh, num_microbatches=None):
-    """The pp-microbatched loss of the JAX package."""
-    raise NotImplementedError(f"pipeline_loss_fn {_NOT_PORTED}")
+    """``loss_fn`` through the GPipe schedule over the mesh's "pp" axis
+    (``parallel/pipeline.py``): the same mean, ``params`` this rank's
+    slice by ``param_specs_pp``, tokens int [B, T] the global batch."""
+    B, T = tokens.shape
+    M = check_schedule(B, cfg, mesh, num_microbatches)
+    tokens = tokens[dp_rows(B, mesh)]
+    params = dp_params(params, mesh)
+    pos = torch.arange(T - 1, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0], -1)
+    out, _, _ = stage_forward(params, cfg, tokens[:, :-1], pos, mesh, M, keep_kv=False)
+    tp = mesh.comm("tp")
+    logits = llama.gather_logits(llama._logits(params, cfg, out, tp), tp)
+    return _global_mean(_nll(logits, tokens), mesh)
 
 
 def _start(params: dict, optimizer: OptimizerFactory, step: int = 0) -> TrainState:
@@ -87,19 +121,24 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[OptimizerFactory] = No
 
     init_fn(generator, dtype=torch.float32, params=None) -> TrainState:
     params drawn from ``generator`` on the device (``resolve_device``), or
-    the given params, which then become the state's own leaves.
+    the given params, which then become the state's own leaves. On a
+    ``mesh`` the drawn tree is cut to this rank's slice
+    (``llama.mesh_param_specs``: the whole tree's values), and given
+    params must be that slice already.
     train_step(state, tokens) -> (state, loss): one AdamW step in place;
     the same state comes back with ``step`` advanced, and each leaf's
-    ``.grad`` holds the step's gradient until the next step."""
-    if mesh is not None or num_microbatches is not None:
-        raise NotImplementedError(f"make_train_step(mesh=, num_microbatches=) {_NOT_PORTED}")
+    ``.grad`` holds the step's gradient until the next step. On a mesh
+    every rank passes the global batch and gets the global mean loss; a
+    mesh with "pp" runs ``pipeline_loss_fn`` with ``num_microbatches``
+    (default: the pp size), which is unused otherwise, as in JAX."""
     optimizer = optimizer or adamw(1e-4)
     dev = resolve_device(device)
+    pipelined = mesh is not None and "pp" in mesh.axis_names
 
     def init_fn(generator: Optional[torch.Generator] = None, dtype=torch.float32,
                 params: Optional[dict] = None) -> TrainState:
         if params is None:
-            params = llama.init_params(cfg, generator, dev, dtype=dtype)
+            params = llama.init_params(cfg, generator, dev, dtype=dtype, mesh=mesh)
         return _start(params, optimizer)
 
     def train_step(state: TrainState, tokens):
@@ -107,7 +146,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[OptimizerFactory] = No
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            loss = loss_fn(state.params, cfg, tokens)
+            if pipelined:
+                loss = pipeline_loss_fn(state.params, cfg, tokens, mesh, num_microbatches)
+            else:
+                loss = loss_fn(state.params, cfg, tokens, mesh)
             loss.backward()
         opt.step()
         state.step += 1
@@ -116,24 +158,30 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[OptimizerFactory] = No
     return init_fn, train_step
 
 
-def train_state_from_jax(jax_state, device,
-                         optimizer: Optional[OptimizerFactory] = None) -> TrainState:
+def train_state_from_jax(jax_state, device, optimizer: Optional[OptimizerFactory] = None,
+                         mesh=None, cfg: Optional[ModelConfig] = None) -> TrainState:
     """A JAX ``TrainState`` as numpy arrays (``jax.tree.map(np.asarray,
     state)``, its optimizer ``optax.adamw``) → the port's TrainState on
     ``device``: the params, and AdamW's per-leaf ``exp_avg`` (optax's
     ``mu``), ``exp_avg_sq`` (``nu``) and ``step`` (``count``).
     ``optimizer`` must be the factory of the JAX state's hyperparameters
-    (default ``adamw(1e-4)``, as optax's)."""
-    state = _start(params_from_jax(jax_state.params, device), optimizer or adamw(1e-4),
+    (default ``adamw(1e-4)``, as optax's). With a ``mesh`` (and the
+    model's ``cfg``) the params and both moments are cut to this rank's
+    slice, by ``llama.mesh_param_specs``."""
+    def convert(tree):
+        return params_from_jax(tree, device, mesh=mesh, cfg=cfg)
+
+    state = _start(convert(jax_state.params), optimizer or adamw(1e-4),
                    step=int(np.asarray(jax_state.step)))
     adam = next(s for s in jax_state.opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
-    mu, nu = dict(leaves(adam.mu)), dict(leaves(adam.nu))
+    dtypes = {path: p.dtype for path, p in leaves(state.params)}
+    mu = {path: t.to(dtypes[path]) for path, t in leaves(convert(adam.mu))}
+    nu = {path: t.to(dtypes[path]) for path, t in leaves(convert(adam.nu))}
     count = float(np.asarray(adam.count))
     sd = state.opt_state.state_dict()
     sd["state"] = {
         i: {"step": torch.tensor(count),
-            "exp_avg": params_from_jax(mu[path], device, p.dtype),
-            "exp_avg_sq": params_from_jax(nu[path], device, p.dtype)}
+            "exp_avg": mu[path], "exp_avg_sq": nu[path]}
         for i, (path, p) in enumerate(leaves(state.params))
     }
     state.opt_state.load_state_dict(sd)

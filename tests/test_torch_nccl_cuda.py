@@ -1,8 +1,9 @@
-"""The NCCL route of the port's tensor, data and sequence parallelism,
-one rank per card: the NCCL branches of ``parallel/collectives.py::Comm``
-(the sp ring's point-to-point shift among them) and of
-``engine/multihost.py::LockstepEngine``, which the gloo tests and
-``chip_smoke.py`` phases 14 and 15 (ranks sharing one card) never take. This
+"""The NCCL route of the port's tensor, data, sequence and pipeline
+parallelism, one rank per card: the NCCL branches of
+``parallel/collectives.py::Comm`` (the sp ring's and the pipeline's
+point-to-point steps among them), of ``engine/multihost.py::LockstepEngine``
+and of the sharded trainer's backward, which the gloo tests and
+``chip_smoke.py`` phases 14-16 (ranks sharing one card) never take. This
 file imports neither jax nor omnia_tpu, so run it on a host with two or
 more cards without the suite's conftest:
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import torch_dpsp_workers as dpsp_workers
+import torch_pp_workers as pp_workers
 import torch_tp_workers as workers
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.parallel.launch import spawn_ranks
@@ -99,3 +101,33 @@ def check_mesh_values(got: list, dims: dict) -> None:
         assert all(len(t) == 12 for t in got[0][label])
         if "sp" in dims:
             assert all(g[f"{label}_rings"] == 1 for g in got)
+
+
+@pytest.mark.cuda
+def test_nccl_pp_tp_train_step():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    got = spawn_ranks(pp_workers.nccl_train_job, 4, backend="nccl", timeout_s=600,
+                      rank_timeout_s=120)
+    for r, g in enumerate(got):
+        assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
+    check_train_values(got)
+
+
+def check_train_values(got: list) -> None:
+    """One train_step at pp = 2 x tp = 2: the loss on every rank and each
+    gradient leaf, gathered whole, equal the one-rank step's (f32, TF32
+    off: summation order only)."""
+    want = got[0]["loss_tp1"]
+    for g in got:
+        assert abs(g["loss"] - want) <= 1e-5 * abs(want)
+    ref = got[0]["grads_tp1"]
+
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in flat(v, f"{path}/{k}")]
+        return [(path, tree)]
+
+    for (path, a), (_, b) in zip(flat(got[0]["grads"]), flat(ref)):
+        assert a.shape == b.shape, path
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), path

@@ -2,13 +2,15 @@
 JAX package's: the spec trees of ``llama.param_specs``,
 ``kv_cache_specs``, ``paged_kv_specs`` and ``quant.quantize_param_specs``
 entry for entry (dense, MoE, tied, untied); ``shard_pytree`` slices whose
-ranks join back into the whole tree; ``make_mesh``'s errors; and, over
-eight spawned gloo ranks, ``make_mesh(dp=2, sp=2, tp=2)``'s layout and
-its axes' groups."""
+ranks join back into the whole tree; ``param_specs_pp`` and a tree
+drawn on a pp mesh; ``make_mesh``'s errors; and, over eight spawned gloo
+ranks, ``make_mesh(dp=2, sp=2, tp=2)``'s and ``make_mesh(dp=2, pp=2,
+tp=2)``'s layouts and their axes' groups."""
 
 from __future__ import annotations
 
 import jax
+import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
@@ -54,6 +56,12 @@ def _flat(tree, path=""):
 def test_param_specs_equal_jax(model):
     assert _flat(llama.param_specs(get_config(**MODELS[model]))) == \
         _flat(jllama.param_specs(jget_config(**MODELS[model])))
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_param_specs_pp_equal_jax(model):
+    assert _flat(llama.param_specs_pp(get_config(**MODELS[model]))) == \
+        _flat(jllama.param_specs_pp(jget_config(**MODELS[model])))
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8-dynamic"])
@@ -129,6 +137,24 @@ def test_init_params_with_a_mesh_draws_the_whole_trees_slices():
         assert llama.params_sharded(part, cfg, 2) and not llama.params_sharded(whole, cfg, 2)
 
 
+def test_init_params_on_a_pp_mesh_draws_the_stages_slices():
+    """On a pp x tp mesh each rank draws the whole tree's values and keeps
+    its stage's layers of its tp slice; embed and the final norm are
+    replicated over pp."""
+    cfg = get_config("test-tiny", num_layers=4)
+    whole = llama.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    specs = llama.param_specs_pp(cfg)
+    for p in range(2):
+        for t in range(2):
+            mesh = Mesh(shape={"dp": 1, "pp": 2, "tp": 2}, coords={"dp": 0, "pp": p, "tp": t},
+                        comms={})
+            part = llama.init_params(cfg, torch.Generator().manual_seed(2), "cpu", mesh=mesh)
+            want = shard_pytree(whole, specs, mesh)
+            assert all(torch.equal(a, b) for a, b in zip(_leaves(part), _leaves(want)))
+            assert part["layers"]["ln1"].shape == (2, cfg.hidden_size)
+            assert torch.equal(part["final_norm"], whole["final_norm"])
+
+
 @pytest.mark.parametrize("dims", [dict(tp=16), dict(dp=2, tp=8), dict(dp=4, tp=2, sp=2),
                                   dict(tp=4, pp=4)])
 def test_make_mesh_size_error_equals_jax(dims, devices8):
@@ -140,16 +166,29 @@ def test_make_mesh_size_error_equals_jax(dims, devices8):
 
 
 @pytest.mark.parametrize("axis", ["dp", "sp", "pp"])
-def test_make_mesh_refuses_unported_axes(axis):
-    """pp is not ported (ROADMAP A13 (c)); dp and sp are, and a mesh of
-    them is refused only over a job of the wrong size (one rank per mesh
-    position)."""
-    if axis == "pp":
-        match = "pp=2 is not ported.*ROADMAP A13"
-    else:
-        match = f"a {axis}=2 mesh needs a job of 2 ranks, have 8"
-    with pytest.raises(ValueError, match=match):
+def test_make_mesh_refuses_unported_axes(axis, devices8):
+    """dp, sp and pp are all ported: a mesh of them is refused only over a
+    job of the wrong size (one rank per mesh position). pp's case then
+    builds make_mesh(dp=2, pp=2, tp=2) over a job of 8 ranks: each rank's
+    coordinates and the job ranks of its axis lines are those of device
+    ``rank`` in the JAX package's make_mesh(dp=2, pp=2, tp=2) over the 8
+    virtual devices."""
+    with pytest.raises(ValueError, match=f"a {axis}=2 mesh needs a job of 2 ranks, have 8"):
         make_mesh(**{axis: 2}, world=8)
+    if axis != "pp":
+        return
+    dims = dict(dp=2, pp=2, tp=2)
+    jmesh = jmake_mesh(**dims, devices=devices8)
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    got = spawn_ranks(workers.mesh_job, 8, args=(dims,), backend="gloo", timeout_s=300)
+    for rank, out in enumerate(got):
+        where = dict(zip(jmesh.axis_names, (int(i) for i in np.argwhere(ids == rank)[0])))
+        assert out["shape"] == dict(jmesh.shape) == dims
+        assert out["coords"] == where
+        for axis_i, name in enumerate(jmesh.axis_names):
+            line = np.moveaxis(ids, axis_i, 0)[(slice(None),) + tuple(
+                where[a] for a in jmesh.axis_names if a != name)]
+            assert out["lines"][name] == (line.tolist(), where[name])
 
 
 def test_make_mesh_dp_sp_tp_builds_under_an_eight_rank_group():

@@ -24,6 +24,7 @@ from omnia_tpu_torch.engine import EngineConfig, InferenceEngine, SamplingParams
 from omnia_tpu_torch.models import get_config
 from omnia_tpu_torch.models import llama as tllama
 from omnia_tpu_torch.models.convert import params_from_jax
+from omnia_tpu_torch.parallel.mesh import make_mesh
 from omnia_tpu_torch.train import trainer as ttrainer
 
 # f32 on both sides: only summation order differs (measured ~2e-7 on the
@@ -145,13 +146,30 @@ def test_loss_falls_over_six_steps():
 
 
 def test_parallel_paths_raise():
+    """The mesh paths no longer raise: make_train_step(mesh=) on a one-rank
+    mesh (num_microbatches unused without "pp", as in JAX) runs the plain
+    trainer's ops, so two steps give its losses and params bit for bit;
+    pipeline_loss_fn on that mesh (one stage, two microbatches) gives
+    loss_fn's loss. The sharded meshes are held in
+    test_torch_train_mesh.py and test_torch_pp.py."""
     cfg = get_config("test-tiny")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttrainer.make_train_step(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttrainer.make_train_step(cfg, num_microbatches=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttrainer.pipeline_loss_fn({}, cfg, torch.zeros(1, 2, dtype=torch.int32), object())
+    tok = _tokens(8, 4, 13)
+    runs = []
+    for mesh in (None, make_mesh(world=1, rank=0)):
+        init_fn, step = ttrainer.make_train_step(cfg, ttrainer.adamw(LR), mesh=mesh,
+                                                 num_microbatches=2, device="cpu")
+        state = init_fn(torch.Generator().manual_seed(3))
+        losses = [float(step(state, tok)[1]) for _ in range(2)]
+        runs.append((losses, state.params))
+    (want, ref), (got, params) = runs
+    assert got == want
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(ttrainer.leaves(params),
+                                                           ttrainer.leaves(ref)))
+    one = make_mesh(world=1, rank=0)
+    with torch.no_grad():
+        a = ttrainer.pipeline_loss_fn(ref, cfg, torch.from_numpy(tok), one, 2)
+        b = ttrainer.loss_fn(ref, cfg, torch.from_numpy(tok))
+    assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
 
 
 def test_jax_train_state_carries_across():

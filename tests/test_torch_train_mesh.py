@@ -1,0 +1,173 @@
+"""The port's sharded training step against the JAX package on the CPU,
+f32: ``make_train_step(mesh=, num_microbatches=)`` from JAX's own state,
+carried over by ``train_state_from_jax(mesh=)`` after one JAX step (so
+AdamW's moments and count are live), then three steps in each package
+from the same tokens. The port's ranks are spawned gloo processes (rank
+functions in ``torch_pp_workers.py``), JAX's mesh the virtual CPU
+devices.
+
+- dp = 2 x pp = 2 x tp = 2, M = 2 (eight ranks; test-tiny with 4 layers,
+  4 heads and 4 KV heads, as ``tests/test_pipeline.py::test_pp_train_step``).
+- dp = 2 x tp = 2 without pp (four ranks; test-tiny, the analog of
+  ``tests/test_llama.py::test_train_step_runs_and_loss_decreases``), and
+  in the same job ``loss_fn(mesh=)``'s gradient for test-tiny-moe against
+  ``jax.value_and_grad``: the router (replicated over tp) and the experts
+  (split over tp) included, at 2 x 32 rows a shard (capacity dispatch;
+  at E = 4 nothing drops, so the shards' capacity, which differs from
+  GSPMD's whole-batch one, keeps every assignment either way).
+
+Held: each step's loss within 1e-5 relative, the params after it within
+0.05 lr (AdamW's g / (|g| + eps) turns summation-order differences near
+eps into a fraction of a step), gradients within 1e-4 of each leaf's
+largest entry, and every slice that two ranks hold equal on both.
+"""
+
+from __future__ import annotations
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+
+import torch_pp_workers as workers
+from omnia_tpu.models import get_config as jget_config
+from omnia_tpu.models import llama as jllama
+from omnia_tpu.parallel import make_mesh as jmake_mesh
+from omnia_tpu.train import trainer as jtrainer
+from omnia_tpu_torch.models import get_config, llama
+from omnia_tpu_torch.parallel.launch import spawn_ranks
+from omnia_tpu_torch.train import trainer
+
+LR = 1e-2
+STEPS = 3
+LOSS_RTOL = 1e-5
+PARAM_ATOL = 0.05 * LR
+GRAD_RTOL = 1e-4
+PP_CFG = dict(name="test-tiny", num_layers=4, num_heads=4, num_kv_heads=4)
+DP_CFG = dict(name="test-tiny")
+MOE_CFG = dict(name="test-tiny-moe")
+# name: (mesh dims, config, token shape, microbatches)
+STEP_CASES = {
+    "pp": (dict(dp=2, pp=2, tp=2), PP_CFG, (4, 16), 2),
+    "dp_tp": (dict(dp=2, tp=2), DP_CFG, (4, 12), None),
+}
+
+
+def _np_tree(tree):
+    """Copies: the JAX step donates its state, whose buffers a view would
+    share."""
+    return jax.tree.map(np.array, tree)
+
+
+def _tokens(seed, shape, vocab=256):
+    return np.random.default_rng(seed).integers(1, vocab, shape).astype(np.int32)
+
+
+def _portable(jstate):
+    """A JAX TrainState as plain numpy and namespaces (a spawned rank must
+    not unpickle jax or optax classes)."""
+    adam = next(s for s in jstate.opt_state if hasattr(s, "mu"))
+    return types.SimpleNamespace(
+        params=_np_tree(jstate.params), step=np.array(jstate.step),
+        opt_state=(types.SimpleNamespace(mu=_np_tree(adam.mu), nu=_np_tree(adam.nu),
+                                         count=np.array(adam.count)),))
+
+
+def _jax_steps(name, devices):
+    """One JAX step, the state handed over, then STEPS more: (state
+    handed over, tokens, losses, params after each step)."""
+    dims, cfg_kw, shape, m = STEP_CASES[name]
+    mesh = jmake_mesh(**dims, devices=devices)
+    jinit, jstep = jtrainer.make_train_step(jget_config(**cfg_kw), optax.adamw(LR), mesh=mesh,
+                                            num_microbatches=m)
+    tok = _tokens(2, shape)
+    state, _ = jstep(jinit(jax.random.key(0)), jnp.asarray(tok))
+    handed = _portable(state)
+    losses, params = [], []
+    for _ in range(STEPS):
+        state, loss = jstep(state, jnp.asarray(tok))
+        losses.append(float(loss))
+        params.append(_np_tree(state.params))
+    return handed, tok, losses, params
+
+
+def _run(name, devices, grads=None):
+    dims, cfg_kw, _, m = STEP_CASES[name]
+    handed, tok, losses, params = _jax_steps(name, devices)
+    world = int(np.prod(list(dims.values())))
+    got = spawn_ranks(workers.train_job, world,
+                      args=(dims, {name: (cfg_kw, handed, LR, tok, m, STEPS)}, grads or {}),
+                      backend="gloo", timeout_s=600)
+    return dict(losses=losses, params=params), got
+
+
+@pytest.fixture(scope="module")
+def pp_run(devices8):
+    return _run("pp", devices8)
+
+
+@pytest.fixture(scope="module")
+def dp_tp_run(devices8):
+    """dp = 2 x tp = 2 steps and, in the same four-rank job, the MoE
+    gradient case."""
+    jcfg = jget_config(**MOE_CFG)
+    jparams = jllama.init_params(jcfg, jax.random.key(1), dtype=jnp.float32)
+    tok = _tokens(3, (4, 33))
+    loss, g = jax.value_and_grad(jtrainer.loss_fn)(jparams, jcfg, jnp.asarray(tok))
+    want, got = _run("dp_tp", devices8, {"moe": (MOE_CFG, _np_tree(jparams), tok)})
+    want["moe"] = (float(loss), _np_tree(g))
+    return want, got
+
+
+@pytest.fixture(params=list(STEP_CASES))
+def step_run(request):
+    return request.param, request.getfixturevalue(f"{request.param}_run")
+
+
+def test_train_steps_match_jax(step_run):
+    """Each step's loss on every rank, and the params gathered whole
+    after it, against JAX's sharded step on the same state and tokens."""
+    name, (want, got) = step_run
+    for r in got:
+        assert r[name]["step"] == 1 + STEPS
+        for a, b in zip(r[name]["losses"], want["losses"]):
+            assert abs(a - b) <= LOSS_RTOL * abs(b), (r[name]["losses"], want["losses"])
+    assert want["losses"][-1] < want["losses"][0]
+    for mine, ref in zip(got[0][name]["params"], want["params"]):
+        ref = dict(trainer.leaves(ref))
+        mine = dict(trainer.leaves(mine))
+        assert mine.keys() == ref.keys()
+        for path, t in mine.items():
+            np.testing.assert_allclose(t, ref[path], atol=PARAM_ATOL, rtol=0, err_msg=path)
+
+
+def test_replicated_params_stay_equal_on_every_rank(step_run):
+    """After the three steps, ranks that hold the same slice of a leaf
+    hold the same bytes: the gradients of replicated leaves are the same
+    global gradient on every rank, so AdamW keeps the replicas together."""
+    name, (_, got) = step_run
+    dims, cfg_kw, _, _ = STEP_CASES[name]
+    cfg = get_config(**cfg_kw)
+    specs = llama.param_specs_pp(cfg) if "pp" in dims else llama.param_specs(cfg)
+    workers.assert_replicas_equal(got, name, "local", specs)
+
+
+def test_moe_gradients_match_jax(dp_tp_run):
+    """loss_fn at dp = 2 x tp = 2 for test-tiny-moe: the loss on every rank
+    and each leaf gathered whole (router, experts, attention, norms,
+    embed, lm_head) against jax.value_and_grad on one device."""
+    want, got = dp_tp_run
+    jloss, jgrads = want["moe"]
+    ref = dict(trainer.leaves(jgrads))
+    for r in got:
+        assert abs(r["moe"]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
+    whole = dict(trainer.leaves(got[0]["moe"]["grads"]))
+    assert {"/layers/mlp/router", "/layers/mlp/wg"} <= whole.keys() == ref.keys()
+    for path, g in whole.items():
+        scale = np.abs(ref[path]).max()
+        err = np.abs(g - ref[path]).max()
+        assert err <= GRAD_RTOL * scale, f"{path}: {err} of {scale}"
+    workers.assert_replicas_equal(got, "moe", "local", llama.param_specs(get_config(**MOE_CFG)))
