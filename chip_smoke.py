@@ -280,7 +280,8 @@ Phases, each failing loudly (exit code != 0, no result line):
    same ranks, and its first token and 16 more equal to the sp = 1
    engine's (a dp = 2 x tp = 2 engine on the same four ranks, slot 0's
    shard being an sp = 1, tp = 2 engine), one ring prefill counted; then
-   at full depth in bf16 the ring prefill on the four ranks against the
+   at SP_BF16_LAYERS (16) of the 32 layers in bf16 (full depth until
+   phase 17 needed the time) the ring prefill on the four ranks against the
    dense one on ranks 0 and 1 (one sp replica, as the dense engine's
    slot-0 shard runs it), timed, with the ring's shifts' bytes and ms, and the two
    engines' tokens (printed, not required). A spawn of two ranks: (b) dp =
@@ -311,20 +312,37 @@ Phases, each failing loudly (exit code != 0, no result line):
    served on K1 there, as phase 13 (c) does: the CPU's greedy tokens,
    num_layers x decode steps launches.
 
+17. The decode ring under sp, after phase 16, one spawn of two ranks of
+   one gloo group sharing the card (a decode step at sp = 2 holds no
+   collective, so each rank captures and replays its own graphs; the tp
+   and dp rings, whose steps hold collectives, run over NCCL with one
+   rank per card: ``tests/test_torch_nccl_cuda.py``). (c) On each rank
+   a tp = 2 and a dp = 2 engine with ``decode_ring=2`` over gloo on the
+   card must raise the ValueError naming NCCL. (a) llama3-8b at full
+   width cut to CUT_LAYERS layers, bf16, random seeded weights, per cache
+   (K1, K4) a ring engine at sp = 2 (warmed: its graphs captured on both
+   ranks, each capture's seconds and pool bytes), a ring-off one at sp =
+   2 and on rank 0 a one-rank ring-off one: the 8 inline greedy requests
+   give equal tokens on all three and on both ranks, and each rank's
+   kernel launches num_layers x the steps that ran, counted on the card.
+   (b) K1's host ms per decode step and the chunks' device share, ring on
+   and off in alternating windows (three each, both ranks starting each
+   window together).
+
 Prints an ``engine <K> sessions`` JSON line per engine, ``agent <K>``
 lines for phase 8, ``phase 9`` lines, ``moe check`` and mixtral lines
 for phase 10, ``cold start``, ``flight`` and ``faults`` lines for phase
 11, ``train`` and ``embed`` lines for phase 13, ``tp`` lines for phase
 14, ``dp``, ``sp`` and ``dp bf16`` lines for phase 15, a ``pp`` line for
-phase 16, each phase's seconds
+phase 16, a ``ring mesh`` line for phase 17, each phase's seconds
 (``phase N took``) and the whole run's, a
 ``kernels`` JSON line (launches: each kernel's count over its
 engine's burst and session runs, phase 7's bursts for K1 and K4, phase
 8's runs for K1, K4 and K2, phase 9's llama3-8b runs for K1 and K4,
 phase 10's runs for K1, K3 and K4, phase 11's runs for K1 and K4, and
 phase 12's ring runs for K1 and K4, phase 13's and phase 16's trained
-weights served on K1, and phases 14's and 15's runs on every rank for K1
-and K4;
+weights served on K1, and phases 14's, 15's and 17's runs on every rank
+for K1 and K4;
 times at the llama3-8b decode shape, and at the llama3-70b one beside
 them), then the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.
@@ -506,7 +524,7 @@ TP_LOGIT_ROWS, TP_LOGITS_TOL = 32, 1e-3
 # the card. (a) dp = 2 x tp = 2 and (c) sp = 2 x tp = 2 on one spawn of
 # four ranks over phase 14's f32 weights (TP_MODEL, TP_LAYERS, TP_SEED);
 # (b) dp = 2, tp = 1, bf16 at full depth, on a spawn of two. (c) then
-# takes full depth in bf16 for the ring's times.
+# takes SP_BF16_LAYERS layers in bf16 for the ring's times.
 DP_ENGINE = dict(TP_ENGINE, max_sessions=8)
 DP_EDITIONS = {"K1": dict(), "K4": dict(kv_quant="int8", kv_pages=18, kv_page_tokens=PAGE_S)}
 # Six sessions on four slots: e and f page a and b out, and a's return
@@ -518,7 +536,8 @@ SP_PROMPT_TOKENS, SP_NEW_TOKENS = 4000, 16
 SP_ENGINE = dict(num_slots=2, max_seq=8192, prefill_buckets=(256, 4096), dtype="float32",
                  long_prefill_threshold=2048, max_sessions=0)
 SP_TIMED_ROUNDS = 2
-# Four ranks at full depth in bf16 on one card: each rank's caching
+SP_BF16_LAYERS = 16
+# Four ranks' bf16 weights on one card: each rank's caching
 # allocator grows its segments instead of keeping freed ones apart.
 DPSP_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 
@@ -3792,7 +3811,7 @@ def sp_logits_err(params, cfg, mesh, prompt: list) -> float:
 def dpsp_rank(rank: int) -> dict:
     """Phase 15 (a) and (c) on one rank of a four-rank gloo group
     (spawned): dp = 2 x tp = 2, then sp = 2 x tp = 2, over phase 14's f32
-    weights cut to TP_LAYERS layers; then (c) at full depth in bf16."""
+    weights cut to TP_LAYERS layers; then (c) at SP_BF16_LAYERS in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     out = {"rank": rank}
@@ -3857,7 +3876,7 @@ def dpsp_rank(rank: int) -> dict:
 
 
 def sp_bf16(rank: int, mesh, prompt: list) -> dict:
-    """(c) at full depth in bf16: the sp engine's ring prefill (the ring
+    """(c) at SP_BF16_LAYERS layers in bf16: the sp engine's ring prefill (the ring
     forward, the sp gather of its rows, the insert) on the four ranks
     against its dense prefill of the same bucket on ranks 0 and 1 (one sp
     replica), both timed with the card synchronized, SP_TIMED_ROUNDS
@@ -3865,7 +3884,7 @@ def sp_bf16(rank: int, mesh, prompt: list) -> dict:
     point-to-point shifts' bytes and host seconds; then the greedy tokens
     of the ring engine and of a dense dp = 2 x tp = 2 engine (slot 0's
     shard: sp = 1), compared and printed (bf16 need not agree)."""
-    cfg = get_config(TP_MODEL)
+    cfg = get_config(TP_MODEL, num_layers=SP_BF16_LAYERS)
     params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(TP_BF16_SEED),
                                TP_DEVICE, dtype=torch.bfloat16, mesh=mesh)
     # One slot a rank (the dense engine's two over dp = 2): four ranks'
@@ -4104,7 +4123,7 @@ def data_sequence_parallel(card: str) -> dict:
         f32=dict(model=f"{TP_MODEL} f32, {TP_LAYERS} layers", logits_max_abs_err=sp_err,
                  logits_tolerance=TP_LOGITS_TOL, tokens_equal=True,
                  new_tokens=len(runs["ring"]["tokens"])),
-        bf16=dict(model=f"{TP_MODEL} bf16, full depth",
+        bf16=dict(model=f"{TP_MODEL} bf16, {SP_BF16_LAYERS} layers",
                   params_bytes_per_rank=[x["params_bytes"] for x in b],
                   prefill_ms_per_rank={name: [x["times"][name]["ms"] for x in b
                                               if name in x["times"]]
@@ -4394,6 +4413,121 @@ def pipeline_parallel(card: str, first_loss: float) -> dict:
     return {"K1": ranks[0]["launches"]}
 
 
+# -- phase 17 --------------------------------------------------------------
+
+RING_SP = dict(sp=2, **RING)
+RING_SP_SEED = 25
+RING_REFUSED = {"tp2": dict(tp=2), "dp2": dict(dp=2)}
+
+
+def ring_sp_rank(rank: int) -> dict:
+    """Phase 17 on one rank of a two-rank gloo group (spawned) on the one
+    card: (c) the refusals, then per cache (K1, K4) a decode ring engine
+    at sp = 2 (captured at warmup), a ring-off one at sp = 2 and, on rank
+    0, a one-rank ring-off one, over llama3-8b width cut to CUT_LAYERS
+    layers in bf16: (a) the greedy requests on each, the ring engine's
+    launches counted on the card; (b) K1's host ms windows, ring on and
+    off in turns, both ranks starting each window together."""
+    import torch.distributed as dist
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TP_MODEL, num_layers=CUT_LAYERS)
+    params = llama.init_params(cfg, torch.Generator(device=TP_DEVICE).manual_seed(RING_SP_SEED),
+                               TP_DEVICE, dtype=torch.bfloat16)
+    out = {"rank": rank, "refused": {}}
+    for name, dims in RING_REFUSED.items():
+        try:
+            InferenceEngine(cfg, EngineConfig(**RING, **dims), params=params, device=TP_DEVICE)
+            out["refused"][name] = None
+        except ValueError as e:
+            out["refused"][name] = str(e)
+    for label, cache in RING_ENGINES.items():
+        on = InferenceEngine(cfg, EngineConfig(**cache, **RING_SP), params=params,
+                             device=TP_DEVICE)
+        t0 = time.monotonic()
+        on.warmup()
+        warm_s = time.monotonic() - t0
+        graphs = on._ring_graphs
+        off = InferenceEngine(cfg, EngineConfig(**cache, sp=2), params=params, device=TP_DEVICE)
+        toks, launches = checked_launches(label, on, lambda: greedy_inline(on),
+                                          f"phase 17 (a) {label} ring sp=2 rank {rank}")
+        res = dict(on=toks, off=greedy_inline(off), launches=launches, warmup_s=warm_s,
+                   capture_s=graphs.capture_s, pool_bytes=graphs.pool_bytes,
+                   steps_ran=on.metrics["decode_steps"] - on.metrics["early_exit_steps"])
+        if rank == 0:
+            res["one"] = greedy_inline(InferenceEngine(cfg, EngineConfig(**cache),
+                                                       params=params, device=TP_DEVICE))
+        if label == "K1":
+            windows = {"on": [], "off": []}
+            for _ in range(RING_WINDOWS):
+                for arm, eng in (("on", on), ("off", off)):
+                    dist.barrier()
+                    windows[arm].append(busy_window(eng))
+            res["windows"] = windows
+        out[label] = res
+        on.stop()
+        off.stop()
+        del on, off, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["params_bytes"] = tree_bytes(params)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def ring_mesh(card: str) -> dict:
+    """Phase 17: the decode ring under sp = 2, two ranks of one gloo group
+    on the one card. Returns each kernel's launches over both ranks'
+    counted runs."""
+    print("phase 17: the sp ranks share one card over gloo; a decode step at sp = 2 holds no "
+          "collective, so each rank replays its own captured graphs; the two processes "
+          "contend for the card and the host, so their host ms are this layout's, not one "
+          "rank's alone", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    try:
+        ranks = spawn_ranks(ring_sp_rank, 2, backend="gloo", env=DPSP_ENV, timeout_s=600)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 17: {e}")
+    spawn_s = time.monotonic() - t0
+    launches = {"K1": 0, "K4": 0}
+    for r in ranks:
+        for name, msg in r["refused"].items():
+            if msg is None or "NCCL, one rank per card" not in msg:
+                fail(f"phase 17 (c) {name}: a decode ring over gloo on the card gave {msg!r}, "
+                     "not the refusal")
+        for label in RING_ENGINES:
+            res = r[label]
+            if not res["capture_s"]:
+                fail(f"phase 17 (a) {label}: rank {r['rank']} captured no graph")
+            if res["on"] != res["off"] or res["on"] != ranks[0][label]["on"]:
+                fail(f"phase 17 (a) {label}: rank {r['rank']}'s ring tokens differ from ring "
+                     f"off at (request, step) {first_divergence(res['on'], res['off'])}, or "
+                     "from rank 0's")
+            launches[label] += res["launches"]
+    for label in RING_ENGINES:
+        if ranks[0][label]["on"] != ranks[0][label]["one"]:
+            fail(f"phase 17 (a) {label}: sp = 2 ring tokens differ from one rank's at "
+                 f"(request, step) {first_divergence(ranks[0][label]['on'], ranks[0][label]['one'])}")
+    windows = [r["K1"]["windows"] for r in ranks]
+    print("ring mesh " + json.dumps(dict(
+        card=card, model=f"{TP_MODEL} bf16, {CUT_LAYERS} layers", mesh=dict(sp=2),
+        spawn_and_run_s=spawn_s, refused=ranks[0]["refused"],
+        per_rank={label: [dict(launches=r[label]["launches"], steps_ran=r[label]["steps_ran"],
+                               warmup_s=r[label]["warmup_s"], capture_s=r[label]["capture_s"],
+                               pool_bytes=r[label]["pool_bytes"]) for r in ranks]
+                  for label in RING_ENGINES},
+        greedy_tokens={label: sum(map(len, ranks[0][label]["on"])) for label in RING_ENGINES},
+        host_ms_per_decode_step={arm: [[w["host_ms_per_step"] for w in rw[arm]]
+                                       for rw in windows] for arm in ("on", "off")},
+        chunk_device_share={arm: [[w["chunk_device_share"] for w in rw[arm]]
+                                  for rw in windows] for arm in ("on", "off")},
+        params_bytes_per_rank=[r["params_bytes"] for r in ranks],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in ranks])), flush=True)
+    return launches
+
+
 def main() -> None:
     t_script = time.monotonic()
     card = device_line()
@@ -4449,8 +4583,11 @@ def main() -> None:
     t = lap("phase 15", t)
     for label, n in pipeline_parallel(card, first_loss).items():
         launches[label] += n
-    lap("phase 16", t)
-    lap("phases 1-16", t_script)
+    t = lap("phase 16", t)
+    for label, n in ring_mesh(card).items():
+        launches[label] += n
+    lap("phase 17", t)
+    lap("phases 1-17", t_script)
     # llama3-8b bf16, the engines' shape; llama3-70b bf16 (G = 8) beside it.
     main_case, case_70b = cases[0], cases[4]
     entries = []

@@ -71,6 +71,7 @@ from __future__ import annotations
 import collections
 import itertools
 import logging
+import os
 import threading
 import time
 from typing import Optional
@@ -95,7 +96,7 @@ from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
 from omnia_tpu_torch.engine.graphs import RingGraphs
 from omnia_tpu_torch.engine.placement import _PlacementMixin
 from omnia_tpu_torch.engine.prefix_cache import PrefixPool, _PrefixCacheMixin
-from omnia_tpu_torch.engine.programs import build_programs
+from omnia_tpu_torch.engine.programs import build_programs, make_step
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
 from omnia_tpu_torch.engine.sessions import _SessionKV, _SessionMixin, _Slot
 from omnia_tpu_torch.engine.spec_decode import _SpecDecodeMixin, validate_spec_config
@@ -113,19 +114,32 @@ from omnia_tpu_torch.models import ModelConfig, llama, quant
 from omnia_tpu_torch.models.kv_quant import cache_bytes, validate_kv_quant
 from omnia_tpu_torch.ops.decode_attention import edition
 from omnia_tpu_torch.ops.sampling import make_slot_key_data
-from omnia_tpu_torch.parallel.mesh import make_mesh
+from omnia_tpu_torch.parallel.distributed import GRAPH_MIXING
+from omnia_tpu_torch.parallel.mesh import capture_comms, make_mesh
 from omnia_tpu_torch.parallel.sharding import shard_pytree
 
 logger = logging.getLogger(__name__)
 
-def validate_parallel(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
-    """Refuse a parallel engine that cannot run: a degree below 1; the
-    ring under any degree above 1 (ROADMAP A16); a dp that does not
-    divide the slots or the prefix pool (the JAX engine's checks and
-    messages); a tp that does not divide what it splits (the JAX
-    package's "tp divides num_kv_heads", and the heads, FFN or experts
-    and vocabulary); or a job that is not ``dp * sp * tp`` ranks of one
-    process group (``parallel/distributed.py``)."""
+def validate_parallel(ecfg: EngineConfig, mcfg: ModelConfig, device: torch.device) -> None:
+    """Refuse a parallel engine that cannot run: a degree below 1; a dp
+    that does not divide the slots or the prefix pool (the JAX engine's
+    checks and messages); a tp that does not divide what it splits (the
+    JAX package's "tp divides num_kv_heads", and the heads, FFN or
+    experts and vocabulary); a job that is not ``dp * sp * tp`` ranks of
+    one process group (``parallel/distributed.py``); or, on the card, a
+    decode ring (``decode_ring >= 2``) whose captured step would hold a
+    collective of a backend that a CUDA graph cannot capture (gloo).
+
+    The decode ring's step holds a collective under tp (the SUM after
+    ``wo`` and ``wd``, the samplers' logits gather) and under dp (the
+    all-done early-out's OR over the shards; an MoE layer's counts from
+    64 global rows); under sp alone it holds none, since every sp rank
+    decodes every slot of its shard. On the CPU every degree runs (the
+    eager ring); on the card those engines need NCCL, one rank per card,
+    and ``NCCL_GRAPH_MIXING_SUPPORT=0`` set by the job before its first
+    communicator (``engine/graphs.py``). The job opts in: the switch
+    holds for every NCCL communicator of the job, which nothing else of
+    the port needs. Nothing falls back to the eager chunk."""
     degrees = {"dp": ecfg.dp, "sp": ecfg.sp, "tp": ecfg.tp}
     for name, n in degrees.items():
         if n < 1:
@@ -136,12 +150,6 @@ def validate_parallel(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
     if n == 1:
         return
     label = ", ".join(f"{k}={v}" for k, v in degrees.items() if v > 1)
-    if ecfg.decode_ring >= 2:
-        raise ValueError(
-            f"decode_ring={ecfg.decode_ring} with {label}: the ring's CUDA graph "
-            "cannot capture a gloo collective (the tp reductions, the dp token "
-            "gather), and capturing NCCL collectives needs more than one card "
-            "(ROADMAP A16)")
     if ecfg.prefix_cache_slots % ecfg.dp != 0:
         raise ValueError(dp_divisibility_error("prefix_cache_slots",
                                                ecfg.prefix_cache_slots, ecfg.dp))
@@ -159,6 +167,22 @@ def validate_parallel(ecfg: EngineConfig, mcfg: ModelConfig) -> None:
             f"EngineConfig.{label} needs a torch.distributed process group of {n} "
             f"ranks, one engine per rank (omnia_tpu_torch.parallel.distributed); "
             f"have {'none' if world is None else world}")
+    captured = [f"{k}={v}" for k, v in degrees.items() if k != "sp" and v > 1]
+    if ecfg.decode_ring < 2 or not captured or device.type != "cuda":
+        return
+    if dist.get_backend() != "nccl":
+        raise ValueError(
+            f"decode_ring={ecfg.decode_ring} with {label} on the card: each captured "
+            f"step of the decode ring holds collectives over {' and '.join(captured)}, "
+            f"and a CUDA graph captures them only on NCCL, one rank per card; this job's "
+            f"process group is {dist.get_backend()}")
+    if os.environ.get(GRAPH_MIXING) != "0":
+        raise ValueError(
+            f"decode_ring={ecfg.decode_ring} with {label} on the card needs "
+            f"{GRAPH_MIXING}=0 in the job's environment before NCCL's first communicator: "
+            "its graphs capture NCCL collectives inside conditional bodies, which refuse "
+            "the event nodes of NCCL's graph mixing. The job opts in: the switch holds "
+            "for every NCCL communicator of the job")
 
 
 class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _SessionMixin,
@@ -182,7 +206,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._finish_reasons = finish_reasons or FinishReason
         validate_decode_ring(engine_cfg)
         validate_paged_config(engine_cfg)
-        validate_parallel(engine_cfg, model_cfg)
+        validate_parallel(engine_cfg, model_cfg, self.device)
         # This rank's view of the dp x sp x tp mesh (None with every degree
         # 1) and its axes' Comms: tp's every forward and sampler takes, sp's
         # the ring prefill, dp's the slot shards' moves (each None at
@@ -233,12 +257,13 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # Fault injection (faults.py); None outside tests and smoke runs.
         self._fault_plan: Optional[FaultPlan] = None
 
-        progs = build_programs(model_cfg, engine_cfg, self._tp, self._sp)
+        progs = build_programs(model_cfg, engine_cfg, self._tp, self._sp, dp_comm)
         self._prefill_insert_fn = progs.prefill_insert
         # The ring prefill and its insert (sp > 1, else None).
         self._prefill_ring_fn = progs.prefill_ring
         self._insert_fn = progs.insert
         self._decode_fns = progs.decode_fns
+        self._decode_plain_fn = progs.decode_plain
         self._step_fn = progs.step
         # The captured ring chunks (graphs.py): on the card with the ring
         # on, made by _ring where first needed on the current state; None
@@ -524,19 +549,25 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         """The card's captured ring chunks over the current state (graphs.py),
         every chunk size captured at first need; None with the ring off or
         on the CPU, where the ring chunk runs eagerly. No fallback: a
-        failed capture raises."""
+        failed capture raises. Under tp or dp the captured step's
+        collectives run on communicators of their own (``capture_comms``),
+        every rank making them here at the same point."""
         if self.cfg.decode_ring == 0 or self.device.type != "cuda":
             return None
         if self._ring_graphs is not None:
             return self._ring_graphs
+        step, comms = self._step_fn, {}
+        if self._tp is not None or self._dp.comm is not None:
+            comms = capture_comms(self._mesh)
+            step = make_step(self.model_cfg, self.cfg.max_seq, comms.get("tp"), comms.get("dp"))
         graphs = RingGraphs(
-            self._step_fn,
+            step,
             (self._tokens, self._positions, self._active, self._budget, self._key_data,
              self._gstate),
             dict(params=self.params, ck=self._ck, cv=self._cv, stop_ids=self._stop_ids,
                  temp=self._temp, top_p=self._top_p, top_k=self._top_k,
                  g=(self._gtable, self._gactive) if self._gr_on else (), geos=self._geos),
-            self.device)
+            self.device, comms=comms)
         for chunk in self._decode_fns:
             graphs.capture(chunk)
         self._ring_graphs = graphs

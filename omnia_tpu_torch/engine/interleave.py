@@ -232,7 +232,7 @@ class _InterleaveMixin:
             if plan is not None:
                 out = self._verify_decode_fn(*decode, *spec_args, *gargs)
             else:
-                out = self._decode_fns[1](*decode, *gargs)
+                out = self._decode_plain_fn(*decode, *gargs)
         elif final:
             sp = pf.request.params
             out = mixed_sample_fns[bucket](*args, *spec_args, take - 1,

@@ -19,6 +19,13 @@ every rank runs identical host control flow on identical inputs:
   deadlines).
 - Followers' handles stream into the void; only the leader's have
   readers.
+- The decode ring (``decode_ring >= 2``) under lockstep: the engine's
+  clock is the logical one, so its ring self-gate never binds (async
+  drain stays on, ``devloop.async_engaged``) and no slot gets a
+  wall-clock deadline budget (``_deadline_steps``): no rank's host reads
+  a clock that another rank's does not. The ring's steps hold the tp and
+  dp collectives (captured into its graphs on the card), and every rank
+  captures them at the same warmup task (``warmup._agree_on_tasks``).
 
 Failure detection: a lost peer wedges every survivor inside a collective
 or surfaces as a collective error. After ``tick_timeout_s`` without a

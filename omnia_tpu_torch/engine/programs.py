@@ -13,12 +13,16 @@
   inside a chunk, and stop-token / budget finishes are masked on the
   device, so a slot that finishes mid-chunk stops advancing.
   Every decode step of every program below is the one ``_step``.
-  With ``decode_ring > 0`` the family is the ring edition instead: the
-  step also carries the deadline-step budget and the per-slot grammar
-  EOS, and a step that starts with every slot done runs nothing. Here
-  that edition is eager and branches on the host (the CPU's route); on
-  the card the engine replays it as one captured CUDA graph per chunk
-  size, whose branch is a conditional node (``graphs.py``).
+  With ``decode_ring > 0`` the family is the decode ring's edition
+  instead: the step also carries the deadline-step budget and the
+  per-slot grammar EOS, and a step that starts with every slot of the
+  whole batch done runs nothing (under dp the flag is OR-ed over the
+  shards, as JAX's ``active`` spans the whole batch). Here that edition
+  is eager and branches on the host (the CPU's route); on the card the
+  engine replays it as one captured CUDA graph per chunk size, whose
+  branch is a conditional node (``graphs.py``). ``decode_plain`` is one
+  step of the plain edition whatever the ring: the decode half of a
+  mixed step, alone, on a dp shard that does not hold the placing slot.
 - ``mixed[b]`` / ``mixed_sample[b]`` (``prefill_chunk_tokens > 0``): a
   prompt piece of bucket ``b`` through the extend seam, then one decode
   step for every active slot, enqueued together; ``mixed_sample`` also
@@ -66,9 +70,14 @@ gathers each slot's ``[V]`` row ``gtable[b, gstate[b]]``, masks the
 tokens whose entry is negative, and advances the state on the device.
 Without it the programs take none of these operands.
 
-Data parallelism (``dp``) changes no program: each rank's programs run
-at its shard's local batch and local slot rows, and the engine moves
-what crosses shards (``dataparallel.py``).
+Data parallelism (``dp``): each rank's programs run at its shard's
+local batch and local slot rows, and the engine moves what crosses
+shards (``dataparallel.py``). Two things inside a program span the
+whole batch, as under GSPMD: an MoE layer of a forward over the batch's
+slots (the decode step, the verify window) dispatches over the whole
+batch (``ops/moe.py``), and the decode ring's all-done early-out reads
+every shard's flags. A prefill or an extend piece runs one slot on its
+owner shard: its rows are the whole batch already.
 
 Every program runs with grad mode off, as JAX programs never
 differentiate: a trainer's params serve as they are.
@@ -100,6 +109,77 @@ from omnia_tpu_torch.models.kv_quant import cache_put, cache_take, kv_map
 from omnia_tpu_torch.models import paged_kv as pkv
 from omnia_tpu_torch.models.paged_kv import PagedKV, gather_rows, put_chunk
 from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
+from omnia_tpu_torch.parallel.collectives import all_reduce_max
+
+
+def _grammar_rows(gtable, gstate):
+    """Each slot's current [V] transition row ``gtable[b, gstate[b]]``:
+    the one gather idiom of the decode step's sampler mask and the
+    verify window's oracle mask, so the two can never diverge."""
+    rows = torch.arange(gtable.shape[0], device=gtable.device)
+    return gtable[rows, gstate.long()]                          # [B, V]
+
+
+def make_step(cfg: ModelConfig, max_seq: int, tp=None, dp=None) -> Callable:
+    """The decode step ``_step`` over ``tp`` and ``dp`` (each a Comm or
+    None): ``build_programs``' own, and the one the engine captures into
+    the decode ring's graphs over communicators of their own
+    (``engine._ring``)."""
+
+    def _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g, geos=None):
+        """One decode step over the fixed batch: the one source of the
+        step's ops, shared by the chunk, the ring chunk (eager or
+        captured), the mixed step and the verify step's scan lane, which
+        is what keeps their tokens equal. ``state`` = (tokens, positions,
+        active, budget, key_data, gstate), gstate None without the
+        grammar; ``g`` = () or (gtable, gactive). Returns (the next
+        state, the sampled tokens [B]).
+
+        The ring edition (``decode_ring > 0``) carries the deadline-step
+        budget as a seventh element of ``state``: decremented on active
+        at the step's start, like the emission budget, and its
+        exhaustion masks the slot from the next step on (the host
+        finishes it DEADLINE at the same step). With the grammar it also
+        takes ``geos``, the per-slot grammar EOS id (-1 = none), which
+        stops a slot like a stop id (it covers an EOS cut off the
+        8-wide stop-id row)."""
+        tokens, positions, active, budget, key_data, gstate = state[:6]
+        logits, _, _ = llama.forward(params, cfg, tokens[:, None], positions[:, None], ck, cv,
+                                     positions, tp, dp)
+        logits = llama.gather_logits(logits[:, 0], tp)
+        if g:
+            gtable, gactive = g
+            row = _grammar_rows(gtable, gstate)
+            bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
+            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k,
+                                                   mask_bias=bias)
+            # The state advances on the sampled token, gated like the
+            # position (active at the step's start); a masked token cannot
+            # be sampled, so the max only covers inactive slots' samples.
+            nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
+            gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
+        else:
+            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k)
+        # The row just written advances the position only for slots active
+        # at the step's start; deactivation applies from the next step on,
+        # as the host's finish bookkeeping does.
+        positions = torch.where(active, torch.clamp(positions + 1, max=max_seq - 1), positions)
+        budget = budget - active.to(torch.int32)
+        ring = state[6:]
+        if ring:
+            ring = (ring[0] - active.to(torch.int32),)
+        hit_stop = (tok[:, None] == stop_ids).any(dim=1)
+        if geos is not None:
+            # Token ids are >= 0, so a slot without a grammar (-1) never
+            # matches.
+            hit_stop = hit_stop | (tok == geos)
+        active = active & ~hit_stop & (budget > 0)
+        if ring:
+            active = active & (ring[0] > 0)
+        tokens = torch.where(active | hit_stop, tok, tokens)
+        return (tokens, positions, active, budget, key_data, gstate) + ring, tok
+
+    return _step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +189,8 @@ class EnginePrograms:
     # The ring prefill and its insert (sp > 1, else None).
     prefill_ring: Optional[Callable]
     insert: Optional[Callable]
+    # One decode step of the plain edition (a mixed step's decode half).
+    decode_plain: Callable
     # One decode step (``_step``): what the captured ring chunk replays.
     step: Callable
     extend: Callable
@@ -136,11 +218,14 @@ class EnginePrograms:
     mixed_spec_sample: dict[int, Callable] = dataclasses.field(default_factory=dict)
 
 
-def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> EnginePrograms:
+def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None,
+                   dp=None) -> EnginePrograms:
     """The engine's programs; with ``tp`` (the "tp" axis's Comm) every
     forward runs this rank's slice and every sampler reads the gathered
-    logits; with ``sp`` (the "sp" axis's Comm) the ring prefill runs this
-    rank's block of rows."""
+    logits; with ``sp`` (the "sp" axis's Comm) the sp ring attention's
+    prefill runs this rank's block of rows; with ``dp`` (the "dp" axis's
+    Comm) the forwards over the slots and the decode ring's early-out
+    span every shard."""
     max_seq = ecfg.max_seq
     paged = ecfg.kv_pages > 0
 
@@ -228,65 +313,13 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> En
         _put(ck, kv_map(lambda a: a[:, None], k_rows), slot, 0)
         _put(cv, kv_map(lambda a: a[:, None], v_rows), slot, 0)
 
-    def _grammar_rows(gtable, gstate):
-        """Each slot's current [V] transition row ``gtable[b, gstate[b]]``:
-        the one gather idiom of the decode step's sampler mask and the
-        verify window's oracle mask, so the two can never diverge."""
-        rows = torch.arange(gtable.shape[0], device=gtable.device)
-        return gtable[rows, gstate.long()]                          # [B, V]
+    _step = make_step(cfg, max_seq, tp, dp)
 
-    def _step(params, ck, cv, state, stop_ids, temp, top_p, top_k, g, geos=None):
-        """One decode step over the fixed batch: the one source of the
-        step's ops, shared by the chunk, the ring chunk (eager or
-        captured), the mixed step and the verify step's scan lane, which
-        is what keeps their tokens equal. ``state`` = (tokens, positions,
-        active, budget, key_data, gstate), gstate None without the
-        grammar; ``g`` = () or (gtable, gactive). Returns (the next
-        state, the sampled tokens [B]).
-
-        The ring edition (``decode_ring > 0``) carries the deadline-step
-        budget as a seventh element of ``state``: decremented on active
-        at the step's start, like the emission budget, and its
-        exhaustion masks the slot from the next step on (the host
-        finishes it DEADLINE at the same step). With the grammar it also
-        takes ``geos``, the per-slot grammar EOS id (-1 = none), which
-        stops a slot like a stop id (it covers an EOS cut off the
-        8-wide stop-id row)."""
-        tokens, positions, active, budget, key_data, gstate = state[:6]
-        logits, _, _ = llama.forward(params, cfg, tokens[:, None], positions[:, None], ck, cv,
-                                     positions, tp)
-        logits = llama.gather_logits(logits[:, 0], tp)
-        if g:
-            gtable, gactive = g
-            row = _grammar_rows(gtable, gstate)
-            bias = torch.where(gactive[:, None] & (row < 0), _NEG_INF, 0.0)
-            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k,
-                                                   mask_bias=bias)
-            # The state advances on the sampled token, gated like the
-            # position (active at the step's start); a masked token cannot
-            # be sampled, so the max only covers inactive slots' samples.
-            nxt = torch.gather(row, 1, tok[:, None].long())[:, 0]
-            gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
-        else:
-            tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k)
-        # The row just written advances the position only for slots active
-        # at the step's start; deactivation applies from the next step on,
-        # as the host's finish bookkeeping does.
-        positions = torch.where(active, torch.clamp(positions + 1, max=max_seq - 1), positions)
-        budget = budget - active.to(torch.int32)
-        ring = state[6:]
-        if ring:
-            ring = (ring[0] - active.to(torch.int32),)
-        hit_stop = (tok[:, None] == stop_ids).any(dim=1)
-        if geos is not None:
-            # Token ids are >= 0, so a slot without a grammar (-1) never
-            # matches.
-            hit_stop = hit_stop | (tok == geos)
-        active = active & ~hit_stop & (budget > 0)
-        if ring:
-            active = active & (ring[0] > 0)
-        tokens = torch.where(active | hit_stop, tok, tokens)
-        return (tokens, positions, active, budget, key_data, gstate) + ring, tok
+    def any_active(active) -> bool:
+        """Whether any slot of the whole batch is active (the host's read
+        of the decode ring's predicate): OR-ed over the dp shards."""
+        flag = active.any().to(torch.int32).reshape(1)
+        return bool(all_reduce_max(flag, dp).item())
 
     def _outputs(ck, cv, state, grammar_on: bool) -> tuple:
         """A step's state as the programs return it: (ck, cv, tokens,
@@ -313,18 +346,19 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> En
             """The ring edition: ``rest`` = [gstate, gtable, gactive, geos]
             with the grammar, then the deadline-step budget dl int32 [B].
             Returns decode_chunk's outputs with dl before toks (JAX's
-            carry order). A step that starts with no slot active runs
-            nothing: its output row is the frozen token vector and the
-            state passes through, as JAX's ``lax.cond`` dead branch does.
-            This eager edition reads ``active`` on the host to branch;
-            on the card the chunk is captured instead (graphs.py), where
-            the branch is a conditional node on the device."""
+            carry order). A step that starts with no slot of the whole
+            batch active runs nothing: its output row is the frozen token
+            vector and the state passes through, as JAX's ``lax.cond``
+            dead branch does. This eager edition reads ``active`` on the
+            host (OR-ed over dp) to branch; on the card the chunk is
+            captured instead (graphs.py), where the branch is a
+            conditional node on the device."""
             *g, dl = rest
             geos = g.pop() if g else None
             state = (tokens, positions, active, budget, key_data, g[0] if g else None, dl)
             toks = []
             for _ in range(chunk):
-                if not bool(state[2].any()):
+                if not any_active(state[2]):
                     toks.append(state[0])
                     continue
                 state, tok = _step(params, ck, cv, state, stop_ids, temp, top_p, top_k,
@@ -349,7 +383,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> En
         token within the accepted prefix is admissible. A masked proposal
         makes the states after it garbage, but it also disagrees with the
         oracle at its own position, so acceptance stops there."""
-        logits, _, _ = llama.forward(params, cfg, vtoks, vpos, ck, cv, vwstart, tp)
+        logits, _, _ = llama.forward(params, cfg, vtoks, vpos, ck, cv, vwstart, tp, dp)
         logits = llama.gather_logits(logits, tp)
         if not g:
             return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -392,6 +426,7 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None) -> En
         # decode_ring > 0 swaps the whole decode family for the ring
         # edition; ring off builds the programs it always had.
         decode_fns={k: make_decode(k, ring=ecfg.decode_ring > 0) for k in ecfg.chunk_variants()},
+        decode_plain=make_decode(1),
         step=_step,
         extend=extend,
         extend_nosample=extend_nosample,

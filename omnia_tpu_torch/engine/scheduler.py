@@ -31,7 +31,10 @@ pipeline.
 
 Under data parallelism each rank's chunk runs over its shard's slots, and
 one all-gather over dp per chunk joins the shards' ``[K, num_slots //
-dp]`` tokens into the ``[K, num_slots]`` every rank's books read.
+dp]`` tokens into the ``[K, num_slots]`` every rank's books read: after
+the program, or after the graph's replay (outside the graph; on NCCL
+enqueued behind it). The decode ring's deadline-step budget is reckoned
+for every slot and each shard's chunk takes its own block of it.
 """
 
 from __future__ import annotations
@@ -363,13 +366,15 @@ class _SchedulerMixin:
     def _run_decode_step(self, chunk: int, dl_steps: Optional[np.ndarray] = None):
         """Enqueue one decode chunk; device state advances to its outputs
         at once. Returns its tokens [K, B] (every dp shard's), unread. The
-        ring edition takes
-        the deadline-step budget ``dl_steps`` and, with the grammar, the
+        ring edition takes the deadline-step budget ``dl_steps`` (every
+        slot's; the shard runs its block) and, with the grammar, the
         per-slot grammar EOS; on the card it replays the chunk's graph."""
         t_dispatch = time.monotonic()
         graphs = self._ring()
+        if dl_steps is not None:
+            dl_steps = dl_steps[self._dp.lo:self._dp.hi]    # this shard's slots
         if graphs is not None:
-            toks = graphs.replay(chunk, dl_steps)
+            toks = self._dp.gather(graphs.replay(chunk, dl_steps), dim=1)
         else:
             ring_args = ()
             if self.cfg.decode_ring > 0:

@@ -35,8 +35,11 @@ Under tensor parallelism every task's forward holds collectives, so every
 rank must run the same task list in the same order. Under dp every shard
 warms its own programs on its own first slot (the slot-addressed tasks,
 which a request runs on its slot's owner only, included); under sp the
-ring tasks' forwards hold the ring's collectives. The ranks of the whole
-job first compare a digest of their lists and raise on a mismatch; a rank that
+"ring" tasks' forwards (the sp ring attention's prefill) hold its
+collectives. The decode ring's chunks hold collectives under tp and dp,
+and on the card every rank captures them at the same tasks. The ranks of
+the whole job first compare a digest of their lists and device type, and
+raise on a mismatch; a rank that
 never arrives (or stops between tasks) makes the others' next collective
 raise after the process group's timeout (``parallel/distributed.py``)
 instead of hanging.
@@ -115,7 +118,8 @@ class _WarmupMixin:
             return (b - 1, *self._sampler_args(self._dp.lo, sp), *self._grammar_args(None, sp))
 
         def no_deadline() -> np.ndarray:
-            return np.full((cfg.num_slots,), NO_DEADLINE, np.int32)
+            """The deadline-step budget of this shard's slots."""
+            return np.full((self._dp.per,), NO_DEADLINE, np.int32)
 
         def gargs() -> tuple:
             return (self._gstate, self._gtable, self._gactive) if self._gr_on else ()
@@ -226,11 +230,13 @@ class _WarmupMixin:
 
     def _agree_on_tasks(self, program_keys: list) -> None:
         """Under a mesh: every rank's warmup task list must be this one, in
-        this order (their collectives pair up call by call). Raises on
-        every rank of the job when one differs."""
+        this order, on the same device type (their collectives pair up
+        call by call; on the card the decode ring's chunks are captured
+        at the decode tasks). Raises on every rank of the job when one
+        differs."""
         if self._mesh is None:
             return
-        digest = hashlib.sha256("\n".join(program_keys).encode()).digest()
+        digest = hashlib.sha256("\n".join([self.device.type] + program_keys).encode()).digest()
         mine = torch.tensor([int.from_bytes(digest[:7], "big"), len(program_keys)],
                             dtype=torch.int64, device=self.device)
         every = all_gather(mine[None], world_comm(), dim=0).tolist()

@@ -38,11 +38,18 @@
   ``forward_prefill_ring`` runs a long fresh prompt's rows in blocks, one
   per sp rank, with ring attention over the ranks. The caches are
   replicated over sp and over dp (the engine holds each dp shard's
-  slots), so no other forward takes an sp or dp collective.
+  slots), so no other forward takes an sp collective, and only the MoE
+  layer takes a dp one.
 - **MoE** (``cfg.num_experts > 0``): the MLP is ``ops/moe.py::moe_mlp``,
   all experts below 64 rows of a forward (B·T) and capacity dispatch
   from 64 on, so a program gives the JAX package's tokens when it calls
-  the forward with the JAX program's (B, T) and pad rows. The router
+  the forward with the JAX program's (B, T) and pad rows. A forward whose
+  batch rows are one dp shard's block of a batch that GSPMD runs whole
+  (a decode step's slots, a trainer's rows, a pipeline microbatch) takes
+  ``dp``, the "dp"
+  axis's Comm: the MoE layer then branches, sizes its capacity and
+  drops as over the whole batch (``ops/moe.py``). No other op of the
+  forward needs it. The router
   ``[L, D, E]`` and the experts ``[L, E, D, F]`` / ``[L, E, F, D]`` stay
   full precision under int8 weights, as in the JAX package.
 """
@@ -260,11 +267,11 @@ def _dense_mlp(h, p, tp: Optional[Comm]):
     return qdot(F.silu(gate) * up, p["wd"], tp)
 
 
-def _moe_mlp(h, p, cfg: ModelConfig, tp: Optional[Comm]):
+def _moe_mlp(h, p, cfg: ModelConfig, tp: Optional[Comm], dp: Optional[Comm] = None):
     """Mixtral MoE: routing and dispatch live in ops/moe.py; decode-sized
     forwards take the all-expert path, prefill-sized ones capacity
-    dispatch."""
-    return moe_mlp(h, p, cfg.num_experts_per_tok, comm=tp)
+    dispatch, both chosen and sized over the whole dp batch."""
+    return moe_mlp(h, p, cfg.num_experts_per_tok, comm=tp, dp=dp)
 
 
 def _write_index(cache, start: torch.Tensor, T: int):
@@ -313,13 +320,14 @@ def _layers(params: dict) -> list[dict]:
 
 
 def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
-           tp: Optional[Comm] = None, attn_fn=None):
+           tp: Optional[Comm] = None, attn_fn=None, dp: Optional[Comm] = None):
     """One layer. With ck/cv None the attention is over the chunk's own
     keys (fresh prefill) and the chunk's (k, v) is returned; otherwise
     the rows are written into ck/cv in place and attention reads them.
     The head counts are the local weights' (this rank's heads under tp).
-    ``attn_fn(q, k, v, q_positions)`` replaces the attention op (the ring
-    prefill's)."""
+    ``attn_fn(q, k, v, q_positions)`` replaces the attention op (the sp
+    ring attention's prefill). ``dp``: x is one dp shard's rows (the MoE
+    layer's whole-batch dispatch)."""
     B, T, _ = x.shape
     h = copy_in(rms_norm(x, p["ln1"], cfg.rms_norm_eps), tp)
     q = qdot(h, p["attn"]["wq"]).reshape(B, T, -1, cfg.head_dim)
@@ -337,7 +345,7 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
     x = x + qdot(attn.reshape(B, T, -1), p["attn"]["wo"], tp)
     h2 = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     if cfg.is_moe:
-        x = x + _moe_mlp(h2, p["mlp"], cfg, tp)
+        x = x + _moe_mlp(h2, p["mlp"], cfg, tp, dp)
     else:
         x = x + _dense_mlp(h2, p["mlp"], tp)
     return x, k, v
@@ -455,14 +463,16 @@ def _layer_cache(cache, i: int):
 
 
 def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
-            write_start: Optional[torch.Tensor], tp: Optional[Comm] = None):
+            write_start: Optional[torch.Tensor], tp: Optional[Comm] = None,
+            dp: Optional[Comm] = None):
     """Serving forward (prefill or decode: same code, different T).
 
     tokens, q_positions: int [B, T]; cache_k/v: [L, B, S, Hkv, D]
     tensors, QuantKV or PagedKV; write_start: int [B] row where this
     chunk's KV lands. The caches are updated IN PLACE (JAX returns new
     arrays; here the cache is the one allocation) and returned for
-    symmetry with the JAX signature.
+    symmetry with the JAX signature. With ``dp`` the B rows are this dp
+    shard's block of the whole batch.
     Returns (logits [B, T, V] f32 (this rank's vocab slice under tp),
     cache_k, cache_v)."""
     _check_tp(params, cfg, tp)
@@ -472,11 +482,13 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
     index = _write_index(cache_k, write_start, tokens.shape[1])
     for i, p in enumerate(_layers(params)):
         x, _, _ = _layer(x, p, cfg, cos, sin, q_positions,
-                         _layer_cache(cache_k, i), _layer_cache(cache_v, i), index, tp)
+                         _layer_cache(cache_k, i), _layer_cache(cache_v, i), index, tp,
+                         dp=dp)
     return _logits(params, cfg, x, tp), cache_k, cache_v
 
 
-def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
+def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None,
+            dp: Optional[Comm] = None):
     """The cache-free causal forward at positions 0..T-1: tokens int [B,
     T] → the last layer's output [B, T, D], before the final norm."""
     _check_tp(params, cfg, tp)
@@ -485,7 +497,7 @@ def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
     q_positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
     cos, sin = rope_cos_sin(q_positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     for p in _layers(params):
-        x, _, _ = _layer(x, p, cfg, cos, sin, q_positions, None, None, None, tp)
+        x, _, _ = _layer(x, p, cfg, cos, sin, q_positions, None, None, None, tp, dp=dp)
     return x
 
 
@@ -502,12 +514,14 @@ def forward_embed(params, cfg: ModelConfig, tokens, mask, tp: Optional[Comm] = N
     return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
 
 
-def forward_train(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None):
+def forward_train(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None,
+                  dp: Optional[Comm] = None):
     """Full causal forward with no cache (training and scoring): tokens
     int [B, T] → logits [B, T, V] f32, the whole vocabulary on every rank
     under tp. Differentiable for T > 1, under tp too: each sliced leaf
     gets its slice of the whole gradient and each replicated one the
-    whole gradient, on every rank. A T == 1 call on the card runs the
+    whole gradient, on every rank. With ``dp`` tokens are this dp shard's
+    rows of the whole batch (the trainer's). A T == 1 call on the card runs the
     decode kernel, which has no backward and refuses inputs that need a
     gradient."""
-    return gather_logits(_logits(params, cfg, _hidden(params, cfg, tokens, tp), tp), tp)
+    return gather_logits(_logits(params, cfg, _hidden(params, cfg, tokens, tp, dp), tp), tp)

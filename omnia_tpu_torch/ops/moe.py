@@ -32,6 +32,18 @@ JAX package's tokens calls with its shapes and its pad rows.
   partial outputs are summed over the ranks. Under autograd the tokens
   entering the experts and the combine weights pass ``copy_in``, so the
   router and the activations get the whole gradient on every rank.
+- **Data parallelism** (``dp``, the "dp" axis): each rank holds its dp
+  shard's contiguous block of the batch rows, where GSPMD runs the JAX
+  function over the whole batch. So the branch is taken on the global
+  row count ``B·T·dp``, C comes from the global N, and an assignment's
+  position in its expert is its global one: the stable sort over the
+  token-major global list puts the lower shards' assignments first, so
+  the shard all-gathers every shard's per-expert counts (int32 ``[E]``)
+  and offsets its local positions by the lower shards' counts. Keep,
+  drop and combine are then the whole batch's; each shard computes only
+  its own kept rows, with the experts replicated over dp. Below 64
+  global rows every rank takes the all-expert path and nothing crosses
+  the shards.
 """
 
 from __future__ import annotations
@@ -91,16 +103,23 @@ def moe_dense(h: torch.Tensor, p: dict, num_experts_per_tok: int,
 
 
 def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
-                 capacity_factor: float = 2.0, comm: Optional[Comm] = None) -> torch.Tensor:
+                 capacity_factor: float = 2.0, comm: Optional[Comm] = None,
+                 dp: Optional[Comm] = None) -> torch.Tensor:
     """Capacity-dispatched MoE. h [B, T, d] → [B, T, d]. Assignments past
     an expert's capacity land in a trash row of the buffer and contribute
-    zero; under ``comm`` so do those of another rank's experts."""
+    zero; under ``comm`` so do those of another rank's experts. Under
+    ``dp`` h is this shard's rows of the whole batch, and the capacity
+    and the positions are the whole batch's."""
     B, T, d = h.shape
     E = p["router"].shape[-1]
     K = num_experts_per_tok
     N = B * T
-    capacity = max(1, int(-(-N * K * capacity_factor // E)))  # ceil
+    shards = 1 if dp is None else dp.size
+    capacity = max(1, int(-(-N * shards * K * capacity_factor // E)))  # ceil, global N
     NK = N * K
+    # The shard's rows of an expert: its kept assignments sit at their
+    # local positions, which stay below both C and N·K.
+    rows = min(capacity, NK)
     dev = h.device
 
     flat = h.reshape(N, d)
@@ -116,18 +135,23 @@ def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
         0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts                            # first row per expert
     pos = torch.arange(NK, device=dev) - starts[e_s]
-    keep = pos < capacity
-    dest = torch.where(keep, e_s * capacity + pos, E * capacity)
+    below = pos
+    if dp is not None:
+        # The lower shards' assignments come first in each expert's run.
+        every = dp.all_gather(counts.to(torch.int32)[None], dim=0).to(counts.dtype)  # [dp, E]
+        below = pos + every[:dp.index].sum(0)[e_s]
+    keep = below < capacity
+    dest = torch.where(keep, e_s * rows + pos, E * rows)
 
-    xs = torch.zeros((E * capacity + 1, d), dtype=flat.dtype, device=dev)
+    xs = torch.zeros((E * rows + 1, d), dtype=flat.dtype, device=dev)
     xs[dest] = copy_in(flat, comm)[t_s]   # only the trash row receives duplicates
     e0, n = _local_experts(p, comm)
-    lo, hi = e0 * capacity, (e0 + n) * capacity
-    ys = _experts(xs[lo:hi].view(n, capacity, d), p)                     # [E/tp, C, d]
+    lo, hi = e0 * rows, (e0 + n) * rows
+    ys = _experts(xs[lo:hi].view(n, rows, d), p)                         # [E/tp, rows, d]
     if comm is not None:
         keep = keep & (e_s >= e0) & (e_s < e0 + n)
 
-    contrib = ys.reshape(n * capacity, d)[(dest - lo).clamp(0, n * capacity - 1)]
+    contrib = ys.reshape(n * rows, d)[(dest - lo).clamp(0, n * rows - 1)]
     contrib = contrib * (w_s * keep).to(flat.dtype)[:, None]
     out = torch.zeros((N, d), dtype=flat.dtype, device=dev).index_add_(0, t_s, contrib)
     return all_reduce_sum(out, comm).reshape(B, T, d)
@@ -139,9 +163,11 @@ DISPATCH_MIN_TOKENS = 64
 
 
 def moe_mlp(h: torch.Tensor, p: dict, num_experts_per_tok: int,
-            capacity_factor: float = 2.0, comm: Optional[Comm] = None) -> torch.Tensor:
-    """Dense below DISPATCH_MIN_TOKENS rows (B·T), dispatched from it on."""
+            capacity_factor: float = 2.0, comm: Optional[Comm] = None,
+            dp: Optional[Comm] = None) -> torch.Tensor:
+    """Dense below DISPATCH_MIN_TOKENS rows of the whole batch (B·T, times
+    dp when h is one dp shard's rows), dispatched from it on."""
     B, T, _ = h.shape
-    if B * T < DISPATCH_MIN_TOKENS:
+    if B * T * (1 if dp is None else dp.size) < DISPATCH_MIN_TOKENS:
         return moe_dense(h, p, num_experts_per_tok, comm)
-    return moe_dispatch(h, p, num_experts_per_tok, capacity_factor, comm=comm)
+    return moe_dispatch(h, p, num_experts_per_tok, capacity_factor, comm=comm, dp=dp)

@@ -74,7 +74,11 @@ class Comm:
     is asynchronous and is counted without seconds); ``op_stats`` splits
     them by operation ("all_reduce", "all_gather", "broadcast", "shift",
     "send", and a backward's "all_reduce_backward", "broadcast_backward",
-    "send_backward")."""
+    "send_backward"). The counts are taken in Python, where a call is
+    made: a call captured into a CUDA graph (the decode ring's,
+    ``engine/graphs.py``) counts once, at its capture, and the graph's
+    replays are not in ``stats`` or ``op_stats``; ``RingGraphs`` records
+    one captured step's collectives instead (``step_collectives``)."""
 
     def __init__(self, group, size: int, index: int):
         self.group = group

@@ -14,7 +14,12 @@ Each rank is one process: ``maybe_initialize_distributed`` calls
 ``torch.distributed.init_process_group`` over ``tcp://`` at that address.
 The backend is the caller's choice, by default ``nccl`` where the rank
 has a card and ``gloo`` where it has none; a failed init raises, and no
-other backend is tried.
+other backend is tried. The decode ring under tp or dp on the card needs
+``NCCL_GRAPH_MIXING_SUPPORT=0`` in the job's environment, set by the job
+and checked by ``engine.validate_parallel``: its CUDA graphs capture NCCL
+collectives inside conditional (IF) bodies, which refuse the event nodes
+NCCL adds with graph mixing on (``parallel/mesh.py::capture_comms`` keeps those collectives on
+communicators that run nothing else).
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ _initialized: Optional[dict] = None
 
 #: How long a collective waits for its peers before it raises.
 DEFAULT_TIMEOUT_S = 600.0
+#: NCCL's switch for graph mixing, read at its first communicator
+#: (module docstring).
+GRAPH_MIXING = "NCCL_GRAPH_MIXING_SUPPORT"
 
 
 def _infer_process_id(env) -> Optional[int]:

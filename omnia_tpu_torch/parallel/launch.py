@@ -12,6 +12,7 @@ with its traceback; a job that outlives ``timeout_s`` is killed.
 
 from __future__ import annotations
 
+import gc
 import os
 import queue
 import socket
@@ -48,6 +49,10 @@ def _rank_main(rank: int, world: int, port: int, backend: Optional[str],
         raise
     finally:
         if dist.is_initialized():
+            # NCCL's communicator destroy waits until every CUDA graph that
+            # captured one of its collectives (a decode ring's) is destroyed:
+            # free the engines fn left in reference cycles first.
+            gc.collect()
             dist.destroy_process_group()
 
 

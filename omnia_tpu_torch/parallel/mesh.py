@@ -24,6 +24,16 @@ fixed order, including the groups it is not in; a job keeps the groups
 of each mesh shape it made, so that the engine and its checkpoint
 loader share them. An axis that spans the whole job uses the default
 group.
+
+``capture_comms`` gives an engine a second set of groups, over the same
+lines, for the collectives that the decode ring captures into its CUDA
+graphs: NCCL's captured kernels are legal inside a graph's conditional
+(IF) bodies only with its graph-mixing support off
+(``NCCL_GRAPH_MIXING_SUPPORT=0``), and a communicator without it must
+never have a graph launch outstanding when an uncaptured call is made on
+it. The eager collectives (prefills, the dp token gather, the lockstep
+tick) stay on the mesh's own groups; the captured ones only ever run as
+graph replays, enqueued one after another on the engine's stream.
 """
 
 from __future__ import annotations
@@ -68,10 +78,13 @@ class Mesh:
         return self.comms.get(axis)
 
 
-def _axis_groups(dims: dict, world: int) -> dict:
+def _axis_groups(dims: dict, world: int, role: str = "") -> dict:
     """{axis: the process group of this rank's line along it} for every
-    axis of more than one rank, made (once per shape) by every rank."""
-    key = (tuple(dims.items()), id(dist.group.WORLD))
+    axis of more than one rank, made (once per shape and ``role``) by
+    every rank. The default role's whole-job axis uses the default group;
+    another role (``capture_comms``) gets groups of its own for every
+    axis."""
+    key = (tuple(dims.items()), id(dist.group.WORLD), role)
     if key in _GROUPS:
         return _GROUPS[key]
     rank = dist.get_rank()
@@ -83,7 +96,7 @@ def _axis_groups(dims: dict, world: int) -> dict:
     for axis, size in dims.items():
         if size == 1:
             continue
-        if size == world:
+        if size == world and not role:
             groups[axis] = dist.group.WORLD
             continue
         others = [a for a in dims if a != axis]
@@ -132,6 +145,18 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
             comms[axis] = Comm(group, dims[axis], _coords(rank, dims)[axis])
     coords = {axis: c for axis, c in _coords(rank, dims).items() if axis in shape}
     return Mesh(shape=shape, coords=coords, comms=comms)
+
+
+def capture_comms(mesh: Mesh, axes: tuple = ("dp", "tp")) -> dict:
+    """{axis: Comm} over groups of their own along ``mesh``'s lines, for
+    the collectives a CUDA graph captures (module docstring), for each of
+    ``axes`` that has more than one rank. Collective over the whole job
+    the first time a shape asks (``new_group``): every rank calls it at
+    the same point."""
+    dims = {a: mesh.size(a) for a in ("dp", "pp", "sp", "tp")}
+    groups = _axis_groups(dims, dist.get_world_size(), role="capture")
+    return {axis: Comm(groups[axis], dims[axis], mesh.index(axis))
+            for axis in axes if axis in groups}
 
 
 def _coords(rank: int, dims: dict) -> dict:

@@ -12,10 +12,14 @@ The last stage's outputs are broadcast, as bytes, to every stage, where
 the JAX package reduces them in f32 (exact either way: the other stages
 add zeros), and every rank computes the head.
 
-tp runs inside each stage as in ``llama._layer``. Under dp each shard
-takes its contiguous B / dp rows of the batch and cuts those into the M
-microbatches (GSPMD cuts the whole batch; the math is the same, row by
-row).
+tp runs inside each stage as in ``llama._layer``. Under dp each
+microbatch is JAX's (rows m * B / M to (m + 1) * B / M of the batch), and
+each shard takes its contiguous block of every microbatch
+(``shard_rows``), so that an MoE layer, which dispatches over a
+microbatch's rows, sees one GSPMD microbatch split in shard order and
+takes the whole microbatch's branch, capacity and drops (``ops/moe.py``,
+``dp``); what the stages give back is gathered into batch order
+(``gather_rows``).
 
 **Gradients.** The schedule is differentiable, as JAX's ``lax.scan`` is:
 the sends carry their transposes, and a scalar token, threaded through
@@ -86,9 +90,34 @@ def check_schedule(B: int, cfg: ModelConfig, mesh, num_microbatches: Optional[in
 
 
 def dp_rows(B: int, mesh) -> slice:
-    """The contiguous rows of a B-row batch that this rank's dp shard runs."""
+    """The contiguous rows of a B-row batch that this rank's dp shard runs
+    outside the pipeline."""
     n = B // mesh.size("dp")
     return slice(mesh.index("dp") * n, (mesh.index("dp") + 1) * n)
+
+
+def shard_rows(x: torch.Tensor, mesh, M: int) -> torch.Tensor:
+    """This dp shard's rows of a batch x [B, ...] under the schedule: its
+    contiguous block of each of the M microbatches, microbatch by
+    microbatch ([B / dp, ...]); x itself without dp."""
+    dp = mesh.size("dp")
+    if dp == 1:
+        return x
+    B = x.shape[0]
+    blocks = x.reshape(M, dp, B // (M * dp), *x.shape[1:])
+    return blocks[:, mesh.index("dp")].reshape(B // dp, *x.shape[1:])
+
+
+def gather_rows(x: torch.Tensor, mesh, M: int, dim: int = 0) -> torch.Tensor:
+    """The shards' ``shard_rows`` outputs (the batch on ``dim``) gathered
+    over dp back into batch order; x itself without dp."""
+    dp = mesh.comm("dp")
+    if dp is None:
+        return x
+    whole = all_gather(x, dp, dim=dim)              # shard-major
+    lead, b = whole.shape[:dim], x.shape[dim]
+    blocks = whole.reshape(*lead, dp.size, M, b // M, *whole.shape[dim + 1:])
+    return blocks.transpose(dim, dim + 1).reshape(whole.shape)
 
 
 def dp_params(params, mesh):
@@ -105,7 +134,8 @@ def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int,
                   keep_kv: bool = True):
     """This rank's part of the schedule over its dp shard's rows.
 
-    tokens, q_positions: int [b, T], the shard's rows; params: this rank's
+    tokens, q_positions: int [b, T], the shard's rows (``shard_rows``:
+    its block of each microbatch, in order); params: this rank's
     slice by ``param_specs_pp``. Returns (the last stage's output [b, T,
     D] on every stage, this stage's k_chunk, v_chunk [L / pp, b, T, Hkv /
     tp, D], or None without ``keep_kv``)."""
@@ -113,7 +143,7 @@ def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int,
     from omnia_tpu_torch.ops.rope import rope_cos_sin
 
     _check_tp(params, cfg, mesh.comm("tp"))
-    tp, pp = mesh.comm("tp"), mesh.comm("pp")
+    tp, pp, dp = mesh.comm("tp"), mesh.comm("pp"), mesh.comm("dp")
     S, s = mesh.size("pp"), mesh.index("pp")
     b, T = tokens.shape
     mb = b // M
@@ -136,7 +166,7 @@ def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int,
             kv = []
             for p in layers:
                 h, k, v = _layer(h, p, cfg, cos[rows], sin[rows], q_positions[rows],
-                                 None, None, None, tp)
+                                 None, None, None, tp, dp=dp)
                 kv.append((k, v))
             if keep_kv:
                 ks.append(torch.stack([k for k, _ in kv]))
@@ -175,9 +205,9 @@ def pipeline_forward(params, cfg: ModelConfig, tokens, q_positions, mesh,
 
     B, T = tokens.shape
     M = check_schedule(B, cfg, mesh, num_microbatches)
-    rows = dp_rows(B, mesh)
     params = dp_params(params, mesh)
-    out, k, v = stage_forward(params, cfg, tokens[rows], q_positions[rows], mesh, M)
+    out, k, v = stage_forward(params, cfg, shard_rows(tokens, mesh, M),
+                              shard_rows(q_positions, mesh, M), mesh, M)
     logits = gather_logits(_logits(params, cfg, out, mesh.comm("tp")), mesh.comm("tp"))
-    dp = mesh.comm("dp")
-    return all_gather(logits, dp, dim=0), all_gather(k, dp, dim=1), all_gather(v, dp, dim=1)
+    return (gather_rows(logits, mesh, M), gather_rows(k, mesh, M, dim=1),
+            gather_rows(v, mesh, M, dim=1))

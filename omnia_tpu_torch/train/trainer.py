@@ -19,12 +19,14 @@
   ``param_specs_pp`` when the mesh has "pp" (the layers split over the
   stages; the step then runs ``pipeline_loss_fn``, the GPipe schedule of
   ``parallel/pipeline.py``). Each rank takes the global batch and runs
-  its dp shard's contiguous rows; the loss is the global mean on every
-  rank. The collectives carry their transposes, so after ``backward``
-  each sliced leaf holds its slice of the global gradient and each
-  replicated leaf (over tp, pp or dp) the same global gradient on every
-  rank. AdamW is elementwise, and optax's default has no clipping, so the
-  sharded update is JAX's global one.
+  its dp shard's contiguous rows, under pp its block of each microbatch
+  (an MoE layer branching, sizing its capacity and dropping over the
+  whole batch or microbatch, as GSPMD's does); the loss is the global
+  mean on every rank. The collectives carry their transposes, so after
+  ``backward`` each sliced leaf holds its slice of the global gradient
+  and each replicated leaf (over tp, pp or dp) the same global gradient
+  on every rank. AdamW is elementwise, and optax's default has no
+  clipping, so the sharded update is JAX's global one.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.models import ModelConfig, llama
 from omnia_tpu_torch.models.convert import params_from_jax
 from omnia_tpu_torch.parallel.collectives import all_reduce_sum
-from omnia_tpu_torch.parallel.pipeline import check_schedule, dp_params, dp_rows, stage_forward
+from omnia_tpu_torch.parallel.pipeline import (check_schedule, dp_params, dp_rows, shard_rows,
+                                               stage_forward)
 
 # A factory over the parameter list, e.g. ``adamw(1e-4)``.
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
@@ -89,7 +92,8 @@ def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, mesh=None) -> torch.
     if mesh is None:
         return _nll(llama.forward_train(params, cfg, tokens[:, :-1]), tokens)
     tokens = tokens[dp_rows(tokens.shape[0], mesh)]
-    logits = llama.forward_train(dp_params(params, mesh), cfg, tokens[:, :-1], mesh.comm("tp"))
+    logits = llama.forward_train(dp_params(params, mesh), cfg, tokens[:, :-1], mesh.comm("tp"),
+                                 mesh.comm("dp"))
     return _global_mean(_nll(logits, tokens), mesh)
 
 
@@ -99,7 +103,7 @@ def pipeline_loss_fn(params, cfg: ModelConfig, tokens, mesh, num_microbatches=No
     slice by ``param_specs_pp``, tokens int [B, T] the global batch."""
     B, T = tokens.shape
     M = check_schedule(B, cfg, mesh, num_microbatches)
-    tokens = tokens[dp_rows(B, mesh)]
+    tokens = shard_rows(tokens, mesh, M)
     params = dp_params(params, mesh)
     pos = torch.arange(T - 1, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0], -1)
     out, _, _ = stage_forward(params, cfg, tokens[:, :-1], pos, mesh, M, keep_kv=False)

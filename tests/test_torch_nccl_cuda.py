@@ -1,9 +1,11 @@
 """The NCCL route of the port's tensor, data, sequence and pipeline
 parallelism, one rank per card: the NCCL branches of
-``parallel/collectives.py::Comm`` (the sp ring's and the pipeline's
-point-to-point steps among them), of ``engine/multihost.py::LockstepEngine``
-and of the sharded trainer's backward, which the gloo tests and
-``chip_smoke.py`` phases 14-16 (ranks sharing one card) never take. This
+``parallel/collectives.py::Comm`` (the sp ring attention's and the
+pipeline's point-to-point steps among them), of
+``engine/multihost.py::LockstepEngine``, of the sharded trainer's
+backward, and the decode ring's captured graphs whose steps hold NCCL
+collectives (``engine/graphs.py``), which the gloo tests and
+``chip_smoke.py`` phases 14-17 (ranks sharing one card) never take. This
 file imports neither jax nor omnia_tpu, so run it on a host with two or
 more cards without the suite's conftest:
 
@@ -19,6 +21,7 @@ import torch
 
 import torch_dpsp_workers as dpsp_workers
 import torch_pp_workers as pp_workers
+import torch_ring_workers as ring_workers
 import torch_tp_workers as workers
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.parallel.launch import spawn_ranks
@@ -131,3 +134,92 @@ def check_train_values(got: list) -> None:
     for (path, a), (_, b) in zip(flat(got[0]["grads"]), flat(ref)):
         assert a.shape == b.shape, path
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), path
+
+
+RING_MESHES = {"tp2": dict(tp=2), "tp4": dict(tp=4), "dp2_tp2": dict(dp=2, tp=2),
+               "sp2_tp2": dict(sp=2, tp=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RING_MESHES))
+def test_nccl_decode_ring_graphs(name):
+    dims = RING_MESHES[name]
+    world = int(np.prod(list(dims.values())))
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(ring_workers.nccl_ring_job, world, args=(dims,), backend="nccl",
+                      env=ring_workers.NCCL_RING_ENV, timeout_s=300, rank_timeout_s=120)
+    for r, g in enumerate(got):
+        assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
+    check_ring_values(got, dims)
+
+
+def check_ring_values(got: list, dims: dict) -> None:
+    """On K1 and K4: every rank's ring engine captured its graphs, and its
+    steps hold collectives over tp (and over dp: the early-out's OR);
+    its greedy rows equal the ring-off engine's and the one-rank engine's;
+    each rank's kernel launched num_layers x the steps that ran, counted on
+    the card, and no other kernel. Under dp the dp script's sampler states,
+    sampled streams and books equal the dp = 1 ring engine's."""
+    for label in ring_workers.NCCL_RING_CACHES:
+        for g in got:
+            on, off = g[(label, "on")], g[(label, "off")]
+            assert on["captured"] and not off["captured"]
+            axes = set(on["step_collectives"])
+            assert ("tp" in axes) == (dims.get("tp", 1) > 1), on["step_collectives"]
+            assert ("dp" in axes) == (dims.get("dp", 1) > 1), on["step_collectives"]
+            assert on["rows"] == off["rows"] == got[0][(label, "tp1")], label
+            for res in (on, off):
+                assert res["ran"] > 0
+                assert res["launches"][res["edition"]] == res["layers"] * res["ran"], res
+                assert sum(res["launches"].values()) == res["launches"][res["edition"]]
+    if dims.get("dp", 1) > 1:
+        for g in got:
+            dp, one = g["dp"], g["dp1"]
+            assert dp["slots"] and one["slots"]
+            np.testing.assert_array_equal(dp["keys"], one["keys"])
+            for key in ("batch", "late", "books"):
+                assert dp[key] == one[key], key
+
+
+@pytest.mark.cuda
+def test_nccl_llama3_8b_tp2_ring_on_and_off():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(ring_workers.nccl_8b_job, 2, backend="nccl", env=ring_workers.NCCL_RING_ENV,
+                      timeout_s=600, rank_timeout_s=300)
+    check_8b_values(got)
+
+
+def check_8b_values(got: list) -> None:
+    """The ring's greedy tokens equal ring-off's over the whole burst;
+    each rank holds half of every split leaf; the numbers are printed
+    (``pytest -s``) beside the card's name and power limit."""
+    import json
+    import subprocess
+
+    greedy = got[0]["greedy"]
+    assert greedy["on"] == greedy["off"]
+    assert got[0]["params_bytes"] == got[1]["params_bytes"]
+    for g in got:
+        assert g["step_collectives"]["tp"]["calls"] > 0
+        for arm in ("on", "off"):
+            assert all(w["decode_steps"] > 0 for w in g["windows"][arm])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print("nccl llama3-8b tp=2 " + json.dumps(dict(
+        card=card.strip().splitlines(), greedy_tokens=sum(map(len, greedy["on"])),
+        host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"] for w in got[0]["windows"][arm]]
+                                 for arm in ("on", "off")},
+        chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
+                                  for g in got] for arm in ("on", "off")},
+        windows=[g["windows"] for g in got],
+        params_bytes_per_rank=[g["params_bytes"] for g in got],
+        kv_bytes_per_rank=[g["kv_bytes"] for g in got],
+        capture_s=[g["capture_s"] for g in got], pool_bytes=[g["pool_bytes"] for g in got],
+        step_collectives=[g["step_collectives"] for g in got],
+        warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
+        init_s=[g["init_s"] for g in got], peak_bytes=[g["peak_bytes"] for g in got])),
+        flush=True)

@@ -12,9 +12,9 @@ devices.
   ``tests/test_llama.py::test_train_step_runs_and_loss_decreases``), and
   in the same job ``loss_fn(mesh=)``'s gradient for test-tiny-moe against
   ``jax.value_and_grad``: the router (replicated over tp) and the experts
-  (split over tp) included, at 2 x 32 rows a shard (capacity dispatch;
-  at E = 4 nothing drops, so the shards' capacity, which differs from
-  GSPMD's whole-batch one, keeps every assignment either way).
+  (split over tp) included, at 2 x 32 rows a shard (capacity dispatch
+  over the whole batch; at E = 4 nothing drops; the E = 8 edition whose
+  dispatch drops is ``test_torch_ring_mesh.py``'s).
 
 Held: each step's loss within 1e-5 relative, the params after it within
 0.05 lr (AdamW's g / (|g| + eps) turns summation-order differences near
