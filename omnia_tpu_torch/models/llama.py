@@ -46,9 +46,10 @@
   the forward with the JAX program's (B, T) and pad rows. A forward whose
   batch rows are one dp shard's block of a batch that GSPMD runs whole
   (a decode step's slots, a trainer's rows, a pipeline microbatch) takes
-  ``dp``, the "dp"
-  axis's Comm: the MoE layer then branches, sizes its capacity and
-  drops as over the whole batch (``ops/moe.py``). No other op of the
+  ``dp``, the "dp" axis's Comm (even shards), or a ``ShardRows`` for
+  GSPMD's uneven blocks with their padding rows: the MoE layer then
+  branches, sizes its capacity and drops as over the whole batch
+  (``ops/moe.py``). No other op of the
   forward needs it. The router
   ``[L, D, E]`` and the experts ``[L, E, D, F]`` / ``[L, E, F, D]`` stay
   full precision under int8 weights, as in the JAX package.
@@ -267,7 +268,7 @@ def _dense_mlp(h, p, tp: Optional[Comm]):
     return qdot(F.silu(gate) * up, p["wd"], tp)
 
 
-def _moe_mlp(h, p, cfg: ModelConfig, tp: Optional[Comm], dp: Optional[Comm] = None):
+def _moe_mlp(h, p, cfg: ModelConfig, tp: Optional[Comm], dp=None):
     """Mixtral MoE: routing and dispatch live in ops/moe.py; decode-sized
     forwards take the all-expert path, prefill-sized ones capacity
     dispatch, both chosen and sized over the whole dp batch."""
@@ -320,7 +321,7 @@ def _layers(params: dict) -> list[dict]:
 
 
 def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
-           tp: Optional[Comm] = None, attn_fn=None, dp: Optional[Comm] = None):
+           tp: Optional[Comm] = None, attn_fn=None, dp=None):
     """One layer. With ck/cv None the attention is over the chunk's own
     keys (fresh prefill) and the chunk's (k, v) is returned; otherwise
     the rows are written into ck/cv in place and attention reads them.
@@ -487,8 +488,7 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
     return _logits(params, cfg, x, tp), cache_k, cache_v
 
 
-def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None,
-            dp: Optional[Comm] = None):
+def _hidden(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None, dp=None):
     """The cache-free causal forward at positions 0..T-1: tokens int [B,
     T] → the last layer's output [B, T, D], before the final norm."""
     _check_tp(params, cfg, tp)
@@ -514,8 +514,7 @@ def forward_embed(params, cfg: ModelConfig, tokens, mask, tp: Optional[Comm] = N
     return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
 
 
-def forward_train(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None,
-                  dp: Optional[Comm] = None):
+def forward_train(params, cfg: ModelConfig, tokens, tp: Optional[Comm] = None, dp=None):
     """Full causal forward with no cache (training and scoring): tokens
     int [B, T] → logits [B, T, V] f32, the whole vocabulary on every rank
     under tp. Differentiable for T > 1, under tp too: each sliced leaf

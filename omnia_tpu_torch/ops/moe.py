@@ -32,18 +32,21 @@ JAX package's tokens calls with its shapes and its pad rows.
   partial outputs are summed over the ranks. Under autograd the tokens
   entering the experts and the combine weights pass ``copy_in``, so the
   router and the activations get the whole gradient on every rank.
-- **Data parallelism** (``dp``, the "dp" axis): each rank holds its dp
-  shard's contiguous block of the batch rows, where GSPMD runs the JAX
-  function over the whole batch. So the branch is taken on the global
-  row count ``B·T·dp``, C comes from the global N, and an assignment's
-  position in its expert is its global one: the stable sort over the
-  token-major global list puts the lower shards' assignments first, so
-  the shard all-gathers every shard's per-expert counts (int32 ``[E]``)
-  and offsets its local positions by the lower shards' counts. Keep,
-  drop and combine are then the whole batch's; each shard computes only
-  its own kept rows, with the experts replicated over dp. Below 64
-  global rows every rank takes the all-expert path and nothing crosses
-  the shards.
+- **Data parallelism** (``dp``, the "dp" axis's Comm, or a
+  ``ShardRows``): each rank holds its dp shard's contiguous block of the
+  batch rows, where GSPMD runs the JAX function over the whole batch.
+  So the branch is taken on the whole batch's row count (``B·T·dp`` for
+  even shards, ``ShardRows.total·T`` for GSPMD's uneven ones), C comes
+  from the global N, and an assignment's position in its expert is its
+  global one: the stable sort over the token-major global list puts the
+  lower shards' assignments first, so the shard all-gathers every
+  shard's per-expert counts (int32 ``[E]``) and offsets its local
+  positions by the lower shards' counts. A shard's padding rows (past
+  ``ShardRows.valid``) take no expert slot and add nothing to the
+  counts. Keep, drop and combine are then the whole batch's; each shard
+  computes only its own kept rows, with the experts replicated over dp.
+  Below 64 global rows every rank takes the all-expert path and nothing
+  crosses the shards.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum, copy_in
+from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum, batch_rows, copy_in
 
 
 def route_sparse(h: torch.Tensor, router_w: torch.Tensor, num_experts_per_tok: int):
@@ -104,18 +107,19 @@ def moe_dense(h: torch.Tensor, p: dict, num_experts_per_tok: int,
 
 def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
                  capacity_factor: float = 2.0, comm: Optional[Comm] = None,
-                 dp: Optional[Comm] = None) -> torch.Tensor:
+                 dp=None) -> torch.Tensor:
     """Capacity-dispatched MoE. h [B, T, d] → [B, T, d]. Assignments past
     an expert's capacity land in a trash row of the buffer and contribute
     zero; under ``comm`` so do those of another rank's experts. Under
-    ``dp`` h is this shard's rows of the whole batch, and the capacity
-    and the positions are the whole batch's."""
+    ``dp`` (the dp Comm or a ``ShardRows``) h is this shard's rows of the
+    whole batch, and the capacity and the positions are the whole
+    batch's; padding rows go to the trash row."""
     B, T, d = h.shape
     E = p["router"].shape[-1]
     K = num_experts_per_tok
     N = B * T
-    shards = 1 if dp is None else dp.size
-    capacity = max(1, int(-(-N * shards * K * capacity_factor // E)))  # ceil, global N
+    dp, total, valid = batch_rows(dp, B)
+    capacity = max(1, int(-(-total * T * K * capacity_factor // E)))  # ceil, global N
     NK = N * K
     # The shard's rows of an expert: its kept assignments sit at their
     # local positions, which stay below both C and N·K.
@@ -127,20 +131,24 @@ def moe_dispatch(h: torch.Tensor, p: dict, num_experts_per_tok: int,
     e_flat = top_i.reshape(NK)                                           # token-major
     w_flat = copy_in(top_w, comm).reshape(NK)
     tok_of = torch.arange(N, device=dev).repeat_interleave(K)
+    if valid < B:
+        # Padding rows come after every real row of the batch; sent to
+        # expert E, they take no slot and add nothing to the counts.
+        e_flat = e_flat.masked_fill(tok_of >= valid * T, E)
 
     order = torch.argsort(e_flat, stable=True)
     e_s, w_s, t_s = e_flat[order], w_flat[order], tok_of[order]
-    # bincount(minlength=E) without its host sync on the output size.
-    counts = torch.zeros(E, dtype=e_flat.dtype, device=dev).scatter_add_(
+    # bincount(minlength=E + 1) without its host sync on the output size.
+    counts = torch.zeros(E + 1, dtype=e_flat.dtype, device=dev).scatter_add_(
         0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts                            # first row per expert
     pos = torch.arange(NK, device=dev) - starts[e_s]
     below = pos
     if dp is not None:
         # The lower shards' assignments come first in each expert's run.
-        every = dp.all_gather(counts.to(torch.int32)[None], dim=0).to(counts.dtype)  # [dp, E]
-        below = pos + every[:dp.index].sum(0)[e_s]
-    keep = below < capacity
+        every = dp.all_gather(counts[:E].to(torch.int32)[None], dim=0).to(counts.dtype)  # [dp, E]
+        below = pos + F.pad(every[:dp.index].sum(0), (0, 1))[e_s]
+    keep = (below < capacity) & (e_s < E)
     dest = torch.where(keep, e_s * rows + pos, E * rows)
 
     xs = torch.zeros((E * rows + 1, d), dtype=flat.dtype, device=dev)
@@ -164,10 +172,11 @@ DISPATCH_MIN_TOKENS = 64
 
 def moe_mlp(h: torch.Tensor, p: dict, num_experts_per_tok: int,
             capacity_factor: float = 2.0, comm: Optional[Comm] = None,
-            dp: Optional[Comm] = None) -> torch.Tensor:
-    """Dense below DISPATCH_MIN_TOKENS rows of the whole batch (B·T, times
-    dp when h is one dp shard's rows), dispatched from it on."""
+            dp=None) -> torch.Tensor:
+    """Dense below DISPATCH_MIN_TOKENS rows of the whole batch (B·T when
+    h is the batch; the whole batch's rows × T when h is one dp shard's
+    block, ``dp`` its Comm or ``ShardRows``), dispatched from it on."""
     B, T, _ = h.shape
-    if B * T * (1 if dp is None else dp.size) < DISPATCH_MIN_TOKENS:
+    if batch_rows(dp, B)[1] * T < DISPATCH_MIN_TOKENS:
         return moe_dense(h, p, num_experts_per_tok, comm)
     return moe_dispatch(h, p, num_experts_per_tok, capacity_factor, comm=comm, dp=dp)

@@ -57,6 +57,7 @@ tokens equal.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -192,6 +193,32 @@ def _as_bytes(x: torch.Tensor) -> torch.Tensor:
 
 def _from_bytes(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return buf.view(like.dtype) if like.dtype in _HALF and like.dim() > 0 else buf
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRows:
+    """One dp shard's block of ``total`` batch rows, as GSPMD lays out a
+    dimension that dp does not divide: shard r holds rows r·per to (r +
+    1)·per (per = ceil(total / dp)), so the last shards hold fewer rows,
+    or none. The shard's tensors keep ``per`` rows, the first ``valid``
+    its own and the rest padding, so that every rank's collectives have
+    one size. Passed as a forward's ``dp`` in place of the dp Comm (which
+    means even shards, every row real)."""
+
+    comm: Comm
+    total: int
+    valid: int
+
+
+def batch_rows(dp, rows: int) -> tuple:
+    """(the dp Comm or None, the whole batch's rows, this shard's real
+    rows) of a forward over ``rows`` rows whose ``dp`` is None, the dp
+    Comm or a ShardRows."""
+    if dp is None:
+        return None, rows, rows
+    if isinstance(dp, ShardRows):
+        return dp.comm, dp.total, dp.valid
+    return dp, rows * dp.size, rows
 
 
 def world_comm() -> Comm:

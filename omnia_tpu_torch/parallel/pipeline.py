@@ -19,7 +19,12 @@ each shard takes its contiguous block of every microbatch
 microbatch's rows, sees one GSPMD microbatch split in shard order and
 takes the whole microbatch's branch, capacity and drops (``ops/moe.py``,
 ``dp``); what the stages give back is gathered into batch order
-(``gather_rows``).
+(``gather_rows``). A microbatch of B / M rows that dp does not divide is
+laid out as GSPMD lays it: each shard a block of ceil(B / M / dp) rows,
+the last shards fewer or none (``dp_rows``). Each shard's block is
+padded to that size, so that every rank's collectives keep one size; the
+padding rows take no expert slot, and the loss and the gathered outputs
+leave them out.
 
 **Gradients.** The schedule is differentiable, as JAX's ``lax.scan`` is:
 the sends carry their transposes, and a scalar token, threaded through
@@ -38,7 +43,8 @@ from typing import Optional
 import torch
 
 from omnia_tpu_torch.models.config import ModelConfig
-from omnia_tpu_torch.parallel.collectives import Comm, all_gather, broadcast, copy_in, stage_send
+from omnia_tpu_torch.parallel.collectives import (Comm, ShardRows, all_gather, broadcast, copy_in,
+                                                  stage_send)
 
 
 class _Lookup(torch.autograd.Function):
@@ -76,48 +82,63 @@ class _Lookup(torch.autograd.Function):
 
 def check_schedule(B: int, cfg: ModelConfig, mesh, num_microbatches: Optional[int]) -> int:
     """The microbatch count M (default: the pp size), after JAX's two
-    checks and the port's own: each dp shard's B / dp rows must split
-    into the M microbatches."""
-    S, dp = mesh.size("pp"), mesh.size("dp")
+    checks."""
+    S = mesh.size("pp")
     M = num_microbatches or S
     if B % M:
         raise ValueError(f"batch {B} not divisible by {M} microbatches")
     if cfg.num_layers % S:
         raise ValueError(f"{cfg.num_layers} layers not divisible by pp={S}")
-    if B % (dp * M):
-        raise ValueError(f"batch {B} does not split into dp={dp} shards of {M} microbatches")
     return M
 
 
-def dp_rows(B: int, mesh) -> slice:
-    """The contiguous rows of a B-row batch that this rank's dp shard runs
-    outside the pipeline."""
-    n = B // mesh.size("dp")
-    return slice(mesh.index("dp") * n, (mesh.index("dp") + 1) * n)
+def dp_rows(n: int, mesh) -> tuple[slice, int, Optional[ShardRows]]:
+    """This rank's dp shard of n rows as GSPMD lays them out: (the rows
+    it holds, the rows every shard keeps (ceil(n / dp), padding
+    included), its ``ShardRows``, None without dp)."""
+    dp = mesh.comm("dp")
+    if dp is None:
+        return slice(0, n), n, None
+    per = -(-n // dp.size)
+    start = min(dp.index * per, n)
+    stop = min(start + per, n)
+    return slice(start, stop), per, ShardRows(dp, n, stop - start)
+
+
+def real_rows(x: torch.Tensor, mesh, M: int, n: int) -> torch.Tensor:
+    """The rows of x [M * per, ...] (``shard_rows``' layout of a batch of
+    M microbatches of n rows each) that are this shard's own, padding
+    left out."""
+    rows, per, _ = dp_rows(n, mesh)
+    return x.reshape(M, per, *x.shape[1:])[:, :rows.stop - rows.start].reshape(-1, *x.shape[1:])
 
 
 def shard_rows(x: torch.Tensor, mesh, M: int) -> torch.Tensor:
     """This dp shard's rows of a batch x [B, ...] under the schedule: its
-    contiguous block of each of the M microbatches, microbatch by
-    microbatch ([B / dp, ...]); x itself without dp."""
-    dp = mesh.size("dp")
-    if dp == 1:
+    block of each of the M microbatches (``dp_rows``), each padded with
+    zero rows to ceil(B / M / dp), microbatch by microbatch; x itself
+    without dp."""
+    if mesh.comm("dp") is None:
         return x
-    B = x.shape[0]
-    blocks = x.reshape(M, dp, B // (M * dp), *x.shape[1:])
-    return blocks[:, mesh.index("dp")].reshape(B // dp, *x.shape[1:])
+    B, rest = x.shape[0], x.shape[1:]
+    rows, per, _ = dp_rows(B // M, mesh)
+    blocks = x.reshape(M, B // M, *rest)[:, rows]
+    pad = blocks.new_zeros((M, per - blocks.shape[1], *rest))
+    return torch.cat([blocks, pad], dim=1).reshape(M * per, *rest)
 
 
-def gather_rows(x: torch.Tensor, mesh, M: int, dim: int = 0) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, mesh, M: int, B: int, dim: int = 0) -> torch.Tensor:
     """The shards' ``shard_rows`` outputs (the batch on ``dim``) gathered
-    over dp back into batch order; x itself without dp."""
+    over dp back into the B rows of the batch, in order, padding left
+    out; x itself without dp."""
     dp = mesh.comm("dp")
     if dp is None:
         return x
     whole = all_gather(x, dp, dim=dim)              # shard-major
-    lead, b = whole.shape[:dim], x.shape[dim]
-    blocks = whole.reshape(*lead, dp.size, M, b // M, *whole.shape[dim + 1:])
-    return blocks.transpose(dim, dim + 1).reshape(whole.shape)
+    lead, rest, per = whole.shape[:dim], whole.shape[dim + 1:], x.shape[dim] // M
+    blocks = whole.reshape(*lead, dp.size, M, per, *rest).transpose(dim, dim + 1)
+    blocks = blocks.reshape(*lead, M, dp.size * per, *rest).narrow(dim + 1, 0, B // M)
+    return blocks.reshape(*lead, B, *rest)
 
 
 def dp_params(params, mesh):
@@ -130,20 +151,21 @@ def dp_params(params, mesh):
     return copy_in(params, dp)
 
 
-def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int,
+def stage_forward(params, cfg: ModelConfig, tokens, q_positions, mesh, M: int, B: int,
                   keep_kv: bool = True):
     """This rank's part of the schedule over its dp shard's rows.
 
-    tokens, q_positions: int [b, T], the shard's rows (``shard_rows``:
-    its block of each microbatch, in order); params: this rank's
-    slice by ``param_specs_pp``. Returns (the last stage's output [b, T,
-    D] on every stage, this stage's k_chunk, v_chunk [L / pp, b, T, Hkv /
-    tp, D], or None without ``keep_kv``)."""
+    tokens, q_positions: int [b, T], the shard's rows of the B-row batch
+    (``shard_rows``: its block of each microbatch, in order, padded);
+    params: this rank's slice by ``param_specs_pp``. Returns (the last
+    stage's output [b, T, D] on every stage, this stage's k_chunk,
+    v_chunk [L / pp, b, T, Hkv / tp, D], or None without ``keep_kv``)."""
     from omnia_tpu_torch.models.llama import _check_tp, _layer, _layers, _lookup
     from omnia_tpu_torch.ops.rope import rope_cos_sin
 
     _check_tp(params, cfg, mesh.comm("tp"))
-    tp, pp, dp = mesh.comm("tp"), mesh.comm("pp"), mesh.comm("dp")
+    tp, pp = mesh.comm("tp"), mesh.comm("pp")
+    dp = dp_rows(B // M, mesh)[2]                 # a microbatch's rows over dp
     S, s = mesh.size("pp"), mesh.index("pp")
     b, T = tokens.shape
     mb = b // M
@@ -197,9 +219,9 @@ def pipeline_forward(params, cfg: ModelConfig, tokens, q_positions, mesh,
     rank, this stage's k_chunk, v_chunk [L / pp, B, T, Hkv / tp, D]).
 
     B must divide by ``num_microbatches`` (default: the pp size, the
-    least M that keeps every stage busy between fill and drain), and
-    under dp each shard's B / dp rows too. Params must be this rank's
-    slice by ``llama.param_specs_pp``. Differentiable; the trainer's
+    least M that keeps every stage busy between fill and drain); dp need
+    not divide a microbatch. Params must be this rank's slice by
+    ``llama.param_specs_pp``. Differentiable; the trainer's
     ``pipeline_loss_fn`` differentiates the same schedule."""
     from omnia_tpu_torch.models.llama import _logits, gather_logits
 
@@ -207,7 +229,7 @@ def pipeline_forward(params, cfg: ModelConfig, tokens, q_positions, mesh,
     M = check_schedule(B, cfg, mesh, num_microbatches)
     params = dp_params(params, mesh)
     out, k, v = stage_forward(params, cfg, shard_rows(tokens, mesh, M),
-                              shard_rows(q_positions, mesh, M), mesh, M)
+                              shard_rows(q_positions, mesh, M), mesh, M, B)
     logits = gather_logits(_logits(params, cfg, out, mesh.comm("tp")), mesh.comm("tp"))
-    return (gather_rows(logits, mesh, M), gather_rows(k, mesh, M, dim=1),
-            gather_rows(v, mesh, M, dim=1))
+    return (gather_rows(logits, mesh, M, B), gather_rows(k, mesh, M, B, dim=1),
+            gather_rows(v, mesh, M, B, dim=1))

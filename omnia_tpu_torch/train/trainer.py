@@ -21,8 +21,11 @@
   ``parallel/pipeline.py``). Each rank takes the global batch and runs
   its dp shard's contiguous rows, under pp its block of each microbatch
   (an MoE layer branching, sizing its capacity and dropping over the
-  whole batch or microbatch, as GSPMD's does); the loss is the global
-  mean on every rank. The collectives carry their transposes, so after
+  whole batch or microbatch, as GSPMD's does). dp need not divide the
+  rows: a shard holds GSPMD's ceil(rows / dp) block, padded where it is
+  short, and the padding rows drop out of the MoE's slots and of the
+  loss, which is the sum of every shard's token NLLs over the batch's
+  token count, on every rank. The collectives carry their transposes, so after
   ``backward`` each sliced leaf holds its slice of the global gradient
   and each replicated leaf (over tp, pp or dp) the same global gradient
   on every rank. AdamW is elementwise, and optax's default has no
@@ -41,8 +44,8 @@ from omnia_tpu_torch import resolve_device
 from omnia_tpu_torch.models import ModelConfig, llama
 from omnia_tpu_torch.models.convert import params_from_jax
 from omnia_tpu_torch.parallel.collectives import all_reduce_sum
-from omnia_tpu_torch.parallel.pipeline import (check_schedule, dp_params, dp_rows, shard_rows,
-                                               stage_forward)
+from omnia_tpu_torch.parallel.pipeline import (check_schedule, dp_params, dp_rows, real_rows,
+                                               shard_rows, stage_forward)
 
 # A factory over the parameter list, e.g. ``adamw(1e-4)``.
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
@@ -74,27 +77,30 @@ def leaves(tree, path: str = "") -> list[tuple[str, object]]:
 
 
 def _nll(logits, tokens):
+    """Each next token's NLL [B, T - 1], the log-softmax in f32."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-    return nll.mean()
+    return -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
 
 
-def _global_mean(loss, mesh):
-    """The mean of the dp shards' losses (each a mean over as many rows)
-    on every rank; each shard's gradient is its share."""
-    return all_reduce_sum(loss, mesh.comm("dp")) / mesh.size("dp")
+def _global_mean(nll, count: int, mesh):
+    """The whole batch's mean NLL on every rank: the sum of this dp
+    shard's real rows' NLLs, summed over dp, over the batch's ``count``
+    tokens; each shard's gradient is its share."""
+    return all_reduce_sum(nll.sum(), mesh.comm("dp")) / count
 
 
 def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy. tokens: int [B, T]. On a mesh
     (without "pp") ``params`` is this rank's slice by ``param_specs``,
-    tokens the global batch, and the rank runs its dp shard's rows."""
+    tokens the global batch, and the rank runs its dp shard's rows
+    (``pipeline.dp_rows``: GSPMD's blocks, so dp need not divide B)."""
     if mesh is None:
-        return _nll(llama.forward_train(params, cfg, tokens[:, :-1]), tokens)
-    tokens = tokens[dp_rows(tokens.shape[0], mesh)]
-    logits = llama.forward_train(dp_params(params, mesh), cfg, tokens[:, :-1], mesh.comm("tp"),
-                                 mesh.comm("dp"))
-    return _global_mean(_nll(logits, tokens), mesh)
+        return _nll(llama.forward_train(params, cfg, tokens[:, :-1]), tokens).mean()
+    B, T = tokens.shape
+    local = shard_rows(tokens, mesh, 1)
+    logits = llama.forward_train(dp_params(params, mesh), cfg, local[:, :-1], mesh.comm("tp"),
+                                 dp_rows(B, mesh)[2])
+    return _global_mean(real_rows(_nll(logits, local), mesh, 1, B), B * (T - 1), mesh)
 
 
 def pipeline_loss_fn(params, cfg: ModelConfig, tokens, mesh, num_microbatches=None):
@@ -103,13 +109,13 @@ def pipeline_loss_fn(params, cfg: ModelConfig, tokens, mesh, num_microbatches=No
     slice by ``param_specs_pp``, tokens int [B, T] the global batch."""
     B, T = tokens.shape
     M = check_schedule(B, cfg, mesh, num_microbatches)
-    tokens = shard_rows(tokens, mesh, M)
+    local = shard_rows(tokens, mesh, M)
     params = dp_params(params, mesh)
-    pos = torch.arange(T - 1, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0], -1)
-    out, _, _ = stage_forward(params, cfg, tokens[:, :-1], pos, mesh, M, keep_kv=False)
+    pos = torch.arange(T - 1, dtype=torch.int32, device=tokens.device).expand(local.shape[0], -1)
+    out, _, _ = stage_forward(params, cfg, local[:, :-1], pos, mesh, M, B, keep_kv=False)
     tp = mesh.comm("tp")
     logits = llama.gather_logits(llama._logits(params, cfg, out, tp), tp)
-    return _global_mean(_nll(logits, tokens), mesh)
+    return _global_mean(real_rows(_nll(logits, local), mesh, M, B // M), B * (T - 1), mesh)
 
 
 def _start(params: dict, optimizer: OptimizerFactory, step: int = 0) -> TrainState:

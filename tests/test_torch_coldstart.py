@@ -244,21 +244,44 @@ def test_a_failing_task_raises_out_of_warmup(threads):
         eng.warmup()
 
 
+def _build_listing():
+    """The package's build cache (kernels.BUILD_DIR): names and times."""
+    if not kernels.BUILD_DIR.is_dir():
+        return None
+    return sorted((p.name, p.stat().st_mtime_ns) for p in kernels.BUILD_DIR.iterdir())
+
+
 def test_a_warmed_engine_leaves_the_build_cache_alone(manifest_dir):
     """Under the override a warmed engine writes its manifest there and
     leaves the package's build cache (kernels.BUILD_DIR) as it was."""
-    def listing():
-        if not kernels.BUILD_DIR.is_dir():
-            return None
-        return sorted((p.name, p.stat().st_mtime_ns) for p in kernels.BUILD_DIR.iterdir())
-
-    before = listing()
+    before = _build_listing()
     eng = _engine(max_seq=96)
     eng.warmup()
     assert eng.metrics["warmup_programs_done"] == eng.metrics["warmup_programs_total"] > 0
     assert [p.name for p in manifest_dir.iterdir()] == [
         f"warmup_manifest_{eng._warmup_manifest_key()}.json"]
-    assert listing() == before
+    assert _build_listing() == before
+
+
+def test_a_rank_warmed_in_a_spawn_leaves_the_build_cache_alone(tmp_path, monkeypatch):
+    """The environment every spawn of ``test_torch_nccl_cuda.py`` passes
+    (``torch_ring_workers.rank_env``) reaches a spawned rank: two gloo
+    ranks warm a tp = 2 engine, and the manifests land in the spawn's
+    directory and not in the build cache. The test's own override is
+    removed first, so only the spawn's environment can direct the ranks."""
+    import torch_ring_workers as ring_workers
+    from omnia_tpu_torch.parallel.launch import spawn_ranks
+
+    monkeypatch.delenv("OMNIA_WARMUP_MANIFEST_DIR")
+    before = _build_listing()
+    d = tmp_path / "ranks"
+    got = spawn_ranks(ring_workers.warm_job, 2, backend="gloo", env=ring_workers.rank_env(d),
+                      timeout_s=300)
+    assert [g["manifest_dir"] for g in got] == [str(d)] * 2
+    assert all(g["programs"] > 0 for g in got)
+    assert [p.name for p in d.iterdir()] and all(
+        p.name.startswith("warmup_manifest_") for p in d.iterdir())
+    assert _build_listing() == before
 
 
 def test_manifest_keys_follow_the_shapes_not_the_host_knobs():

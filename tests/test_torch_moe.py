@@ -144,6 +144,38 @@ def test_moe_dispatch_drops_like_jax(dtype, capacity_factor):
         assert zero.any()
 
 
+class _OneShard:
+    """A dp Comm of one shard that records what the dispatch all-gathers."""
+    size, index = 1, 0
+
+    def __init__(self):
+        self.gathered = []
+
+    def all_gather(self, x, dim=-1):
+        self.gathered.append(x.clone())
+        return x
+
+
+@pytest.mark.parametrize("dtype", sorted(JDT))
+def test_padding_rows_take_no_expert_slot(dtype):
+    """A shard padded to GSPMD's block (``ShardRows``: two real rows of 48
+    tokens and a padding row that ranks expert 0 first, as the real ones
+    mostly do): the real rows' outputs are JAX's dispatch over the real
+    rows alone, drops included, and the per-expert counts the shard
+    all-gathers are the real rows' own."""
+    from omnia_tpu_torch.parallel.collectives import ShardRows
+
+    jh, jp, th, tp = _inputs(96, dtype, seed=3, skew=3.0)
+    th, jh = th.reshape(2, 48, D), jh.reshape(2, 48, D)
+    top_i = tmoe.route_sparse(th, tp["router"], K)[1].numpy()
+    assert _drops(top_i, 96, 2.0) > 0
+    comm = _OneShard()
+    got = tmoe.moe_dispatch(torch.cat([th, th[:1]]), tp, K, dp=ShardRows(comm, 2, 2))
+    _assert_out(got[:2], jmoe.moe_dispatch(jh, jp, K), dtype)
+    np.testing.assert_array_equal(comm.gathered[0].numpy()[0],
+                                  np.bincount(top_i.reshape(-1), minlength=E))
+
+
 @pytest.mark.parametrize("dtype", sorted(JDT))
 @pytest.mark.parametrize("n", [63, 64])
 def test_moe_mlp_branches_at_64_rows_like_jax(dtype, n):

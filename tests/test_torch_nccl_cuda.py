@@ -11,7 +11,9 @@ more cards without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q
 
-With fewer cards than a case's ranks the case skips."""
+With fewer cards than a case's ranks the case skips. Every spawn passes
+``torch_ring_workers.rank_env``: the ranks' warmup manifests go to a
+temporary directory, not into the kernel build cache."""
 
 from __future__ import annotations
 
@@ -27,14 +29,19 @@ from omnia_tpu_torch import kernels
 from omnia_tpu_torch.parallel.launch import spawn_ranks
 
 
+@pytest.fixture(scope="module")
+def manifests(tmp_path_factory):
+    return tmp_path_factory.mktemp("manifests")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [2, 4])
-def test_nccl_collectives_and_lockstep_tokens(world):
+def test_nccl_collectives_and_lockstep_tokens(world, manifests):
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} CUDA cards: NCCL takes one rank per card")
     kernels.build_all()                   # once, before the ranks load the kernels
-    got = spawn_ranks(workers.nccl_job, world, backend="nccl", timeout_s=600,
-                      rank_timeout_s=120)
+    got = spawn_ranks(workers.nccl_job, world, backend="nccl",
+                      env=ring_workers.rank_env(manifests), timeout_s=600, rank_timeout_s=120)
     for r, g in enumerate(got):
         assert g["backend"] == "nccl"
         assert g["device"] == g["K1_engine_device"] == f"cuda:{r}" and g["current"] == r
@@ -70,12 +77,12 @@ def check_values(got: list) -> None:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [dict(dp=2, tp=2), dict(sp=2, tp=2)],
                          ids=["dp2_tp2", "sp2_tp2"])
-def test_nccl_dp_sp_collectives_and_lockstep_tokens(dims):
+def test_nccl_dp_sp_collectives_and_lockstep_tokens(dims, manifests):
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
     kernels.build_all()
     got = spawn_ranks(dpsp_workers.nccl_mesh_job, 4, args=(dims,), backend="nccl",
-                      timeout_s=600, rank_timeout_s=120)
+                      env=ring_workers.rank_env(manifests), timeout_s=600, rank_timeout_s=120)
     for r, g in enumerate(got):
         assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
     check_mesh_values(got, dims)
@@ -107,11 +114,11 @@ def check_mesh_values(got: list, dims: dict) -> None:
 
 
 @pytest.mark.cuda
-def test_nccl_pp_tp_train_step():
+def test_nccl_pp_tp_train_step(manifests):
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
-    got = spawn_ranks(pp_workers.nccl_train_job, 4, backend="nccl", timeout_s=600,
-                      rank_timeout_s=120)
+    got = spawn_ranks(pp_workers.nccl_train_job, 4, backend="nccl",
+                      env=ring_workers.rank_env(manifests), timeout_s=600, rank_timeout_s=120)
     for r, g in enumerate(got):
         assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
     check_train_values(got)
@@ -142,14 +149,15 @@ RING_MESHES = {"tp2": dict(tp=2), "tp4": dict(tp=4), "dp2_tp2": dict(dp=2, tp=2)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(RING_MESHES))
-def test_nccl_decode_ring_graphs(name):
+def test_nccl_decode_ring_graphs(name, manifests):
     dims = RING_MESHES[name]
     world = int(np.prod(list(dims.values())))
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} CUDA cards: NCCL takes one rank per card")
     kernels.build_all()
     got = spawn_ranks(ring_workers.nccl_ring_job, world, args=(dims,), backend="nccl",
-                      env=ring_workers.NCCL_RING_ENV, timeout_s=300, rank_timeout_s=120)
+                      env=ring_workers.rank_env(manifests, ring=True), timeout_s=300,
+                      rank_timeout_s=120)
     for r, g in enumerate(got):
         assert g["backend"] == "nccl" and g["device"] == f"cuda:{r}"
     check_ring_values(got, dims)
@@ -184,13 +192,34 @@ def check_ring_values(got: list, dims: dict) -> None:
 
 
 @pytest.mark.cuda
-def test_nccl_llama3_8b_tp2_ring_on_and_off():
+def test_nccl_llama3_8b_tp2_ring_on_and_off(manifests):
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs 2 CUDA cards: NCCL takes one rank per card")
     kernels.build_all()
-    got = spawn_ranks(ring_workers.nccl_8b_job, 2, backend="nccl", env=ring_workers.NCCL_RING_ENV,
-                      timeout_s=600, rank_timeout_s=300)
+    got = spawn_ranks(ring_workers.nccl_8b_job, 2, backend="nccl",
+                      env=ring_workers.rank_env(manifests, ring=True), timeout_s=600,
+                      rank_timeout_s=300)
     check_8b_values(got)
+
+
+def _card() -> list:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()
+
+
+def check_windows(g: dict) -> None:
+    """One rank's burst windows: its captured step holds tp collectives,
+    and in every window of both arms the decode-attention launches,
+    counted on the card, are num_layers x the steps that ran, all of the
+    engine's edition."""
+    assert g["step_collectives"]["tp"]["calls"] > 0
+    for arm in ("on", "off"):
+        for w in g["windows"][arm]:
+            assert w["decode_steps"] > 0 and w["ran"] > 0
+            assert w["launches"][g["edition"]] == g["layers"] * w["ran"], (arm, w)
+            assert sum(w["launches"].values()) == w["launches"][g["edition"]], (arm, w)
 
 
 def check_8b_values(got: list) -> None:
@@ -198,19 +227,14 @@ def check_8b_values(got: list) -> None:
     each rank holds half of every split leaf; the numbers are printed
     (``pytest -s``) beside the card's name and power limit."""
     import json
-    import subprocess
 
     greedy = got[0]["greedy"]
     assert greedy["on"] == greedy["off"]
     assert got[0]["params_bytes"] == got[1]["params_bytes"]
     for g in got:
-        assert g["step_collectives"]["tp"]["calls"] > 0
-        for arm in ("on", "off"):
-            assert all(w["decode_steps"] > 0 for w in g["windows"][arm])
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+        check_windows(g)
     print("nccl llama3-8b tp=2 " + json.dumps(dict(
-        card=card.strip().splitlines(), greedy_tokens=sum(map(len, greedy["on"])),
+        card=_card(), greedy_tokens=sum(map(len, greedy["on"])),
         host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"] for w in got[0]["windows"][arm]]
                                  for arm in ("on", "off")},
         chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
@@ -223,3 +247,63 @@ def check_8b_values(got: list) -> None:
         warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
         init_s=[g["init_s"] for g in got], peak_bytes=[g["peak_bytes"] for g in got])),
         flush=True)
+
+
+# Mixtral-8x7B at tp = 4 in bf16: 11,676,684,288 elements a rank (a
+# quarter of every split leaf, the norms and the router whole).
+MIXTRAL_PARAMS_BYTES = 23_353_368_576
+
+
+@pytest.mark.cuda
+def test_nccl_mixtral_8x7b_tp4_whole(manifests):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(ring_workers.nccl_mixtral_job, 4, backend="nccl",
+                      env=ring_workers.rank_env(manifests, ring=True), timeout_s=1200,
+                      rank_timeout_s=300)
+    check_mixtral_values(got)
+
+
+def check_mixtral_values(got: list) -> None:
+    """(1) At full width, 2 layers, f32: the tp = 4 logits of the 64-row
+    prefill (dispatch) and the 8-row decode step (all experts, K1) within
+    1e-3 of one rank's, the tp = 4 engine's greedy tokens equal one
+    rank's, two experts a rank. (2) The whole model in bf16: greedy tokens
+    equal ring on and off over the burst; each rank holds
+    MIXTRAL_PARAMS_BYTES; every window's decode-attention launches, counted
+    on the card, are 32 x the steps that ran, all of the engine's edition.
+    The numbers are printed (``pytest -s``) beside the card's name and
+    power limit."""
+    import json
+
+    check = got[0]["check"]
+    err = float(np.abs(check["logits"] - check["logits_tp1"]).max())
+    assert err <= ring_workers.NCCL_MIXTRAL_LOGITS_TOL, err
+    assert check["greedy"] == check["greedy_tp1"]
+    assert all(len(t) == ring_workers.NCCL_MIXTRAL_NEW_TOKENS for t in check["greedy"])
+    greedy = got[0]["greedy"]
+    assert greedy["on"] == greedy["off"]
+    for g in got:
+        assert g["check"]["experts"] == 2 and g["check"]["edition"] == g["edition"]
+        assert g["params_bytes"] == MIXTRAL_PARAMS_BYTES, g["params_bytes"]
+        check_windows(g)
+    print("nccl mixtral-8x7b tp=4 " + json.dumps(dict(
+        card=_card(), check_logits_max_abs_err=err,
+        check_greedy_tokens=sum(map(len, check["greedy"])),
+        greedy_tokens=sum(map(len, greedy["on"])),
+        host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"] for w in got[0]["windows"][arm]]
+                                 for arm in ("on", "off")},
+        chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
+                                  for g in got] for arm in ("on", "off")},
+        launches_vs_layers_x_ran=[{arm: [(w["launches"][g["edition"]], g["layers"] * w["ran"])
+                                         for w in g["windows"][arm]] for arm in ("on", "off")}
+                                  for g in got],
+        windows=[g["windows"] for g in got],
+        params_bytes_per_rank=[g["params_bytes"] for g in got],
+        kv_bytes_per_rank=[g["kv_bytes"] for g in got],
+        capture_s=[g["capture_s"] for g in got], pool_bytes=[g["pool_bytes"] for g in got],
+        step_collectives=[g["step_collectives"] for g in got],
+        warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
+        init_s=[g["init_s"] for g in got], init_peak_bytes=[g["init_peak_bytes"] for g in got],
+        peak_bytes=[g["peak_bytes"] for g in got])), flush=True)

@@ -15,8 +15,13 @@ JAX mesh the 8 virtual CPU devices; test-tiny with 4 layers, 4 heads and
   largest entry), untied and with tied embeddings (the table feeds stage
   0's lookup and every stage's head); every leaf's slice equal on the
   ranks that hold the same slice (replicated over dp, pp or tp).
-- The schedule's validation messages equal JAX's; the port's own dp
-  refusal.
+- A batch whose microbatches dp does not divide (B = 4, M = 4: one row
+  a microbatch, on dp shard 0, shard 1 padding), which the port once
+  refused: logits within 1e-3, the loss within 1e-5 and every gradient
+  leaf within 1e-4 of its largest entry, against JAX's pipeline on the
+  same mesh (the E = 8 MoE edition with drops is
+  ``test_torch_ring_mesh.py``'s).
+- The schedule's validation messages equal JAX's.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ BF16_TOL = 5e-2
 GRAD_RTOL = 1e-4
 COUNTS = (1, 2, 4)
 GRAD_CASES = {"dense": CFG, "tied": dict(CFG, tie_embeddings=True)}
+# B = 4 in M = 4 microbatches: a microbatch's one row does not split over dp.
+UNEVEN_B, UNEVEN_M, UNEVEN_TOL = 4, 4, 1e-3
 
 
 def _np_tree(tree):
@@ -57,12 +64,19 @@ def _tokens(seed, B, T, vocab=256):
     return np.random.default_rng(seed).integers(1, vocab, (B, T)).astype(np.int32)
 
 
-def _jax_forward(jparams, jcfg, tok, mesh):
+def _jax_forward(jparams, jcfg, tok, mesh, m=2):
     pos = jnp.broadcast_to(jnp.arange(tok.shape[1], dtype=jnp.int32)[None], tok.shape)
     sharded = jshard_pytree(jparams, jllama.param_specs_pp(jcfg), mesh)
-    out = jax.jit(lambda p, t, q: jpipeline_forward(p, jcfg, t, q, mesh, num_microbatches=2))(
+    out = jax.jit(lambda p, t, q: jpipeline_forward(p, jcfg, t, q, mesh, num_microbatches=m))(
         sharded, jnp.asarray(tok), pos)
     return [np.asarray(a, dtype=np.float32) for a in out]
+
+
+def _jax_loss_grads(jparams, jcfg, tok, mesh, m):
+    sharded = jshard_pytree(jparams, jllama.param_specs_pp(jcfg), mesh)
+    loss, g = jax.jit(jax.value_and_grad(
+        lambda p, t: jtrainer.pipeline_loss_fn(p, jcfg, t, mesh, m)))(sharded, jnp.asarray(tok))
+    return float(loss), _np_tree(g)
 
 
 @pytest.fixture(scope="module")
@@ -82,11 +96,14 @@ def pp_run(devices8):
     for name, cfg_kw in GRAD_CASES.items():
         jc = jget_config(**cfg_kw)
         jparams = jllama.init_params(jc, jax.random.key(3), dtype=jnp.float32)
-        sharded = jshard_pytree(jparams, jllama.param_specs_pp(jc), mesh)
-        loss, g = jax.jit(jax.value_and_grad(
-            lambda p, t: jtrainer.pipeline_loss_fn(p, jc, t, mesh, 2)))(sharded, jnp.asarray(tok_g))
-        want[name] = (float(loss), _np_tree(g))
+        want[name] = _jax_loss_grads(jparams, jc, tok_g, mesh, 2)
         grads[name] = (cfg_kw, _np_tree(jparams), tok_g, 2)
+    jparams = jllama.init_params(jcfg, jax.random.key(4), dtype=jnp.float32)
+    tok_u = _tokens(4, UNEVEN_B, 9)
+    want["uneven"] = (_jax_forward(jparams, jcfg, tok_u[:, :-1], mesh, UNEVEN_M),
+                      _jax_loss_grads(jparams, jcfg, tok_u, mesh, UNEVEN_M))
+    forwards["f32_uneven"] = (CFG, _np_tree(jparams), None, tok_u[:, :-1], (UNEVEN_M,))
+    grads["uneven"] = (CFG, _np_tree(jparams), tok_u, UNEVEN_M)
     got = spawn_ranks(workers.pp_job, 8, args=(DIMS, forwards, grads), backend="gloo",
                       timeout_s=600)
     return want, got
@@ -168,9 +185,22 @@ def test_validation_messages_equal_jax(devices8, m, layers):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_a_dp_shard_that_does_not_split_into_microbatches_is_refused():
-    """The port's own check (GSPMD cuts the whole batch): under dp each
-    shard's B / dp rows must split into the M microbatches."""
-    tok = torch.zeros((4, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="batch 4 does not split into dp=2 shards of 4"):
-        pipeline_forward({}, get_config(**CFG), tok, tok, _pp_mesh(dp=2, pp=2), 4)
+def test_a_dp_shard_that_does_not_split_into_microbatches_is_refused(pp_run):
+    """Once the port's own refusal, now JAX's schedule: at B = 4, M = 4
+    each microbatch's one row lies on dp shard 0 as GSPMD lays it out,
+    and logits, both KV chunks, the loss on every rank and every
+    gradient leaf equal JAX's pipeline on the same mesh."""
+    want, got = pp_run
+    forward, (jloss, jgrads) = want["uneven"]
+    for name, a, b in zip(("logits", "k", "v"), got[0]["f32_uneven"][UNEVEN_M], forward):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=UNEVEN_TOL, atol=UNEVEN_TOL, err_msg=name)
+    for r in got:
+        assert abs(r["uneven"]["loss"] - jloss) <= 1e-5 * abs(jloss)
+    ref = dict(trainer.leaves(jgrads))
+    whole = dict(trainer.leaves(got[0]["uneven"]["grads"]))
+    assert whole.keys() == ref.keys()
+    for path, g in whole.items():
+        scale = np.abs(ref[path]).max()
+        err = np.abs(g - ref[path]).max()
+        assert err <= GRAD_RTOL * scale, f"{path}: {err} of {scale}"

@@ -25,10 +25,18 @@ virtual CPU devices. On the CPU the port's ring is the eager edition.
   forward at the decode step's shape [64, 1] and at [4, 33] equals JAX's
   sharded forward (f32, 1e-3), and one ``train_step``'s loss and
   gradients equal JAX's ``value_and_grad`` on the same mesh (the
-  tolerances of ``test_torch_train_mesh.py``). Inside the pipeline at
-  pp = 2 x dp = 2 (M = 2, each microbatch's rows over both shards):
-  ``pipeline_forward`` and ``pipeline_loss_fn``'s loss and gradients
-  equal JAX's pipeline on the same mesh, with drops.
+  tolerances of ``test_torch_train_mesh.py``). At B = 3, which dp = 2
+  does not divide (GSPMD's blocks: shard 1 holds one row and a padding
+  row, which takes no expert slot), one step's loss equals JAX's sharded
+  step's and its gradients JAX's ``value_and_grad``, with drops. Inside
+  the pipeline at pp = 2 x dp = 2: ``pipeline_forward`` and
+  ``pipeline_loss_fn``'s loss and gradients equal JAX's pipeline on the
+  same mesh, with drops, at M = 2 (each microbatch's rows over both
+  shards) and at B = 4, M = 4 (each microbatch's one row on shard 0).
+- The MoE ring at tp = 4 (test-tiny-moe, E = 8, 4 KV heads: two experts
+  and one KV head a rank): ring on and off, greedy tokens equal the JAX
+  engine's at tp = 4; a 40-token prompt prefills in the 64-row bucket
+  (capacity dispatch), decode steps take the all-expert path.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as JP
@@ -63,19 +72,21 @@ GRAD_RTOL = 1e-4
 JAX_MESHES = {"tp2": dict(tp=2), "dp2_tp2": dict(dp=2, tp=2), "sp2_tp2": dict(sp=2, tp=2)}
 MOE_SHAPES = ((64, 1), (4, 33))
 MOE_TRAIN = (4, 33)
+MOE_TRAIN_UNEVEN = (3, 23)        # 66 rows: the dispatch branch
 MOE_PP = (4, 33)
+MOE_PP_UNEVEN = (4, 64)           # M = 4: a microbatch's one row, 64 tokens
 
 
 def _np_tree(tree):
     return jax.tree.map(np.array, tree)
 
 
-def _jax_rows(cfg, params, dims, fields, devices) -> list:
+def _jax_rows(cfg, params, dims, fields, devices, prompts=workers.PROMPTS) -> list:
     n = int(np.prod(list(dims.values())))
     eng = JEngine(cfg, JEngineConfig(**{**workers.RING_BASE, **fields, **dims}), params=params,
                   seed=0, devices=devices[:n])
     hs = [eng.submit(list(p), JSamplingParams(**kw))
-          for p, kw in zip(workers.PROMPTS, workers.greedy_params())]
+          for p, kw in zip(prompts, workers.greedy_params())]
     while eng.step():
         pass
     out = []
@@ -85,11 +96,12 @@ def _jax_rows(cfg, params, dims, fields, devices) -> list:
     return out
 
 
-def _moe_model():
-    """test-tiny-moe with E = 8 whose embeddings share a vector u that
-    router column 0 points along: most rows of every layer rank expert 0
-    first, so it overflows its capacity (N / 2 rows at factor 2)."""
-    cfg = dataclasses.replace(jget_config("test-tiny-moe"), num_experts=8)
+def _moe_model(**fields):
+    """test-tiny-moe with E = 8 (and ``fields``) whose embeddings share a
+    vector u that router column 0 points along: most rows of every layer
+    rank expert 0 first, so it overflows its capacity (N / 2 rows at
+    factor 2)."""
+    cfg = dataclasses.replace(jget_config("test-tiny-moe"), num_experts=8, **fields)
     params = _np_tree(jllama.init_params(cfg, jax.random.key(5), dtype=jnp.float32))
     u = np.random.default_rng(6).standard_normal(cfg.hidden_size).astype(np.float32) * 0.02
     params["embed"] += u
@@ -122,26 +134,46 @@ def _jax_moe(cfg, params, devices) -> dict:
     loss, grads = grad_fn(sharded, jax.device_put(jnp.asarray(tok), rows))
     want["train"] = (float(loss), _np_tree(grads))
     inputs = dict(forwards=forwards, train_tokens=tok)
-    inputs.update(_jax_moe_pp(cfg, params, devices, rng, want))
+    inputs["pp"] = {2: _jax_moe_pp(cfg, params, devices, rng, want, MOE_PP, 2)}
+    inputs["train_uneven_tokens"] = _jax_moe_uneven(cfg, sharded, params, mesh, rng, want)
+    inputs["pp"][4] = _jax_moe_pp(cfg, params, devices, rng, want, MOE_PP_UNEVEN, 4)
     return inputs, want
 
 
-def _jax_moe_pp(cfg, params, devices, rng, want) -> dict:
-    """JAX's pipeline forward (M = 2) at [4, 33] and its pipeline loss
-    and gradient at [4, 33] inputs, on the pp = 2 x dp = 2 mesh: each
-    microbatch's 66 (and 64) rows take the dispatch branch."""
+def _jax_moe_uneven(cfg, sharded, params, mesh, rng, want) -> np.ndarray:
+    """JAX's sharded train_step at MOE_TRAIN_UNEVEN on the dp = 2 x tp = 2
+    mesh for the loss; ``value_and_grad`` of ``loss_fn`` for the
+    gradient (the sharded step's carries a padding row's spurious
+    ``embed[0]`` gradient: ``test_torch_train_mesh.py``)."""
+    tok = rng.integers(1, cfg.vocab_size, MOE_TRAIN_UNEVEN).astype(np.int32)
+    _, grads = jax.value_and_grad(jtrainer.loss_fn)(jax.tree.map(jnp.asarray, params), cfg,
+                                                    jnp.asarray(tok))
+    opt = optax.adamw(1e-2)
+    _, step = jtrainer.make_train_step(cfg, opt, mesh=mesh)
+    state = jtrainer.TrainState(params=sharded, opt_state=opt.init(sharded),
+                                step=jnp.zeros((), jnp.int32))
+    _, loss = step(state, jnp.asarray(tok))
+    want["train_uneven"] = (float(loss), _np_tree(grads))
+    return tok
+
+
+def _jax_moe_pp(cfg, params, devices, rng, want, shape, m) -> tuple:
+    """JAX's pipeline forward (M = m) at ``shape`` and its pipeline loss
+    and gradient at one more token a row, on the pp = 2 x dp = 2 mesh:
+    each microbatch's 66 (M = 2) or 64 (M = 4) rows take the dispatch
+    branch. Returns the ranks' (forward, train) tokens."""
     mesh = jmake_mesh(dp=2, pp=2, devices=devices[:4])
     sharded = jshard_pytree(jax.tree.map(jnp.asarray, params), jllama.param_specs_pp(cfg), mesh)
-    tokens = rng.integers(0, cfg.vocab_size, MOE_PP).astype(np.int32)
-    pos = jnp.broadcast_to(jnp.arange(MOE_PP[1], dtype=jnp.int32)[None], MOE_PP)
-    lg, _, _ = jax.jit(lambda p, t, q: jpipeline_forward(p, cfg, t, q, mesh, 2))(
+    tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    pos = jnp.broadcast_to(jnp.arange(shape[1], dtype=jnp.int32)[None], shape)
+    lg, _, _ = jax.jit(lambda p, t, q: jpipeline_forward(p, cfg, t, q, mesh, m))(
         sharded, jnp.asarray(tokens), pos)
-    want["pp_forward"] = np.asarray(lg)
-    train = rng.integers(1, cfg.vocab_size, (MOE_PP[0], MOE_PP[1] + 1)).astype(np.int32)
+    want[("pp_forward", m)] = np.asarray(lg)
+    train = rng.integers(1, cfg.vocab_size, (shape[0], shape[1] + 1)).astype(np.int32)
     loss, grads = jax.jit(jax.value_and_grad(
-        lambda p, t: jtrainer.pipeline_loss_fn(p, cfg, t, mesh, 2)))(sharded, jnp.asarray(train))
-    want["pp_train"] = (float(loss), _np_tree(grads))
-    return dict(pp_tokens=tokens, pp_train_tokens=train)
+        lambda p, t: jtrainer.pipeline_loss_fn(p, cfg, t, mesh, m)))(sharded, jnp.asarray(train))
+    want[("pp_train", m)] = (float(loss), _np_tree(grads))
+    return tokens, train
 
 
 @pytest.fixture(scope="module")
@@ -152,7 +184,12 @@ def ring_run(devices8, tmp_path_factory):
             for name, dims in JAX_MESHES.items() for cache in workers.CACHES}
     mcfg, mparams = _moe_model()
     moe_inputs, want["moe"] = _jax_moe(mcfg, mparams, devices8)
-    moe_case = dict(cfg=dict(name="test-tiny-moe", num_experts=8), tree=mparams, **moe_inputs)
+    rcfg, rparams = _moe_model(num_kv_heads=4)
+    want["moe_ring"] = _jax_rows(rcfg, rparams, dict(tp=4), workers.MOE_RING, devices8,
+                                 workers.MOE_RING_PROMPTS)
+    moe_case = dict(cfg=dict(name="test-tiny-moe", num_experts=8), tree=mparams,
+                    ring_cfg=dict(name="test-tiny-moe", num_experts=8, num_kv_heads=4),
+                    ring_tree=rparams, **moe_inputs)
     env = {"OMNIA_WARMUP_MANIFEST_DIR": str(tmp_path_factory.mktemp("manifests"))}
     got = spawn_ranks(workers.ring_mesh_job, 4, args=(_np_tree(params), moe_case),
                       backend="gloo", env=env, timeout_s=600)
@@ -208,13 +245,16 @@ def test_ring_collectives_over_gloo_are_refused_on_the_card(ring_run):
             assert capture_line == mesh_line and own
 
 
-def _drops(routes: list, shards: int, E: int, K: int) -> int:
+def _drops(routes: list, shards: int, E: int, K: int, real=None) -> int:
     """Assignments past capacity over every layer: each layer's routes
-    joined in shard order (the ranks of tp index 0, one per dp shard)."""
+    joined in shard order (the ranks of tp index 0, one per dp shard),
+    each shard's first ``real[s]`` rows (all without ``real``: the rest
+    are padding)."""
     total = 0
     layers = len(routes[0])
     for i in range(layers):
-        top_i = np.concatenate([routes[s][i] for s in range(shards)])
+        top_i = np.concatenate([routes[s][i][:None if real is None else real[s]]
+                                for s in range(shards)])
         N = top_i.shape[0]
         capacity = max(1, -(-N * K * 2 // E))
         counts = np.bincount(top_i.reshape(-1), minlength=E)
@@ -234,50 +274,81 @@ def test_moe_dp_forward_equals_jax_and_drops(ring_run, shape):
     assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok) > 0
 
 
-def test_moe_dp_train_step_equals_jax(ring_run):
-    want, got, cfg = ring_run
-    jloss, jgrads = want["moe"]["train"]
-    for r in got:
-        assert abs(r["moe"]["train"]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
-    routes = [got[0]["moe"]["train"]["routes"], got[2]["moe"]["train"]["routes"]]
-    assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok) > 0
+def _assert_grads(jgrads, grads) -> None:
     ref = dict(trainer.leaves(jgrads))
-    whole = dict(trainer.leaves(got[0]["moe"]["train"]["grads"]))
+    whole = dict(trainer.leaves(grads))
     assert whole.keys() == ref.keys()
     for path, g in whole.items():
         scale = np.abs(ref[path]).max()
         assert np.abs(g - ref[path]).max() <= GRAD_RTOL * scale, path
 
 
-def _stage_routes(got: list) -> list:
+def _check_train_step(ring_run, case: str, real=None) -> None:
+    want, got, cfg = ring_run
+    jloss, jgrads = want["moe"][case]
+    for r in got:
+        assert abs(r["moe"][case]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
+    routes = [got[0]["moe"][case]["routes"], got[2]["moe"][case]["routes"]]
+    assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok, real) > 0
+    _assert_grads(jgrads, got[0]["moe"][case]["grads"])
+
+
+def test_moe_dp_train_step_equals_jax(ring_run):
+    _check_train_step(ring_run, "train")
+
+
+def test_moe_dp_train_step_on_uneven_shards_equals_jax(ring_run):
+    """B = 3 over dp = 2 (GSPMD's blocks: shard 1 one row and a padding
+    row, which the drops leave out): every row trained, as JAX trains it."""
+    T = MOE_TRAIN_UNEVEN[1] - 1
+    _check_train_step(ring_run, "train_uneven", real=[2 * T, T])
+
+
+def _stage_routes(got: list, m: int) -> list:
     """Per pp stage, its two dp shards' routes (dp order) of each case."""
     by = {}
     for r in got:
         c = r["moe_pp"]["coords"]
-        by.setdefault(c.get("pp", 0), {})[c.get("dp", 0)] = r["moe_pp"]
+        by.setdefault(c.get("pp", 0), {})[c.get("dp", 0)] = r["moe_pp"][m]
     return [[shards[d] for d in sorted(shards)] for _, shards in sorted(by.items())]
+
+
+def _check_pipeline(ring_run, case: str, m: int, real=None) -> None:
+    """pp = 2 x dp = 2, M = m: every rank's logits (forward) or loss and
+    whole gradient (train) equal JAX's pipeline; every stage's layers
+    drop."""
+    want, got, cfg = ring_run
+    if case == "forward":
+        for r in got:
+            np.testing.assert_allclose(r["moe_pp"][m]["forward"]["logits"],
+                                       want["moe"][("pp_forward", m)], **TOL)
+    else:
+        jloss, jgrads = want["moe"][("pp_train", m)]
+        for r in got:
+            assert abs(r["moe_pp"][m]["train"]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
+        _assert_grads(jgrads, got[0]["moe_pp"][m]["train"]["grads"])
+    for shards in _stage_routes(got, m):
+        routes = [s[case]["routes"] for s in shards]
+        assert len(routes[0]) == m * cfg.num_layers // 2      # M x the stage's layers
+        assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok, real) > 0
 
 
 @pytest.mark.parametrize("case", ["forward", "train"])
 def test_moe_dp_inside_the_pipeline_equals_jax_and_drops(ring_run, case):
-    """pp = 2 x dp = 2: every rank's logits (forward) or loss and whole
-    gradient (train) equal JAX's pipeline; every stage's layers drop."""
-    want, got, cfg = ring_run
-    if case == "forward":
-        for r in got:
-            np.testing.assert_allclose(r["moe_pp"]["forward"]["logits"], want["moe"]["pp_forward"],
-                                       **TOL)
-    else:
-        jloss, jgrads = want["moe"]["pp_train"]
-        for r in got:
-            assert abs(r["moe_pp"]["train"]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
-        ref = dict(trainer.leaves(jgrads))
-        whole = dict(trainer.leaves(got[0]["moe_pp"]["train"]["grads"]))
-        assert whole.keys() == ref.keys()
-        for path, g in whole.items():
-            scale = np.abs(ref[path]).max()
-            assert np.abs(g - ref[path]).max() <= GRAD_RTOL * scale, path
-    for shards in _stage_routes(got):
-        routes = [s[case]["routes"] for s in shards]
-        assert len(routes[0]) == 2 * cfg.num_layers // 2      # M x the stage's layers
-        assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok) > 0
+    """M = 2: each microbatch's two rows over both shards."""
+    _check_pipeline(ring_run, case, 2)
+
+
+@pytest.mark.parametrize("case", ["forward", "train"])
+def test_moe_dp_inside_the_pipeline_on_uneven_shards_equals_jax(ring_run, case):
+    """B = 4, M = 4: each microbatch's one row on dp shard 0, shard 1
+    padding, which takes no expert slot (once refused by the port)."""
+    _check_pipeline(ring_run, case, 4, real=[MOE_PP_UNEVEN[1], 0])
+
+
+def test_moe_ring_at_tp4_equals_jax(ring_run):
+    """test-tiny-moe, E = 8, at tp = 4: the eager ring and ring off give
+    the JAX tp = 4 engine's greedy tokens and finishes on every rank."""
+    want, got, _ = ring_run
+    for r in got:
+        assert r["moe_ring"]["on"] == r["moe_ring"]["off"] == want["moe_ring"]

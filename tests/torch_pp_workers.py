@@ -101,7 +101,8 @@ def train_job(rank: int, dims: dict, steps: dict, grads: dict) -> dict:
     with ``train_state_from_jax(mesh=)`` and stepped by
     ``make_train_step(mesh=, num_microbatches=)``: each step's loss and
     params gathered whole, and the last step's slices; (b) per gradient
-    case, ``loss_fn(mesh=)``'s loss and gradient."""
+    case, one ``make_train_step(mesh=)`` step from the given params: its
+    loss and gradient (``loss_fn(mesh=)``'s)."""
     torch.set_num_threads(1)
     mesh = make_mesh(**dims)
     out = {"coords": mesh.coords}
@@ -120,12 +121,10 @@ def train_job(rank: int, dims: dict, steps: dict, grads: dict) -> dict:
         out[name] = dict(losses=losses, params=params, local=local, step=st.step)
     for name, (cfg_kw, tree, tokens) in grads.items():
         cfg = get_config(**cfg_kw)
-        params = params_from_jax(tree, "cpu", mesh=mesh, cfg=cfg)
-        for _, p in trainer.leaves(params):
-            p.requires_grad_(True)
-        loss = trainer.loss_fn(params, cfg, torch.from_numpy(tokens), mesh)
-        loss.backward()
-        whole, local = _held(rank, _grads(params), llama.param_specs(cfg), mesh)
+        init_fn, step = trainer.make_train_step(cfg, mesh=mesh, device="cpu")
+        state, loss = step(init_fn(params=params_from_jax(tree, "cpu", mesh=mesh, cfg=cfg)),
+                           tokens)
+        whole, local = _held(rank, _grads(state.params), llama.param_specs(cfg), mesh)
         out[name] = dict(loss=float(loss), grads=whole, local=local)
     return out
 
