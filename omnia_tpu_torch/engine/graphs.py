@@ -163,21 +163,26 @@ class RingGraphs:
         self.capture_s: dict[int, float] = {}
         self.pool_bytes: dict[int, int] = {}
         # One captured step's collectives per axis, {axis: {"calls",
-        # "bytes"}}: the predicate's OR (every step) and the body's (the
-        # steps that run). Replays are not in the Comms' own counts.
+        # "bytes", "ops": {op: calls}}}: the predicate's OR (every step)
+        # and the body's (the steps that run). Replays are not in the
+        # Comms' own counts.
         self.step_collectives: dict = {}
         self._warm = False
 
     def _tallies(self) -> dict:
-        return {axis: (c.stats["calls"], c.stats["bytes"]) for axis, c in self._comms.items()}
+        return {axis: (c.stats["calls"], c.stats["bytes"],
+                       {op: st["calls"] for op, st in c.op_stats.items()})
+                for axis, c in self._comms.items()}
 
     def _count_step(self, before: dict) -> None:
         if self.step_collectives:
             return
         after = self._tallies()
         self.step_collectives = {
-            axis: {"calls": after[axis][0] - calls, "bytes": after[axis][1] - nbytes}
-            for axis, (calls, nbytes) in before.items() if after[axis][0] > calls}
+            axis: {"calls": after[axis][0] - calls, "bytes": after[axis][1] - nbytes,
+                   "ops": {op: n - ops.get(op, 0) for op, n in after[axis][2].items()
+                           if n > ops.get(op, 0)}}
+            for axis, (calls, nbytes, ops) in before.items() if after[axis][0] > calls}
 
     def _predicate(self) -> tuple:
         """(flags, bytes) the step's IF node reads: the slots' active flags,

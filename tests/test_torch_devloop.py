@@ -511,3 +511,33 @@ def test_ring_drains_are_flight_events_and_warmup_runs_the_ring(tparams, tmp_pat
                                       options=dict(BASE, decode_ring=2)), device="cpu")
     assert built.cfg.decode_ring == 2 and built._devloop.ring == 2
     built.stop()
+
+
+def test_step_collectives_count_each_op_of_the_first_captured_step():
+    """``RingGraphs``' tally of one captured step (on the card it runs
+    inside the capture; here on Comms with no group, through
+    ``Comm._tally``): per axis the step's calls, bytes and calls per op,
+    an axis without a call left out, and only the first step counted."""
+    from omnia_tpu_torch.engine.graphs import RingGraphs
+    from omnia_tpu_torch.parallel.collectives import Comm
+
+    def comm():
+        c = Comm.__new__(Comm)
+        c.stats, c.op_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}, {}
+        return c
+
+    dp, tp, sp = comm(), comm(), comm()
+    Comm._tally(tp, "all_reduce", 64, None)       # before the capture
+    graphs = RingGraphs.__new__(RingGraphs)
+    graphs._comms, graphs.step_collectives = {"dp": dp, "tp": tp, "sp": sp}, {}
+    for step in range(2):
+        before = graphs._tallies()
+        Comm._tally(dp, "all_reduce", 4, None)    # the predicate's OR
+        for _ in range(3):                          # an MoE layer's counts each
+            Comm._tally(dp, "all_gather", 32, None)
+            Comm._tally(tp, "all_reduce", 1024, None)
+        Comm._tally(tp, "all_gather", 512, None)
+        graphs._count_step(before)
+    assert graphs.step_collectives == {
+        "dp": {"calls": 4, "bytes": 100, "ops": {"all_reduce": 1, "all_gather": 3}},
+        "tp": {"calls": 4, "bytes": 3584, "ops": {"all_reduce": 3, "all_gather": 1}}}

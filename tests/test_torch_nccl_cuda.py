@@ -5,9 +5,13 @@ pipeline's point-to-point steps among them), of
 ``engine/multihost.py::LockstepEngine``, of the sharded trainer's
 backward, and the decode ring's captured graphs whose steps hold NCCL
 collectives (``engine/graphs.py``), which the gloo tests and
-``chip_smoke.py`` phases 14-17 (ranks sharing one card) never take. This
-file imports neither jax nor omnia_tpu, so run it on a host with two or
-more cards without the suite's conftest:
+``chip_smoke.py`` phases 14-17 (ranks sharing one card) never take; and
+the whole models that need more than one card: llama3-8b at tp = 2,
+Mixtral-8x7B at tp = 4 and at dp = 2 x tp = 2 with 64 decode rows,
+Llama-3-70B in bf16 at tp = 4 (each held at 2 layers against one card,
+then served ring on and off), llama3-8b trained in bf16 at pp = 2 x tp
+= 2. This file imports neither jax nor omnia_tpu, so run it on a host
+with two or more cards without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q
 
@@ -26,7 +30,9 @@ import torch_pp_workers as pp_workers
 import torch_ring_workers as ring_workers
 import torch_tp_workers as workers
 from omnia_tpu_torch import kernels
+from omnia_tpu_torch.models import get_config, llama
 from omnia_tpu_torch.parallel.launch import spawn_ranks
+from omnia_tpu_torch.train import trainer
 
 
 @pytest.fixture(scope="module")
@@ -222,6 +228,35 @@ def check_windows(g: dict) -> None:
             assert sum(w["launches"].values()) == w["launches"][g["edition"]], (arm, w)
 
 
+def _serving_line(got: list) -> dict:
+    """The numbers every whole-model serving case prints: per arm the
+    leader's host ms per decode step, and every rank's chunks' device ms
+    per step (CUDA events) against its weight-read bound and their share
+    of the window's wall; each rank's bytes, slots, seconds and peaks."""
+    bound = [g["params_bytes"] / HBM_BYTES_PER_S * 1e3 for g in got]
+    arms = list(got[0]["windows"])
+    return dict(
+        card=_card(), greedy_tokens=sum(map(len, got[0]["greedy"]["on"])),
+        host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"]
+                                       for w in got[0]["windows"][arm]] for arm in arms},
+        chunk_device_ms_per_step={arm: [[w["chunk_device_ms_per_step"] for w in g["windows"][arm]]
+                                        for g in got] for arm in arms},
+        weight_read_bound_ms=bound,
+        chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
+                                  for g in got] for arm in arms},
+        launches_vs_layers_x_ran=[{arm: [(w["launches"][g["edition"]], g["layers"] * w["ran"])
+                                         for w in g["windows"][arm]] for arm in arms}
+                                  for g in got],
+        windows=[g["windows"] for g in got],
+        params_bytes_per_rank=[g["params_bytes"] for g in got],
+        kv_bytes_per_rank=[g["kv_bytes"] for g in got], slots_per_rank=[g["slots"] for g in got],
+        capture_s=[g["capture_s"] for g in got], pool_bytes=[g["pool_bytes"] for g in got],
+        step_collectives=[g["step_collectives"] for g in got],
+        warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
+        init_s=[g["init_s"] for g in got], init_peak_bytes=[g["init_peak_bytes"] for g in got],
+        serving_peak_bytes=[g["serving_peak_bytes"] for g in got])
+
+
 def check_8b_values(got: list) -> None:
     """The ring's greedy tokens equal ring-off's over the whole burst;
     each rank holds half of every split leaf; the numbers are printed
@@ -233,25 +268,48 @@ def check_8b_values(got: list) -> None:
     assert got[0]["params_bytes"] == got[1]["params_bytes"]
     for g in got:
         check_windows(g)
-    print("nccl llama3-8b tp=2 " + json.dumps(dict(
-        card=_card(), greedy_tokens=sum(map(len, greedy["on"])),
-        host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"] for w in got[0]["windows"][arm]]
-                                 for arm in ("on", "off")},
-        chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
-                                  for g in got] for arm in ("on", "off")},
-        windows=[g["windows"] for g in got],
-        params_bytes_per_rank=[g["params_bytes"] for g in got],
-        kv_bytes_per_rank=[g["kv_bytes"] for g in got],
-        capture_s=[g["capture_s"] for g in got], pool_bytes=[g["pool_bytes"] for g in got],
-        step_collectives=[g["step_collectives"] for g in got],
-        warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
-        init_s=[g["init_s"] for g in got], peak_bytes=[g["peak_bytes"] for g in got])),
-        flush=True)
+    print("nccl llama3-8b tp=2 " + json.dumps(_serving_line(got)), flush=True)
 
 
-# Mixtral-8x7B at tp = 4 in bf16: 11,676,684,288 elements a rank (a
-# quarter of every split leaf, the norms and the router whole).
+def check_width(got: list, experts: int, slots: int) -> float:
+    """A whole-model case's (1): at full width, 2 layers, f32, the mesh's
+    logits of every prefill and step within 1e-3 of one card's, the mesh
+    engine's greedy tokens equal one card's, ``experts`` experts and
+    ``slots`` slots a rank, the engine's kernel the ring's. Returns the
+    largest logits error."""
+    check = got[0]["check"]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(check["logits"], check["logits_tp1"]))
+    assert err <= ring_workers.WIDTH_CHECK_LOGITS_TOL, err
+    assert check["greedy"] == check["greedy_tp1"]
+    assert all(len(t) == ring_workers.WIDTH_CHECK_NEW_TOKENS for t in check["greedy"])
+    for g in got:
+        c = g["check"]
+        assert (c["experts"], c["slots"], c["edition"]) == (experts, slots, g["edition"]), c
+    return err
+
+
+# Each rank's params and KV bytes (bf16): the per-rank slice of every split
+# leaf, the norms and the router whole (``tests/test_torch_parallel.py``
+# reckons each from the port's spec trees). Mixtral-8x7B at tp = 4:
+# 11,676,684,288 elements a rank.
 MIXTRAL_PARAMS_BYTES = 23_353_368_576
+# Mixtral-8x7B at dp = 2 x tp = 2 (dp replicates the weights) and its KV
+# of 32 slots x 1,024 rows x 32 layers x 4 KV heads a rank.
+MIXTRAL_DP_PARAMS_BYTES, MIXTRAL_DP_KV_BYTES = 46_704_107_520, 2_147_483_648
+# Llama-3-70B at tp = 4 and its KV of 32 slots x 1,024 rows x 80 layers x
+# 2 KV heads a rank (81,920 bytes a slot-row).
+LLAMA70B_PARAMS_BYTES, LLAMA70B_KV_BYTES = 35_278_831_616, 2_684_354_560
+# llama3-8b at pp = 2 x tp = 2: a stage's 16 layers and half of embed and
+# lm_head (replicated over pp); its gradients as many bytes, and the two
+# AdamW moments twice as many.
+TRAIN_8B_PARAMS_BYTES = 4_540_604_416
+# H100 SXM's HBM rate, for the weight-read bound of a decode step.
+HBM_BYTES_PER_S = 3.35e12
+
+
+def off_by(got: int, want: int) -> str:
+    """How far a rank's bytes lie from the reckoning."""
+    return f"{got:,} bytes, {got - want:+,} off the reckoning of {want:,}"
 
 
 @pytest.mark.cuda
@@ -266,44 +324,148 @@ def test_nccl_mixtral_8x7b_tp4_whole(manifests):
 
 
 def check_mixtral_values(got: list) -> None:
-    """(1) At full width, 2 layers, f32: the tp = 4 logits of the 64-row
-    prefill (dispatch) and the 8-row decode step (all experts, K1) within
-    1e-3 of one rank's, the tp = 4 engine's greedy tokens equal one
-    rank's, two experts a rank. (2) The whole model in bf16: greedy tokens
+    """(1) At full width, 2 layers, f32 (``check_width``): the [8, 8]
+    prefill (64 rows: dispatch) and the 8-row decode step (all experts,
+    K1), two experts a rank. (2) The whole model in bf16: greedy tokens
     equal ring on and off over the burst; each rank holds
-    MIXTRAL_PARAMS_BYTES; every window's decode-attention launches, counted
-    on the card, are 32 x the steps that ran, all of the engine's edition.
-    The numbers are printed (``pytest -s``) beside the card's name and
-    power limit."""
+    MIXTRAL_PARAMS_BYTES; every window's decode-attention launches,
+    counted on the card, are 32 x the steps that ran, all of the engine's
+    edition. The numbers are printed (``pytest -s``) beside the card's
+    name and power limit."""
     import json
 
-    check = got[0]["check"]
-    err = float(np.abs(check["logits"] - check["logits_tp1"]).max())
-    assert err <= ring_workers.NCCL_MIXTRAL_LOGITS_TOL, err
-    assert check["greedy"] == check["greedy_tp1"]
-    assert all(len(t) == ring_workers.NCCL_MIXTRAL_NEW_TOKENS for t in check["greedy"])
+    err = check_width(got, experts=2, slots=8)
     greedy = got[0]["greedy"]
     assert greedy["on"] == greedy["off"]
     for g in got:
-        assert g["check"]["experts"] == 2 and g["check"]["edition"] == g["edition"]
-        assert g["params_bytes"] == MIXTRAL_PARAMS_BYTES, g["params_bytes"]
+        assert g["params_bytes"] == MIXTRAL_PARAMS_BYTES, off_by(g["params_bytes"],
+                                                                 MIXTRAL_PARAMS_BYTES)
         check_windows(g)
     print("nccl mixtral-8x7b tp=4 " + json.dumps(dict(
-        card=_card(), check_logits_max_abs_err=err,
-        check_greedy_tokens=sum(map(len, check["greedy"])),
-        greedy_tokens=sum(map(len, greedy["on"])),
-        host_ms_per_decode_step={arm: [w["host_ms_per_decode_step"] for w in got[0]["windows"][arm]]
-                                 for arm in ("on", "off")},
-        chunk_device_share={arm: [[w["chunk_device_share"] for w in g["windows"][arm]]
-                                  for g in got] for arm in ("on", "off")},
-        launches_vs_layers_x_ran=[{arm: [(w["launches"][g["edition"]], g["layers"] * w["ran"])
-                                         for w in g["windows"][arm]] for arm in ("on", "off")}
-                                  for g in got],
-        windows=[g["windows"] for g in got],
-        params_bytes_per_rank=[g["params_bytes"] for g in got],
-        kv_bytes_per_rank=[g["kv_bytes"] for g in got],
-        capture_s=[g["capture_s"] for g in got], pool_bytes=[g["pool_bytes"] for g in got],
-        step_collectives=[g["step_collectives"] for g in got],
-        warmup_s=[{arm: g[f"warmup_s_{arm}"] for arm in ("on", "off")} for g in got],
-        init_s=[g["init_s"] for g in got], init_peak_bytes=[g["init_peak_bytes"] for g in got],
+        _serving_line(got), check_logits_max_abs_err=err,
+        check_greedy_tokens=sum(map(len, got[0]["check"]["greedy"])))), flush=True)
+
+
+@pytest.mark.cuda
+def test_nccl_mixtral_8x7b_dp2_tp2_64_rows(manifests):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(ring_workers.nccl_moe_dp_job, 4, backend="nccl",
+                      env=ring_workers.rank_env(manifests, ring=True), timeout_s=1200,
+                      rank_timeout_s=300)
+    check_moe_dp_values(got)
+
+
+def check_moe_dp_values(got: list) -> None:
+    """Mixtral-8x7B at dp = 2 x tp = 2 with 64 slots. (1) ``check_width``
+    with 64 slots against one card's 64: the [8, 8] prefill and the
+    [64, 1] one and the 64-row step take the capacity dispatch over the
+    whole batch, with the drops one card makes; four experts and 32 slots
+    a rank. (2) The whole model in bf16 over 64 requests: greedy tokens
+    equal ring on and off; the captured step holds dp and tp collectives,
+    among the dp ones one counts all-gather per layer (and the
+    predicate's OR); each rank holds MIXTRAL_DP_PARAMS_BYTES and
+    MIXTRAL_DP_KV_BYTES; every window's K1 launches, counted on the card,
+    are 32 x the steps that ran."""
+    import json
+
+    err = check_width(got, experts=4, slots=32)
+    greedy = got[0]["greedy"]
+    assert greedy["on"] == greedy["off"]
+    for g in got:
+        assert g["edition"] == "decode_attention" and g["slots"] == 32
+        assert g["params_bytes"] == MIXTRAL_DP_PARAMS_BYTES, off_by(g["params_bytes"],
+                                                                    MIXTRAL_DP_PARAMS_BYTES)
+        assert g["kv_bytes"] == MIXTRAL_DP_KV_BYTES, off_by(g["kv_bytes"], MIXTRAL_DP_KV_BYTES)
+        sc = g["step_collectives"]
+        assert sc["dp"]["ops"] == {"all_reduce": 1, "all_gather": g["layers"]}, sc
+        assert sc["tp"]["calls"] > 0
+        check_windows(g)
+    print("nccl mixtral-8x7b dp=2 tp=2 " + json.dumps(dict(
+        _serving_line(got), check_logits_max_abs_err=err,
+        check_dispatch_drops=got[0]["check"]["dispatch_drops"],
+        check_greedy_tokens=sum(map(len, got[0]["check"]["greedy"])))), flush=True)
+
+
+@pytest.mark.cuda
+def test_nccl_llama3_70b_tp4_whole(manifests):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    kernels.build_all()
+    got = spawn_ranks(ring_workers.nccl_70b_job, 4, backend="nccl",
+                      env=ring_workers.rank_env(manifests, ring=True), timeout_s=1200,
+                      rank_timeout_s=300)
+    check_70b_values(got)
+
+
+def check_70b_values(got: list) -> None:
+    """Llama-3-70B at tp = 4. (1) ``check_width``: a [32, 8] prefill and its
+    32-row step, an engine of 8 slots. (2) The whole model in bf16 over 32
+    greedy batch-eval requests: greedy tokens equal ring on and off; each
+    rank holds LLAMA70B_PARAMS_BYTES and LLAMA70B_KV_BYTES; every
+    window's K1 launches, counted on the card, are 80 x the steps that
+    ran."""
+    import json
+
+    err = check_width(got, experts=0, slots=8)
+    greedy = got[0]["greedy"]
+    assert greedy["on"] == greedy["off"]
+    for g in got:
+        assert g["edition"] == "decode_attention" and g["layers"] == 80
+        assert g["params_bytes"] == LLAMA70B_PARAMS_BYTES, off_by(g["params_bytes"],
+                                                                  LLAMA70B_PARAMS_BYTES)
+        assert g["kv_bytes"] == LLAMA70B_KV_BYTES, off_by(g["kv_bytes"], LLAMA70B_KV_BYTES)
+        check_windows(g)
+    print("nccl llama3-70b tp=4 " + json.dumps(dict(
+        _serving_line(got), check_logits_max_abs_err=err,
+        check_greedy_tokens=sum(map(len, got[0]["check"]["greedy"])))), flush=True)
+
+
+@pytest.mark.cuda
+def test_nccl_train_8b_bf16_pp2_tp2(manifests):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one rank per card")
+    got = spawn_ranks(pp_workers.nccl_train_8b_job, 4, backend="nccl",
+                      env=ring_workers.rank_env(manifests), timeout_s=900, rank_timeout_s=300)
+    check_train_8b_values(got)
+
+
+def check_train_8b_values(got: list) -> None:
+    """llama3-8b at pp = 2 x tp = 2. (1) Width, 2 layers, f32: the loss on
+    every rank within 1e-5 of one card's and every gradient leaf, gathered
+    whole, within 1e-4 of the one-card leaf's largest entry (summation
+    order only). (2) The whole model in bf16: the loss finite and falling
+    from the first step to the last on every rank; each rank's params and
+    gradients TRAIN_8B_PARAMS_BYTES and its moments twice that. The
+    numbers are printed (``pytest -s``) beside the card's name and power
+    limit."""
+    import json
+
+    check = got[0]["check"]
+    want = check["loss_tp1"]
+    for g in got:
+        assert g["backend"] == "nccl"
+        assert abs(g["check"]["loss"] - want) <= 1e-5 * abs(want)
+    grad_err = {path: err / scale for path, (err, scale) in check["grad_err"].items()}
+    specs = llama.param_specs_pp(get_config("llama3-8b"))
+    assert sorted(grad_err) == sorted(path for path, _ in trainer.leaves(specs))
+    assert max(grad_err.values()) <= 1e-4, grad_err
+    for g in got:
+        losses = [s["loss"] for s in g["steps"]]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert losses == [s["loss"] for s in got[0]["steps"]]
+        for key, n in g["state_bytes"].items():
+            reckoned = TRAIN_8B_PARAMS_BYTES * (2 if key == "moments" else 1)
+            assert n == reckoned, (key, off_by(n, reckoned))
+    tokens = got[0]["tokens_per_step"]
+    print("nccl llama3-8b train pp=2 tp=2 " + json.dumps(dict(
+        card=_card(), check_loss=[check["loss"], want], check_grad_err_of_largest=grad_err,
+        losses=[s["loss"] for s in got[0]["steps"]],
+        step_ms=[[s["ms"] for s in g["steps"]] for g in got],
+        tokens_per_s=[tokens / (s["ms"] / 1e3) for s in got[0]["steps"]],
+        collectives=[{"coords": g["coords"], "steps": [s["collectives"] for s in g["steps"]]}
+                     for g in got],
+        state_bytes=[g["state_bytes"] for g in got], init_s=[g["init_s"] for g in got],
+        init_peak_bytes=[g["init_peak_bytes"] for g in got],
         peak_bytes=[g["peak_bytes"] for g in got])), flush=True)

@@ -5,7 +5,10 @@ entry for entry (dense, MoE, tied, untied); ``shard_pytree`` slices whose
 ranks join back into the whole tree; ``param_specs_pp`` and a tree
 drawn on a pp mesh; ``make_mesh``'s errors; and, over eight spawned gloo
 ranks, ``make_mesh(dp=2, sp=2, tp=2)``'s and ``make_mesh(dp=2, pp=2,
-tp=2)``'s layouts and their axes' groups."""
+tp=2)``'s layouts and their axes' groups; each rank's params and KV
+bytes of the NCCL cases' models, reckoned from the spec trees on the
+meta device, against the constants ``test_torch_nccl_cuda.py`` asserts
+on the cards."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+import test_torch_nccl_cuda as nccl_cases
 import torch_dpsp_workers as workers
 
 from omnia_tpu.models import get_config as jget_config
@@ -221,3 +225,39 @@ def test_make_mesh_tp_needs_a_process_group():
 def test_engine_refuses_a_tp_it_cannot_split(fields, match):
     with pytest.raises(ValueError, match=match):
         InferenceEngine(get_config("test-tiny"), EngineConfig(**fields), device="cpu")
+
+
+# (model, mesh shape, slots a dp shard or None, the card test's params and
+# KV constants): the NCCL cases that hold each rank's bytes.
+RECKONINGS = {
+    "llama3-70b_tp4": ("llama3-70b", dict(dp=1, tp=4), 32, "LLAMA70B_PARAMS_BYTES",
+                       "LLAMA70B_KV_BYTES"),
+    "mixtral-8x7b_dp2_tp2": ("mixtral-8x7b", dict(dp=2, tp=2), 32, "MIXTRAL_DP_PARAMS_BYTES",
+                             "MIXTRAL_DP_KV_BYTES"),
+    "mixtral-8x7b_tp4": ("mixtral-8x7b", dict(dp=1, tp=4), None, "MIXTRAL_PARAMS_BYTES", None),
+    "llama3-8b_pp2_tp2": ("llama3-8b", dict(dp=1, pp=2, tp=2), None, "TRAIN_8B_PARAMS_BYTES",
+                          None),
+}
+
+
+@pytest.mark.parametrize("case", list(RECKONINGS))
+def test_rank_bytes_equal_the_nccl_cases_constants(case):
+    """Every rank's bf16 params (``init_params(mesh=)`` on the meta device:
+    shapes only, nothing allocated) and, for a serving case, its KV cache
+    of 1,024 rows a slot, in bytes, equal the constants the four-card
+    cases assert, so a wrong constant fails here and not after a card
+    call. The trainer's gradients and both AdamW moments take the params'
+    dtype, so its state is four times the params constant."""
+    name, shape, slots, params_const, kv_const = RECKONINGS[case]
+    cfg = get_config(name)
+    axes = list(shape)
+    for coords in np.ndindex(*shape.values()):
+        mesh = Mesh(shape=shape, coords=dict(zip(axes, coords)), comms={})
+        params = llama.init_params(cfg, None, "meta", dtype=torch.bfloat16, mesh=mesh)
+        assert all(t.is_meta for t in _leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        assert nbytes == getattr(nccl_cases, params_const), (coords, nbytes)
+        if kv_const is not None:
+            k, v = llama.init_kv_cache(cfg, slots, 1024, "meta", tp=shape["tp"])
+            kv = sum(t.numel() * t.element_size() for t in (k, v))
+            assert kv == getattr(nccl_cases, kv_const), kv

@@ -81,12 +81,13 @@ def _np_tree(tree):
     return jax.tree.map(np.array, tree)
 
 
-def _jax_rows(cfg, params, dims, fields, devices, prompts=workers.PROMPTS) -> list:
+def _jax_rows(cfg, params, dims, fields, devices, prompts=workers.PROMPTS,
+              sampling=None) -> list:
     n = int(np.prod(list(dims.values())))
     eng = JEngine(cfg, JEngineConfig(**{**workers.RING_BASE, **fields, **dims}), params=params,
                   seed=0, devices=devices[:n])
     hs = [eng.submit(list(p), JSamplingParams(**kw))
-          for p, kw in zip(prompts, workers.greedy_params())]
+          for p, kw in zip(prompts, sampling or workers.greedy_params())]
     while eng.step():
         pass
     out = []
@@ -184,6 +185,11 @@ def ring_run(devices8, tmp_path_factory):
             for name, dims in JAX_MESHES.items() for cache in workers.CACHES}
     mcfg, mparams = _moe_model()
     moe_inputs, want["moe"] = _jax_moe(mcfg, mparams, devices8)
+    # The MoE ring at dp = 2 x tp = 2 with 64 slots against JAX's one
+    # device with 64: the same dispatch over the same 64 rows a step.
+    want["moe_dp_ring"] = _jax_rows(mcfg, mparams, {},
+                                    dict(num_slots=workers.MOE_DP_RING_SLOTS), devices8,
+                                    *workers.moe_dp_ring_requests(mcfg.vocab_size))
     rcfg, rparams = _moe_model(num_kv_heads=4)
     want["moe_ring"] = _jax_rows(rcfg, rparams, dict(tp=4), workers.MOE_RING, devices8,
                                  workers.MOE_RING_PROMPTS)
@@ -245,21 +251,14 @@ def test_ring_collectives_over_gloo_are_refused_on_the_card(ring_run):
             assert capture_line == mesh_line and own
 
 
-def _drops(routes: list, shards: int, E: int, K: int, real=None) -> int:
+def _drops(routes: list, shards: int, E: int, real=None) -> int:
     """Assignments past capacity over every layer: each layer's routes
     joined in shard order (the ranks of tp index 0, one per dp shard),
     each shard's first ``real[s]`` rows (all without ``real``: the rest
     are padding)."""
-    total = 0
-    layers = len(routes[0])
-    for i in range(layers):
-        top_i = np.concatenate([routes[s][i][:None if real is None else real[s]]
-                                for s in range(shards)])
-        N = top_i.shape[0]
-        capacity = max(1, -(-N * K * 2 // E))
-        counts = np.bincount(top_i.reshape(-1), minlength=E)
-        total += int(np.maximum(counts - capacity, 0).sum())
-    return total
+    return sum(workers.overflow(np.concatenate([routes[s][i][:None if real is None else real[s]]
+                                                for s in range(shards)]), E)
+               for i in range(len(routes[0])))
 
 
 @pytest.mark.parametrize("shape", MOE_SHAPES, ids=["decode_64x1", "prefill_4x33"])
@@ -271,7 +270,7 @@ def test_moe_dp_forward_equals_jax_and_drops(ring_run, shape):
     # Ranks 0 and 2 hold tp index 0 of dp shards 0 and 1.
     routes = [got[0]["moe"][shape]["routes"], got[2]["moe"][shape]["routes"]]
     assert len(routes[0]) == cfg.num_layers
-    assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok) > 0
+    assert _drops(routes, 2, cfg.num_experts) > 0
 
 
 def _assert_grads(jgrads, grads) -> None:
@@ -289,7 +288,7 @@ def _check_train_step(ring_run, case: str, real=None) -> None:
     for r in got:
         assert abs(r["moe"][case]["loss"] - jloss) <= LOSS_RTOL * abs(jloss)
     routes = [got[0]["moe"][case]["routes"], got[2]["moe"][case]["routes"]]
-    assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok, real) > 0
+    assert _drops(routes, 2, cfg.num_experts, real) > 0
     _assert_grads(jgrads, got[0]["moe"][case]["grads"])
 
 
@@ -330,7 +329,7 @@ def _check_pipeline(ring_run, case: str, m: int, real=None) -> None:
     for shards in _stage_routes(got, m):
         routes = [s[case]["routes"] for s in shards]
         assert len(routes[0]) == m * cfg.num_layers // 2      # M x the stage's layers
-        assert _drops(routes, 2, cfg.num_experts, cfg.num_experts_per_tok, real) > 0
+        assert _drops(routes, 2, cfg.num_experts, real) > 0
 
 
 @pytest.mark.parametrize("case", ["forward", "train"])
@@ -352,3 +351,24 @@ def test_moe_ring_at_tp4_equals_jax(ring_run):
     want, got, _ = ring_run
     for r in got:
         assert r["moe_ring"]["on"] == r["moe_ring"]["off"] == want["moe_ring"]
+
+
+def test_moe_dp_ring_at_64_rows_equals_jax_and_drops(ring_run):
+    """test-tiny-moe, E = 8, skewed router, at dp = 2 x tp = 2 with 32
+    slots a shard: every decode step of the eager ring is 64 global rows
+    and takes the capacity dispatch (C = 32). The greedy tokens and
+    finishes equal the JAX ring engine's with 64 slots on one device, on
+    every rank; each MoE layer of each step that ran all-gathered its
+    counts over dp once; the whole batch's routes overflow expert 0."""
+    want, got, cfg = ring_run
+    for r in got:
+        run = r["moe_dp_ring"]
+        assert run["rows"] == want["moe_dp_ring"]
+        assert run["books"] == got[0]["moe_dp_ring"]["books"]
+        ran = run["books"]["decode_steps"] - run["books"]["early_exit_steps"]
+        assert len(run["gathers"]) == run["layers"] * ran and set(run["gathers"]) == {1}
+    # Ranks 0 and 2 hold tp index 0 of dp shards 0 and 1: each call's
+    # routes over the whole batch, shard 0's rows first.
+    shards = [got[0]["moe_dp_ring"]["routes"], got[2]["moe_dp_ring"]["routes"]]
+    assert len(shards[0]) == len(shards[1]) > 0
+    assert _drops(shards, 2, cfg.num_experts) > 0

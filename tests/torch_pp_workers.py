@@ -154,3 +154,143 @@ def nccl_train_job(rank: int) -> dict:
         ref, ref_loss = step(init_fn(torch.Generator(device=dev).manual_seed(5)), tok)
         out.update(loss_tp1=float(ref_loss), grads_tp1=_tree(_grads(ref.params), _np))
     return out
+
+
+# llama3-8b trained at pp = 2 x tp = 2 over NCCL: B = 4, T = 513 (512
+# input tokens a row), two microbatches; (1) its full width cut to 2
+# layers, f32, TF32 off, one step against one card's; (2) all 32 layers
+# in bf16, NCCL_8B_TRAIN_STEPS steps of the default AdamW on one batch.
+NCCL_8B_TRAIN_MESH = dict(pp=2, tp=2)
+NCCL_8B_TRAIN_BATCH, NCCL_8B_TRAIN_M, NCCL_8B_TRAIN_SEED = (4, 513), 2, 14
+NCCL_8B_TRAIN_CHECK_LAYERS, NCCL_8B_TRAIN_STEPS = 2, 5
+
+
+def _timed_comms(mesh, spans: list):
+    """A context in which every collective of ``mesh``'s Comms is bracketed
+    by CUDA events on the calling stream (the backward's too, on
+    autograd's thread): (axis, op, bytes, start, end) go to ``spans``. A
+    NCCL call is asynchronous, so ``Comm`` keeps no seconds of its own;
+    the events give its span on the stream that waits for it, the wait
+    for the slowest peer included."""
+    import contextlib
+
+    from omnia_tpu_torch.parallel.collectives import Comm
+
+    axes = {id(mesh.comm(a)): a for a in mesh.axis_names if mesh.comm(a) is not None}
+    start, tally = Comm._start, Comm._tally
+
+    def timed_start(self, x):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_tally(self, op, nbytes, t0):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        if id(self) in axes:
+            spans.append((axes[id(self)], op, nbytes, t0, e))
+        tally(self, op, nbytes, None)
+
+    @contextlib.contextmanager
+    def ctx():
+        Comm._start, Comm._tally = timed_start, timed_tally
+        try:
+            yield spans
+        finally:
+            Comm._start, Comm._tally = start, tally
+
+    return ctx()
+
+
+def _span_totals(spans: list) -> dict:
+    """{axis: {op: {"calls", "bytes", "s"}}} of synchronized spans."""
+    out: dict = {}
+    for axis, op, nbytes, e0, e1 in spans:
+        st = out.setdefault(axis, {}).setdefault(op, {"calls": 0, "bytes": 0, "s": 0.0})
+        st["calls"] += 1
+        st["bytes"] += nbytes
+        st["s"] += e0.elapsed_time(e1) / 1e3
+    return out
+
+
+def _state_bytes(state) -> dict:
+    """This rank's params, gradients and AdamW moments, in bytes."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    params = [p for _, p in trainer.leaves(state.params)]
+    opt = state.opt_state.state
+    return dict(params=nbytes(params), grads=nbytes(p.grad for p in params),
+                moments=nbytes(opt[p][k] for p in params for k in ("exp_avg", "exp_avg_sq")))
+
+
+def _train_8b_check(rank: int, dev, mesh, tok: np.ndarray) -> dict:
+    """(1): one f32 step of llama3-8b's width cut to
+    NCCL_8B_TRAIN_CHECK_LAYERS layers, drawn by init_fn from one seed on
+    each rank (the whole tree's values, cut), at pp = 2 x tp = 2; its
+    gradient gathered whole on every rank; rank 0 takes the step on one
+    card from the same seed and holds each leaf against it there: (the
+    largest difference, the one-card leaf's largest entry) per leaf."""
+    cfg = get_config("llama3-8b", num_layers=NCCL_8B_TRAIN_CHECK_LAYERS)
+    init_fn, step = trainer.make_train_step(cfg, mesh=mesh, num_microbatches=NCCL_8B_TRAIN_M)
+    state, loss = step(init_fn(torch.Generator(device=dev).manual_seed(NCCL_8B_TRAIN_SEED)), tok)
+    whole = gather_pytree(_grads(state.params), llama.param_specs_pp(cfg), mesh)
+    out = dict(loss=float(loss))
+    del state
+    if rank == 0:
+        init_fn, step = trainer.make_train_step(cfg)
+        ref, ref_loss = step(init_fn(torch.Generator(device=dev).manual_seed(NCCL_8B_TRAIN_SEED)),
+                             tok)
+        grads = dict(trainer.leaves(whole))
+        out.update(loss_tp1=float(ref_loss), grad_err={
+            path: (float((grads[path] - p.grad).abs().max()), float(p.grad.abs().max()))
+            for path, p in trainer.leaves(ref.params)})
+        del ref
+    del whole
+    return out
+
+
+def nccl_train_8b_job(rank: int) -> dict:
+    """llama3-8b trained at pp = 2 x tp = 2 over NCCL, one rank per card:
+    (1) ``_train_8b_check``; (2) the whole model in bf16 from init_fn (each
+    leaf drawn whole and cut), NCCL_8B_TRAIN_STEPS steps on one fixed
+    batch: each step's loss, ms (host clock around a synchronized step)
+    and collectives (``_timed_comms``), this rank's state bytes, the init's
+    peak and the steps' peak."""
+    import gc
+    import time
+
+    from omnia_tpu_torch.parallel.distributed import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device()
+    mesh = make_mesh(**NCCL_8B_TRAIN_MESH)
+    cfg = get_config("llama3-8b")
+    tok = np.random.default_rng(NCCL_8B_TRAIN_SEED).integers(
+        1, cfg.vocab_size, NCCL_8B_TRAIN_BATCH).astype(np.int32)
+    out = dict(rank=rank, backend=mesh.comm("pp").backend, coords=mesh.coords,
+               check=_train_8b_check(rank, dev, mesh, tok), steps=[])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step = trainer.make_train_step(cfg, mesh=mesh, num_microbatches=NCCL_8B_TRAIN_M)
+    t0 = time.monotonic()
+    state = init_fn(torch.Generator(device=dev).manual_seed(NCCL_8B_TRAIN_SEED),
+                    dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out.update(init_s=time.monotonic() - t0, init_peak_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.from_numpy(tok).to(dev)
+    for _ in range(NCCL_8B_TRAIN_STEPS):
+        spans: list = []
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with _timed_comms(mesh, spans):
+            state, loss = step(state, tokens)
+            torch.cuda.synchronize()
+        out["steps"].append(dict(loss=float(loss), ms=(time.monotonic() - t0) * 1e3,
+                                 collectives=_span_totals(spans)))
+    out.update(state_bytes=_state_bytes(state), peak_bytes=torch.cuda.max_memory_allocated(),
+               tokens_per_step=NCCL_8B_TRAIN_BATCH[0] * (NCCL_8B_TRAIN_BATCH[1] - 1))
+    return out

@@ -60,6 +60,22 @@ RING_BOOKS = ("decode_steps", "early_exit_steps", "tokens_generated", "requests_
 # path.
 MOE_RING = dict(max_seq=128, prefill_buckets=(8, 32, 64))
 MOE_RING_PROMPTS = (PROMPTS[0], list(range(40, 80)), PROMPTS[2], PROMPTS[3])
+# The MoE ring at dp = 2 x tp = 2 with 64 slots, 32 a shard (test-tiny-moe,
+# E = 8, the skewed router): every decode step is 64 global rows, the
+# capacity dispatch with C = 32, its counts all-gathered over dp. 40
+# greedy requests of 2-8 tokens, 40-49 new tokens each: all 40 are live
+# at once, so slots 32-39 (shard 1) decode behind shard 0's 32 rows, and
+# expert 0 drops live rows of theirs.
+MOE_DP_RING_SLOTS, MOE_DP_RING_REQUESTS = 64, 40
+
+
+def moe_dp_ring_requests(vocab: int) -> tuple:
+    """(prompts, sampling kwargs) of the MoE dp ring case."""
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(1, vocab, 2 + i % 7)]
+               for i in range(MOE_DP_RING_REQUESTS)]
+    return prompts, [dict(temperature=0.0, max_tokens=40 + i % 10)
+                     for i in range(MOE_DP_RING_REQUESTS)]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -260,6 +276,51 @@ def moe_ring_case(rank: int, case: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counted_dispatch():
+    """Yields the list that every ``moe_dispatch`` call appends to while the
+    block runs: its (B, T), the all-gathers its dp Comm took during the
+    call, and its routes' top-k ids [B·T, k]."""
+    calls: list = []
+    real = moe.moe_dispatch
+
+    def gathers(dp) -> int:
+        return dp.op_stats.get("all_gather", {}).get("calls", 0) if hasattr(dp, "op_stats") else 0
+
+    def counted(h, p, k, capacity_factor=2.0, comm=None, dp=None):
+        n = gathers(dp)
+        out = real(h, p, k, capacity_factor, comm=comm, dp=dp)
+        _, top_i = moe.route_sparse(h.reshape(-1, h.shape[-1]), p["router"], k)
+        calls.append(dict(shape=tuple(h.shape[:2]), gathers=gathers(dp) - n, top_i=_np(top_i)))
+        return out
+
+    moe.moe_dispatch = counted
+    try:
+        yield calls
+    finally:
+        moe.moe_dispatch = real
+
+
+def moe_dp_ring_case(rank: int, case: dict) -> dict:
+    """The MoE decode ring at dp = 2 x tp = 2 with MOE_DP_RING_SLOTS slots
+    (half on each shard): every decode step is that many global rows, so each
+    MoE layer takes the capacity dispatch over the whole batch. The
+    greedy (tokens, finish) rows of MOE_DP_RING_REQUESTS, the ring's books,
+    and the decode steps' dispatch calls (this shard's [B, 1] calls:
+    their all-gathers and routes)."""
+    cfg = get_config(**case["cfg"])
+    eng = ring_engine(cfg, case["tree"], "cpu", dp=2, tp=2, num_slots=MOE_DP_RING_SLOTS)
+    prompts, params = moe_dp_ring_requests(cfg.vocab_size)
+    with counted_dispatch() as calls:
+        rows = serve(eng, prompts, params)
+    eng.stop()
+    local = MOE_DP_RING_SLOTS // 2
+    steps = [c for c in calls if c["shape"] == (local, 1)]
+    return dict(rows=rows, books={k: eng.metrics[k] for k in RING_BOOKS},
+                gathers=[c["gathers"] for c in steps], routes=[c["top_i"] for c in steps],
+                layers=cfg.num_layers)
+
+
 def ring_mesh_job(rank: int, tree, moe_case_args: dict) -> dict:
     """On four gloo ranks: per mesh of ``MESHES`` and cache of ``CACHES``
     the ring engine's greedy (tokens, finish) rows; the dp script on a dp
@@ -284,6 +345,7 @@ def ring_mesh_job(rank: int, tree, moe_case_args: dict) -> dict:
     out["moe"] = moe_case(rank, moe_case_args)
     out["moe_pp"] = moe_pp_case(rank, moe_case_args)
     out["moe_ring"] = moe_ring_case(rank, moe_case_args)
+    out["moe_dp_ring"] = moe_dp_ring_case(rank, moe_case_args)
     return out
 
 
@@ -319,19 +381,44 @@ NCCL_RING_ENGINE = dict(num_slots=4, max_seq=128, prefill_buckets=(16, 32), deco
                         dtype="float32", max_sessions=0, long_prefill_threshold=32)
 # 34 pages of 16 rows: each dp shard's 2 slots x 128 rows and its trash page.
 NCCL_RING_CACHES = {"K1": dict(), "K4": dict(kv_quant="int8", kv_pages=34, kv_page_tokens=16)}
-# llama3-8b at tp = 2: the burst's windows, ring on and off in turns.
+# -- the whole models over NCCL -------------------------------------------
+#
+# Each case: (1) the model's full width cut to WIDTH_CHECK_LAYERS layers,
+# f32, TF32 off, on the case's mesh against one card (``_width_check``);
+# (2) the whole model in bf16, ring on and off over the same weights, the
+# requests in alternating windows (``_serve_whole``).
+WIDTH_CHECK_LAYERS, WIDTH_CHECK_LOGITS_TOL, WIDTH_CHECK_NEW_TOKENS = 2, 1e-3, 12
+WIDTH_CHECK_ENGINE = dict(max_seq=256, prefill_buckets=(32, 64, 128, 256), dtype="float32",
+                          max_sessions=0)
+WIDTH_CHECK_PROMPT_LENGTHS = (17, 64, 100, 200)
+# chip_smoke.py's burst lengths (phase 5).
+BURST_LENGTHS = (17, 900, 64, 333, 128, 511, 45, 700, 250, 31, 600, 100)
+# llama3-8b at tp = 2: chip_smoke.py's 12-request burst.
 NCCL_8B_SEED, NCCL_8B_WINDOWS = 27, 3
 # The whole Mixtral-8x7B at tp = 4 (two experts and two KV heads a rank):
-# (1) cut to 2 layers, f32, against one rank: a prefill of 8 rows x 8
-# tokens (64 rows: the capacity dispatch) then one decode step of 8 rows
-# (the all-expert path, on K1), and greedy requests whose prefill buckets
-# hold 64-256 rows; (2) all 32 layers in bf16, the burst's windows, ring
-# on and off in turns.
+# (1) a prefill of 8 rows x 8 tokens (64 rows: the capacity dispatch), then
+# one decode step of 8 rows (the all-expert path, on K1); a tp = 4 engine
+# of 8 slots; (2) the 12-request burst.
 NCCL_MIXTRAL_TP, NCCL_MIXTRAL_SEED, NCCL_MIXTRAL_WINDOWS = 4, 31, 3
-NCCL_MIXTRAL_CHECK_LAYERS, NCCL_MIXTRAL_LOGITS_TOL = 2, 1e-3
-NCCL_MIXTRAL_CHECK_ENGINE = dict(num_slots=8, max_seq=256, prefill_buckets=(32, 64, 128, 256),
-                                 dtype="float32", max_sessions=0)
-NCCL_MIXTRAL_PROMPT_LENGTHS, NCCL_MIXTRAL_NEW_TOKENS = (17, 64, 100, 200), 12
+NCCL_MIXTRAL_CHECK_SHAPES = ((8, 9),)
+# Mixtral-8x7B at dp = 2 x tp = 2 (four experts and four KV heads a rank,
+# 32 slots a dp shard): every decode step is 64 global rows, so it takes
+# the capacity dispatch (C = 32) with its counts all-gathered over dp in
+# the ring's captured step. (1) the [8, 8] prefill (64 rows) and its
+# 8-row step, a [64, 1] prefill and its 64-row step; an engine of 64
+# slots; (2) 64 requests of BURST_LENGTHS repeated, 64 new tokens each,
+# even ones greedy, odd ones sampled.
+NCCL_MOE_DP, NCCL_MOE_DP_SEED, NCCL_MOE_DP_WINDOWS = dict(dp=2, tp=2), 33, 3
+NCCL_MOE_DP_SLOTS, NCCL_MOE_DP_NEW_TOKENS = 64, 64
+NCCL_MOE_DP_CHECK_SHAPES = ((8, 9), (64, 2))
+# Llama-3-70B at tp = 4 (16 query heads and 2 KV heads a rank), batch-eval
+# traffic: (1) a [32, 8] prefill and its 32-row step; an engine of 8 slots;
+# (2) one burst of 32 greedy requests of 128-958 tokens (each makes its 64
+# new tokens inside max_seq 1024), ring on in three windows, ring off in
+# one (a ring-off step launches every kernel of 80 layers from Python).
+NCCL_70B_TP, NCCL_70B_SEED, NCCL_70B_WINDOWS = 4, 35, {"on": 3, "off": 1}
+NCCL_70B_SLOTS, NCCL_70B_NEW_TOKENS = 32, 64
+NCCL_70B_CHECK_SHAPES = ((32, 9),)
 
 
 def _counted_serve(eng, prompts, params) -> dict:
@@ -389,167 +476,151 @@ def nccl_ring_job(rank: int, dims: dict) -> dict:
     return out
 
 
-def nccl_8b_job(rank: int) -> dict:
-    """llama3-8b at full depth in bf16, random seeded weights, tp = 2 over
-    NCCL, one rank per card: a decode ring engine and a ring-off one over
-    the same weights, each warmed, serve chip_smoke.py's 12-request burst
-    (phase 5's) through LockstepEngine in alternating windows. Per window
-    the leader's host ms per decode step, and on every rank the decode
-    chunks' device time (CUDA events around each chunk's enqueue) over the
-    window's wall; the greedy requests' tokens; each rank's params and KV
-    bytes, the capture's seconds and pool bytes and one captured step's
-    collectives."""
-    import time
-
-    import chip_smoke
-    from omnia_tpu_torch.engine.multihost import LockstepEngine
-    from omnia_tpu_torch.parallel.distributed import rank_device
-
-    dev = rank_device()
-    torch.cuda.reset_peak_memory_stats()
-    mesh = make_mesh(tp=2)
-    cfg = get_config("llama3-8b")
-    t0 = time.monotonic()
-    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(NCCL_8B_SEED), dev,
-                               dtype=torch.bfloat16, mesh=mesh)
-    engines, out = {}, dict(rank=rank, init_s=time.monotonic() - t0, windows={"on": [], "off": []})
-    for arm, ring in (("on", 2), ("off", 0)):
-        eng = InferenceEngine(cfg, EngineConfig(tp=2, decode_ring=ring), params=params,
-                              device=dev)
-        t0 = time.monotonic()
-        LockstepEngine(eng).warmup()
-        out[f"warmup_s_{arm}"] = time.monotonic() - t0
-        engines[arm] = eng
-    graphs = engines["on"]._ring_graphs
-    out.update(capture_s=graphs.capture_s, pool_bytes=graphs.pool_bytes,
-               step_collectives=graphs.step_collectives,
-               params_bytes=sum(t.numel() * t.element_size()
-                                for _, t in trainer.leaves(params)),
-               kv_bytes=engines["on"].metrics["kv_quant_device_bytes"],
-               layers=cfg.num_layers, edition=engines["on"]._kernel_edition())
-    reqs = chip_smoke.burst(cfg.vocab_size, 12)
-    greedy = [i for i, (_, sp) in enumerate(reqs) if sp.temperature == 0.0]
-    tokens = {}
-    for _ in range(NCCL_8B_WINDOWS):
-        for arm, eng in engines.items():
-            window, toks = _burst_window(eng, reqs, LockstepEngine)
-            out["windows"][arm].append(window)
-            if toks is not None:
-                tokens.setdefault(arm, [toks[i] for i in greedy])
-    out["greedy"] = tokens or None
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    for eng in engines.values():
-        eng.stop()
-    return out
+def burst_requests(vocab: int, n: int, new_tokens: int) -> list:
+    """n requests of BURST_LENGTHS repeated, ``new_tokens`` each: even ones
+    greedy, odd ones sampled (chip_smoke.py's sampler, seeded)."""
+    rng = np.random.default_rng(42)
+    reqs = []
+    for i in range(n):
+        prompt = [int(t) for t in rng.integers(0, vocab, BURST_LENGTHS[i % len(BURST_LENGTHS)])]
+        sp = (SamplingParams(temperature=0.0, max_tokens=new_tokens) if i % 2 == 0
+              else SamplingParams(temperature=0.7, top_p=0.9, top_k=40, max_tokens=new_tokens,
+                                  seed=100 + i))
+        reqs.append((prompt, sp))
+    return reqs
 
 
-def _mixtral_forward(params, cfg, tokens: np.ndarray, dev, tp) -> np.ndarray:
-    """A prefill of tokens[:, :-1] ([8, 8]: 64 rows, the capacity
-    dispatch) into a fresh cache, then one decode step of tokens[:, -1:]
-    (8 rows, the all-expert path; on the card K1): the prefill's last
-    row's and the step's logits [8, 2, V], gathered over tp."""
-    B, T = tokens.shape[0], tokens.shape[1] - 1
+def batch_eval_requests(vocab: int, n: int, new_tokens: int, max_seq: int) -> list:
+    """n greedy requests of 128 tokens up to the longest prompt that still
+    makes ``new_tokens`` inside ``max_seq`` (its last two rows unused)."""
+    rng = np.random.default_rng(43)
+    lengths = np.linspace(128, max_seq - 2 - new_tokens, n).astype(int)
+    return [([int(t) for t in rng.integers(0, vocab, int(m))],
+             SamplingParams(temperature=0.0, max_tokens=new_tokens)) for m in lengths]
+
+
+def _forward_rows(params, cfg, tokens: np.ndarray, dev, mesh) -> np.ndarray:
+    """A prefill of tokens[:, :-1] into a fresh cache, then one decode step
+    of tokens[:, -1:] (on the card K1): the prefill's last row's and the
+    step's logits [B, 2, V], gathered whole. On a ``mesh`` this rank runs
+    its dp shard's block of the rows (an MoE layer branching and dropping
+    over the whole batch) with its tp slice; with None, one card."""
+    tp = dp = None
+    rows = slice(None)
+    if mesh is not None:
+        tp, dp = mesh.comm("tp"), mesh.comm("dp")
+        if dp is not None:
+            n = tokens.shape[0] // dp.size
+            rows = slice(dp.index * n, (dp.index + 1) * n)
+    tok = torch.from_numpy(tokens[rows]).to(dev)
+    B, T = tok.shape[0], tok.shape[1] - 1
     ck, cv = llama.init_kv_cache(cfg, B, 2 * T, dev, dtype=torch.float32,
                                  tp=1 if tp is None else tp.size)
-    tok = torch.from_numpy(tokens).to(dev)
     pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
     with torch.no_grad():
         lg, _, _ = llama.forward(params, cfg, tok[:, :T], pos, ck, cv,
-                                 torch.zeros(B, dtype=torch.int32, device=dev), tp)
+                                 torch.zeros(B, dtype=torch.int32, device=dev), tp, dp)
         step = torch.full((B, 1), T, dtype=torch.int32, device=dev)
-        lg1, _, _ = llama.forward(params, cfg, tok[:, T:], step, ck, cv, step[:, 0], tp)
-        return _np(llama.gather_logits(torch.cat([lg[:, -1:], lg1], dim=1), tp))
+        lg1, _, _ = llama.forward(params, cfg, tok[:, T:], step, ck, cv, step[:, 0], tp, dp)
+        out = llama.gather_logits(torch.cat([lg[:, -1:], lg1], dim=1), tp)
+        return _np(all_gather(out, dp, dim=0))
 
 
-def _lockstep_rows(eng, reqs, lockstep_cls):
-    """The requests through a warmed LockstepEngine: the leader's tokens
-    per request, None on the others."""
-    lock = lockstep_cls(eng)
-    lock.warmup()
-    if not lock.is_leader:
-        lock.run_follower()
-        return None
-    lock.start()
-    try:
-        hs = [lock.submit(p, sp) for p, sp in reqs]
-        return [h.collect_tokens(timeout=600)[0] for h in hs]
-    finally:
-        lock.stop()
+def overflow(top_i: np.ndarray, E: int) -> int:
+    """The assignments past capacity (factor 2) of one dispatch over the
+    whole batch's routes top_i [N, K]."""
+    N, K = top_i.shape
+    capacity = max(1, -(-N * K * 2 // E))
+    counts = np.bincount(top_i.reshape(-1), minlength=E)
+    return int(np.maximum(counts - capacity, 0).sum())
 
 
-def _mixtral_check(rank: int, dev, mesh) -> dict:
-    """(1): Mixtral's full width cut to NCCL_MIXTRAL_CHECK_LAYERS layers,
-    f32, TF32 off, drawn whole from one seed and cut on every rank; rank 0
-    also holds the whole tree. The tp = 4 forward's logits and a tp = 4
-    engine's greedy tokens (K1), and on rank 0 the one-rank ones."""
-    from omnia_tpu_torch.engine.multihost import LockstepEngine
+def _overflow(routes: list, E: int) -> list:
+    """Per MoE call of at least DISPATCH_MIN_TOKENS rows (the dispatch
+    branch), (rows, the assignments past capacity)."""
+    return [(top_i.shape[0], overflow(top_i, E)) for top_i in routes
+            if top_i.shape[0] >= moe.DISPATCH_MIN_TOKENS]
 
-    cfg = get_config("mixtral-8x7b", num_layers=NCCL_MIXTRAL_CHECK_LAYERS)
-    rng = np.random.default_rng(NCCL_MIXTRAL_SEED)
-    tokens = rng.integers(0, cfg.vocab_size, (8, 9)).astype(np.int64)
-    reqs = [([int(t) for t in rng.integers(0, cfg.vocab_size, n)],
-             SamplingParams(temperature=0.0, max_tokens=NCCL_MIXTRAL_NEW_TOKENS))
-            for n in NCCL_MIXTRAL_PROMPT_LENGTHS]
+
+def _width_check(rank: int, dev, name: str, dims: dict, shapes, slots: int, seed: int) -> dict:
+    """The model's full width cut to WIDTH_CHECK_LAYERS layers, f32, TF32
+    off, drawn whole from one seed and cut on every rank (rank 0 also
+    draws it whole): ``_forward_rows`` at each of ``shapes`` on
+    ``make_mesh(**dims)``, and the greedy tokens of an engine of ``slots``
+    slots on that mesh (every rank stepping its own, on a counter clock);
+    on rank 0 the one-card forwards (with each dispatch call's drops) and
+    a one-card engine of as many slots."""
+    cfg = get_config(name, num_layers=WIDTH_CHECK_LAYERS)
+    mesh = make_mesh(**dims)
+    rng = np.random.default_rng(seed)
+    tokens = [rng.integers(0, cfg.vocab_size, s).astype(np.int64) for s in shapes]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, WIDTH_CHECK_PROMPT_LENGTHS[
+        i % len(WIDTH_CHECK_PROMPT_LENGTHS)])] for i in range(slots)]
+    kw = [dict(temperature=0.0, max_tokens=WIDTH_CHECK_NEW_TOKENS)] * slots
+    fields = dict(WIDTH_CHECK_ENGINE, num_slots=slots)
 
     def draw(mesh):
-        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(NCCL_MIXTRAL_SEED),
-                                 dev, dtype=torch.float32, mesh=mesh)
+        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                                 dtype=torch.float32, mesh=mesh)
+
+    def greedy(eng):
+        eng.clock = _counter_clock()
+        rows = [toks for toks, _ in serve(eng, prompts, kw)]
+        eng.stop()
+        return rows
 
     params = draw(mesh)
-    out = dict(logits=_mixtral_forward(params, cfg, tokens, dev, mesh.comm("tp")),
-               experts=int(params["layers"]["mlp"]["wg"].shape[1]))
-    eng = InferenceEngine(cfg, EngineConfig(**NCCL_MIXTRAL_CHECK_ENGINE, tp=NCCL_MIXTRAL_TP),
-                          params=params, device=dev)
-    out["greedy"] = _lockstep_rows(eng, reqs, LockstepEngine)
-    out["edition"] = eng._kernel_edition()
-    eng.stop()
+    out = dict(logits=[_forward_rows(params, cfg, t, dev, mesh) for t in tokens],
+               experts=int(params["layers"]["mlp"]["wg"].shape[1]) if cfg.is_moe else 0)
+    eng = InferenceEngine(cfg, EngineConfig(**fields, **dims), params=params, device=dev)
+    out.update(edition=eng._kernel_edition(), slots=eng._dp.per, greedy=greedy(eng))
     del eng, params
     if rank == 0:
         whole = draw(None)
-        out["logits_tp1"] = _mixtral_forward(whole, cfg, tokens, dev, None)
-        ref = InferenceEngine(cfg, EngineConfig(**NCCL_MIXTRAL_CHECK_ENGINE), params=whole,
-                              device=dev)
-        hs = [ref.submit(p, sp) for p, sp in reqs]
-        _drain(ref)
-        out["greedy_tp1"] = [h.collect_tokens(timeout=600)[0] for h in hs]
-        ref.stop()
-        del ref, whole
+        with recorded_routes() as routes:
+            out["logits_tp1"] = [_forward_rows(whole, cfg, t, dev, None) for t in tokens]
+        out["dispatch_drops"] = _overflow(routes, cfg.num_experts)
+        out["greedy_tp1"] = greedy(InferenceEngine(cfg, EngineConfig(**fields), params=whole,
+                                                   device=dev))
+        del whole
     return out
 
 
-def nccl_mixtral_job(rank: int) -> dict:
-    """The whole Mixtral-8x7B at tp = 4 over NCCL, one rank per card, on
-    random seeded weights. (1) ``_mixtral_check``; (2) all 32 layers in
-    bf16, each leaf drawn whole and cut (``init_params(mesh=)``): a decode
-    ring engine and a ring-off one over the same weights, each warmed
-    through LockstepEngine, serve chip_smoke.py's 12-request burst in
-    alternating windows, as ``nccl_8b_job``'s, with the decode-attention
-    launches counted on the card per window. Each rank's params and KV
-    bytes, init / warmup / capture seconds, pool bytes, one captured
-    step's collectives and (2)'s peak memory."""
+def _serve_whole(rank: int, name: str, dims: dict, fields: dict, reqs: list, windows: dict,
+                 seed: int) -> dict:
+    """The whole ``name`` in bf16, random seeded weights drawn leaf by leaf
+    and cut to this rank's slice as each is drawn (``init_params(mesh=)``:
+    one whole leaf at most), on ``make_mesh(**dims)`` over NCCL, one rank
+    per card: a decode ring engine and a ring-off one over the same
+    weights (``EngineConfig(**fields, **dims)``), each warmed, serve
+    ``reqs`` through LockstepEngine in alternating windows, ``windows[arm]``
+    of each (``_burst_window``). Each rank's params and KV bytes, its
+    slots, init / warmup / capture seconds, pool bytes, one captured
+    step's collectives, the init's peak and the serving's after it (both
+    engines, their graphs and the windows); the leader's greedy tokens per
+    arm."""
     import gc
     import time
 
-    import chip_smoke
     from omnia_tpu_torch.engine.multihost import LockstepEngine
     from omnia_tpu_torch.parallel.distributed import rank_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = rank_device()
-    mesh = make_mesh(tp=NCCL_MIXTRAL_TP)
-    out = dict(rank=rank, check=_mixtral_check(rank, dev, mesh), windows={"on": [], "off": []})
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("mixtral-8x7b")
+    cfg = get_config(name)
     t0 = time.monotonic()
-    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(NCCL_MIXTRAL_SEED),
-                               dev, dtype=torch.bfloat16, mesh=mesh)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                               dtype=torch.bfloat16, mesh=make_mesh(**dims))
     torch.cuda.synchronize()
-    out.update(init_s=time.monotonic() - t0, init_peak_bytes=torch.cuda.max_memory_allocated())
+    out = dict(rank=rank, init_s=time.monotonic() - t0,
+               init_peak_bytes=torch.cuda.max_memory_allocated(),
+               windows={arm: [] for arm in windows})
+    torch.cuda.reset_peak_memory_stats()
     engines = {}
     for arm, ring in (("on", 2), ("off", 0)):
-        eng = InferenceEngine(cfg, EngineConfig(tp=NCCL_MIXTRAL_TP, decode_ring=ring),
+        eng = InferenceEngine(cfg, EngineConfig(**fields, **dims, decode_ring=ring),
                               params=params, device=dev)
         t0 = time.monotonic()
         LockstepEngine(eng).warmup()
@@ -561,29 +632,102 @@ def nccl_mixtral_job(rank: int) -> dict:
                params_bytes=sum(t.numel() * t.element_size()
                                 for _, t in trainer.leaves(params)),
                kv_bytes=engines["on"].metrics["kv_quant_device_bytes"],
-               layers=cfg.num_layers, edition=engines["on"]._kernel_edition())
-    reqs = chip_smoke.burst(cfg.vocab_size, 12)
+               slots=engines["on"]._dp.per, layers=cfg.num_layers,
+               edition=engines["on"]._kernel_edition())
     greedy = [i for i, (_, sp) in enumerate(reqs) if sp.temperature == 0.0]
     tokens = {}
-    for _ in range(NCCL_MIXTRAL_WINDOWS):
+    for i in range(max(windows.values())):
         for arm, eng in engines.items():
-            window, toks = _burst_window(eng, reqs, LockstepEngine)
-            out["windows"][arm].append(window)
-            if toks is not None:
-                tokens.setdefault(arm, [toks[i] for i in greedy])
+            if i < windows[arm]:
+                window, toks = _burst_window(eng, reqs, LockstepEngine)
+                out["windows"][arm].append(window)
+                if toks is not None:
+                    tokens.setdefault(arm, [toks[j] for j in greedy])
     out["greedy"] = tokens or None
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["serving_peak_bytes"] = torch.cuda.max_memory_allocated()
     for eng in engines.values():
         eng.stop()
     return out
 
 
+def nccl_8b_job(rank: int) -> dict:
+    """llama3-8b at full depth in bf16, tp = 2 over NCCL, one rank per
+    card: ``_serve_whole`` on chip_smoke.py's 12-request burst (phase 5's).
+    Per window the leader's host ms per decode step, and on every rank the
+    decode chunks' device time (CUDA events around each chunk's enqueue)
+    over the window's wall."""
+    import chip_smoke
+
+    reqs = chip_smoke.burst(get_config("llama3-8b").vocab_size, 12)
+    return _serve_whole(rank, "llama3-8b", dict(tp=2), {}, reqs,
+                        {"on": NCCL_8B_WINDOWS, "off": NCCL_8B_WINDOWS}, NCCL_8B_SEED)
+
+
+def nccl_mixtral_job(rank: int) -> dict:
+    """The whole Mixtral-8x7B at tp = 4 over NCCL, one rank per card, on
+    random seeded weights: (1) ``_width_check`` (the [8, 8] prefill and an
+    8-row step, an engine of 8 slots); (2) ``_serve_whole`` on
+    chip_smoke.py's 12-request burst, with the decode-attention launches
+    counted on the card per window."""
+    import chip_smoke
+    from omnia_tpu_torch.parallel.distributed import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = dict(tp=NCCL_MIXTRAL_TP)
+    check = _width_check(rank, rank_device(), "mixtral-8x7b", dims, NCCL_MIXTRAL_CHECK_SHAPES, 8,
+                         NCCL_MIXTRAL_SEED)
+    reqs = chip_smoke.burst(get_config("mixtral-8x7b").vocab_size, 12)
+    out = _serve_whole(rank, "mixtral-8x7b", dims, {}, reqs,
+                       {"on": NCCL_MIXTRAL_WINDOWS, "off": NCCL_MIXTRAL_WINDOWS},
+                       NCCL_MIXTRAL_SEED)
+    return dict(out, check=check)
+
+
+def nccl_moe_dp_job(rank: int) -> dict:
+    """Mixtral-8x7B at dp = 2 x tp = 2 over NCCL, one rank per card, every
+    decode step 64 global rows through the capacity dispatch: (1)
+    ``_width_check`` at NCCL_MOE_DP_CHECK_SHAPES with an engine of 64 slots
+    against one card's of 64 (the same dispatch over the same N, so the
+    same drops); (2) ``_serve_whole`` with 64 slots and max_seq 1024 on 64
+    ``burst_requests``."""
+    from omnia_tpu_torch.parallel.distributed import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check = _width_check(rank, rank_device(), "mixtral-8x7b", NCCL_MOE_DP,
+                         NCCL_MOE_DP_CHECK_SHAPES, NCCL_MOE_DP_SLOTS, NCCL_MOE_DP_SEED)
+    reqs = burst_requests(get_config("mixtral-8x7b").vocab_size, NCCL_MOE_DP_SLOTS,
+                          NCCL_MOE_DP_NEW_TOKENS)
+    out = _serve_whole(rank, "mixtral-8x7b", NCCL_MOE_DP,
+                       dict(num_slots=NCCL_MOE_DP_SLOTS, max_seq=1024), reqs,
+                       {"on": NCCL_MOE_DP_WINDOWS, "off": NCCL_MOE_DP_WINDOWS}, NCCL_MOE_DP_SEED)
+    return dict(out, check=check)
+
+
+def nccl_70b_job(rank: int) -> dict:
+    """Llama-3-70B at tp = 4 over NCCL, one rank per card: (1)
+    ``_width_check`` (a [32, 8] prefill and its 32-row step, an engine of
+    8 slots); (2) ``_serve_whole`` with 32 slots and max_seq 1024 on 32
+    ``batch_eval_requests``, ring on in three windows, off in one."""
+    from omnia_tpu_torch.parallel.distributed import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = dict(tp=NCCL_70B_TP)
+    check = _width_check(rank, rank_device(), "llama3-70b", dims, NCCL_70B_CHECK_SHAPES, 8,
+                         NCCL_70B_SEED)
+    fields = dict(num_slots=NCCL_70B_SLOTS, max_seq=1024)
+    reqs = batch_eval_requests(get_config("llama3-70b").vocab_size, NCCL_70B_SLOTS,
+                               NCCL_70B_NEW_TOKENS, fields["max_seq"])
+    out = _serve_whole(rank, "llama3-70b", dims, fields, reqs, NCCL_70B_WINDOWS, NCCL_70B_SEED)
+    return dict(out, check=check)
+
+
 def _burst_window(eng, reqs, lockstep_cls) -> tuple:
-    """One burst through a LockstepEngine (the leader submits, the others
-    replicate), every decode chunk's enqueue between CUDA events, the
-    decode-attention launches counted on the card (set to 0 just before,
-    read just after) beside the steps that ran: (the window's numbers,
-    the leader's tokens per request or None)."""
+    """One burst through a LockstepEngine (the leader submits every request
+    before its loop starts, so the ticks carry them alike in every window;
+    the others replicate), every decode chunk's enqueue between CUDA
+    events, the decode-attention launches counted on the card (set to 0
+    just before, read just after) beside the steps that ran: (the window's
+    numbers, the leader's tokens per request or None)."""
     import time
 
     from omnia_tpu_torch.ops import decode_attention as da
@@ -609,9 +753,9 @@ def _burst_window(eng, reqs, lockstep_cls) -> tuple:
     t0 = time.monotonic()
     try:
         if lock.is_leader:
+            hs = [lock.submit(p, sp) for p, sp in reqs]
             lock.start()
             try:
-                hs = [lock.submit(p, sp) for p, sp in reqs]
                 toks = [h.collect_tokens(timeout=600)[0] for h in hs]
             finally:
                 lock.stop()
@@ -630,4 +774,5 @@ def _burst_window(eng, reqs, lockstep_cls) -> tuple:
     return dict(decode_steps=steps, early_exit_steps=early, ran=steps - early,
                 launches=launches, host_ms_per_decode_step=host_s / max(steps, 1) * 1e3,
                 wall_s=wall_s, chunk_device_ms=chunk_ms,
+                chunk_device_ms_per_step=chunk_ms / max(steps - early, 1),
                 chunk_device_share=chunk_ms / (wall_s * 1e3)), toks
