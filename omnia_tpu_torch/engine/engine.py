@@ -117,6 +117,7 @@ from omnia_tpu_torch.ops.sampling import make_slot_key_data
 from omnia_tpu_torch.parallel.distributed import GRAPH_MIXING
 from omnia_tpu_torch.parallel.mesh import capture_comms, make_mesh
 from omnia_tpu_torch.parallel.sharding import shard_pytree
+from omnia_tpu_torch.utils.timeline import TIMELINE_KEYS, Timeline
 
 logger = logging.getLogger(__name__)
 
@@ -251,6 +252,10 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._flight: Optional[FlightRecorder] = (
             FlightRecorder(engine_cfg.flight_events) if engine_cfg.flight_events > 0 else None
         )
+        # The decode step's device timeline (utils/timeline.py): region
+        # stamps in the step, event pairs around decode chunks and
+        # placement programs. With the recorder, or not at all.
+        self._timeline: Optional[Timeline] = None
         # The runtime sets its tracer here: submits that carry a
         # trace_ctx then open an omnia.engine.request span (flight on).
         self.tracer = None
@@ -289,6 +294,8 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         if self.device.type == "cuda":
             # The CUDA context and the caching allocator's first block.
             torch.empty(1, device=self.device)
+        if self._flight is not None:
+            self._timeline = Timeline(self.device, model_cfg.num_layers, self._flight)
         backend_init_s = self._coldstart.end_phase("backend_init")
         if self._flight is not None:
             self._flight.note_init_phase("backend_init", {
@@ -345,6 +352,9 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             "decode_dispatch_s": 0.0,
             "decode_sync_s": 0.0,
             "prefill_dispatch_s": 0.0,
+            # The decode step's device timeline (utils/timeline.py), added
+            # at each chunk's read; 0 with the flight recorder off.
+            **dict.fromkeys(sorted(TIMELINE_KEYS), 0),
             # Speculative decoding (spec_decode.py): acceptance rate =
             # spec_accepted / spec_proposed; gate_state is the self-gate's
             # decision (0 probing / 1 on / 2 off), accept_ema the
@@ -567,7 +577,7 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             dict(params=self.params, ck=self._ck, cv=self._cv, stop_ids=self._stop_ids,
                  temp=self._temp, top_p=self._top_p, top_k=self._top_k,
                  g=(self._gtable, self._gactive) if self._gr_on else (), geos=self._geos),
-            self.device, comms=comms)
+            self.device, comms=comms, timeline=self._timeline)
         for chunk in self._decode_fns:
             graphs.capture(chunk)
         self._ring_graphs = graphs

@@ -16,7 +16,12 @@ Design constraints, in order:
 
 - **Strictly host-side.** Every timestamp is ``time.monotonic()`` taken
   on the host between enqueues; nothing here touches a device tensor,
-  and the module imports no torch, so the dump CLI runs on any box.
+  and the module imports no torch, so the dump CLI runs on any box. The
+  device's side arrives as plain numbers: the engine's timeline
+  (``utils/timeline.py``, which holds the CUDA event pairs and the stamp
+  buffer) gives a decode chunk's and a prefill piece's device interval
+  on the wall clock (``dev_t0_ns``, ``dev_t1_ns``) and a chunk's region
+  split, attributes added only when given.
 - **Bounded.** The ring holds ``capacity`` events; older events are
   overwritten (counted in ``dropped``). Per-request open state lives in
   a dict keyed by request id and is deleted at the terminal, so a
@@ -36,7 +41,9 @@ Export: ``dump_jsonl`` writes one JSON object per event;
 ``to_chrome_trace`` converts a dump (or a live snapshot) into
 Chrome-trace/Perfetto JSON: ``python -m omnia_tpu_torch.engine.flight
 <dump.jsonl> [-o trace.json]`` from the command line, then load the
-result in Perfetto/``chrome://tracing``.
+result in Perfetto/``chrome://tracing``. Events that carry a device
+interval are drawn again on a lane of their own ("device"), on the
+host rows' time base.
 """
 
 from __future__ import annotations
@@ -95,6 +102,10 @@ EVENTS = frozenset({
     "warmup_compile",  # AOT program set compiled (attrs: programs, threads)
     "warmup_restore",  # post-warmup pristine-state restore finished
 })
+
+#: The Chrome export's "device" row: device intervals of decode chunks
+#: and prefill pieces.
+DEVICE_TID = 1 << 20
 
 #: The init-phase subset of EVENTS (``note_init_phase`` accepts only
 #: these; the Chrome export renders their ``seconds`` attr as duration).
@@ -235,8 +246,8 @@ class FlightRecorder:
 
     # -- recording core -------------------------------------------------
 
-    def _record(self, kind: str, request_id: str, attrs: dict) -> None:
-        """Append one event to the ring (self-locking: the per-request
+    def _record(self, kind: str, request_id: str, attrs: dict) -> FlightEvent:
+        """Append one event to the ring and return it (self-locking: the per-request
         stage books and the ring are updated in separate tiny critical
         sections — each event row is internally consistent, and the
         ring's seq/mono are stamped at append time)."""
@@ -246,11 +257,11 @@ class FlightRecorder:
         with self._lock:
             if len(self._ring) == self.capacity:
                 self._dropped += 1
-            self._ring.append(FlightEvent(
-                self._seq, ev_ts, ev_mono, kind, request_id, attrs,
-            ))
+            event = FlightEvent(self._seq, ev_ts, ev_mono, kind, request_id, attrs)
+            self._ring.append(event)
             self._seq += 1
             self._recorded += 1
+        return event
 
     # -- lifecycle seams ------------------------------------------------
 
@@ -299,10 +310,22 @@ class FlightRecorder:
         })
 
     def note_prefill_piece(self, request_id: str, take: int, bucket: int,
-                           dispatch_s: float) -> None:
-        self._record("prefill_piece", request_id, {
+                           dispatch_s: float) -> FlightEvent:
+        """One prefill or extend program dispatched. Returns its event,
+        to which ``note_device_interval`` adds the program's device
+        interval once a later read has waited for it."""
+        return self._record("prefill_piece", request_id, {
             "take": take, "bucket": bucket, "dispatch_s": dispatch_s,
         })
+
+    def note_device_interval(self, event: FlightEvent, dev_t0_ns: int,
+                             dev_t1_ns: int) -> None:
+        """A recorded event's device interval on the wall clock (ns),
+        resolved after the event: its attrs are replaced by a copy that
+        adds ``dev_t0_ns`` and ``dev_t1_ns``, so a reader holding the old
+        dict sees it whole."""
+        with self._lock:
+            event.attrs = dict(event.attrs, dev_t0_ns=dev_t0_ns, dev_t1_ns=dev_t1_ns)
 
     def note_mixed_step(self, request_id: str, take: int, bucket: int,
                         dispatch_s: float) -> None:
@@ -316,7 +339,8 @@ class FlightRecorder:
 
     def note_decode_chunk(self, chunk: int, dispatch_s: float,
                           sync_s: float, active: int,
-                          drained: bool = False) -> None:
+                          drained: bool = False,
+                          timeline: Optional[dict] = None) -> None:
         """One decode chunk fully processed: the host wall split between
         DISPATCH (async program submit) and SYNC (waiting on outputs) —
         the roofline evidence, now per chunk instead of only cumulative.
@@ -324,11 +348,17 @@ class FlightRecorder:
         (engine/devloop.py): sync_s is then only the residual wait the
         dispatch path paid, and the real link time was already observed
         into sync_us by ``note_ring_drain`` — skipping the observation
-        here keeps the dispatch/sync split honest under async drain."""
-        self._record("decode_chunk", "", {
+        here keeps the dispatch/sync split honest under async drain.
+        ``timeline``, when given, adds the chunk's device interval on the
+        wall clock (``dev_t0_ns``, ``dev_t1_ns``), the steps that ran
+        (``steps_ran``) and each region's ns (``attn_ns`` ...)."""
+        attrs = {
             "chunk": chunk, "dispatch_s": dispatch_s,
             "sync_s": sync_s, "active": active, "drained": drained,
-        })
+        }
+        if timeline:
+            attrs.update(timeline)
+        self._record("decode_chunk", "", attrs)
         self.hist["dispatch_us"].observe(dispatch_s * 1e6)
         if not drained:
             self.hist["sync_us"].observe(sync_s * 1e6)
@@ -533,12 +563,20 @@ def to_chrome_trace(events: list) -> dict:
     prefill pieces, offload/restore, failover/resubmit markers); each
     request gets its own named thread row with ``queue`` → ``placement``
     → ``decode`` complete events reconstructed from its lifecycle
-    events, and an instant at the terminal carrying the breakdown."""
+    events, and an instant at the terminal carrying the breakdown. An
+    event with a device interval (``dev_t0_ns``, ``dev_t1_ns``: wall-clock
+    ns) is drawn again on the "device" row, ``DEVICE_TID``, moved onto
+    the host rows' monotonic base by the event's own wall-minus-mono
+    offset, with its region split in its args."""
     evs = [e.to_dict() if isinstance(e, FlightEvent) else dict(e)
            for e in events]
     evs.sort(key=lambda e: e["seq"])
     if not evs:
         return {"traceEvents": []}
+
+    def device_mono(e: dict, key: str) -> float:
+        return e["attrs"][key] * 1e-9 - (e["ts"] - e["mono"])
+
     # Duration events are recorded at their END (mono) — the head of a
     # ring-overwritten dump can be one, and its computed START must not
     # land at a negative ts. Base on the earliest computed start.
@@ -552,7 +590,10 @@ def to_chrome_trace(events: list) -> dict:
             # longest durations in any cold-start or scale-down dump,
             # so the base must account for them.
             return e["mono"] - attrs.get("seconds", 0.0)
-        return e["mono"] - attrs.get("dispatch_s", 0.0) - attrs.get("sync_s", 0.0)
+        host = e["mono"] - attrs.get("dispatch_s", 0.0) - attrs.get("sync_s", 0.0)
+        if "dev_t0_ns" in attrs:
+            return min(host, device_mono(e, "dev_t0_ns"))
+        return host
 
     base = min(start_of(e) for e in evs)
 
@@ -567,6 +608,7 @@ def to_chrome_trace(events: list) -> dict:
     ]
     tids: dict[str, int] = {}
     per_req: dict[str, dict[str, dict]] = {}
+    device_row: list[dict] = []
 
     def tid_for(rid: str) -> int:
         if rid not in tids:
@@ -577,6 +619,13 @@ def to_chrome_trace(events: list) -> dict:
 
     for e in evs:
         kind, rid, attrs = e["kind"], e["request_id"], e.get("attrs", {})
+        if "dev_t0_ns" in attrs:
+            t0 = device_mono(e, "dev_t0_ns")
+            device_row.append({
+                "ph": "X", "pid": 1, "tid": DEVICE_TID, "name": kind, "ts": us(t0),
+                "dur": round((device_mono(e, "dev_t1_ns") - t0) * 1e6, 1),
+                "args": {k: v for k, v in attrs.items() if k not in ("dev_t0_ns", "dev_t1_ns")},
+            })
         if kind in ("decode_chunk", "mixed_step", "prefill_piece",
                     "spec_verify"):
             dur = attrs.get("dispatch_s", 0.0) + attrs.get("sync_s", 0.0)
@@ -602,6 +651,11 @@ def to_chrome_trace(events: list) -> dict:
         elif rid:
             per_req.setdefault(rid, {})[kind] = e
 
+    if device_row:
+        out += [{"ph": "M", "pid": 1, "tid": DEVICE_TID, "name": "thread_name",
+                 "args": {"name": "device"}},
+                {"ph": "M", "pid": 1, "tid": DEVICE_TID, "name": "thread_sort_index",
+                 "args": {"sort_index": -1}}] + device_row
     for rid, stages in per_req.items():
         tid = tid_for(rid)
         sub, claim = stages.get("submit"), stages.get("claim")

@@ -68,6 +68,14 @@ fails raises.
   first capture loads the kernels, sizes the decode-attention scratch,
   gives cuBLAS its workspace outside any pool and makes the captured
   collectives' NCCL communicators.
+- **Region stamps** (the engine's timeline, with the flight recorder
+  on; ``utils/timeline.py``). The chunks are captured with the timeline's
+  recorder set, so each step's stamps (one-thread kernels of
+  ``csrc/stamps.cu``) are kernel nodes of its IF body, writing row i of
+  the chunk's own stamp buffer, which a memset node at the graph's head
+  zeroes: a skipped step leaves its row zero. The warm step runs them
+  once eagerly, into a scratch buffer. Without the timeline the graphs
+  hold none of these nodes.
 - **Output.** A replay leaves the chunk's tokens in the graph's output
   buffer, which the next replay of that graph overwrites: the caller
   enqueues the copy to the host right after the replay (``_InflightChunk``).
@@ -90,6 +98,7 @@ import torch
 from omnia_tpu_torch import kernels
 from omnia_tpu_torch.ops import decode_attention
 from omnia_tpu_torch.parallel.collectives import all_reduce_max
+from omnia_tpu_torch.utils.timeline import recording
 
 _SOURCE = "graph_cond"
 _STREAMS: dict[int, tuple] = {}
@@ -142,10 +151,11 @@ class RingGraphs:
     top_p, top_k, g = () or (gtable, gactive), geos-or-None); ``comms``
     the Comms by axis name that ``step`` runs its collectives on (the
     engine's ``capture_comms``; their counts give ``step_collectives``),
-    "dp" among them for the predicate's OR."""
+    "dp" among them for the predicate's OR; ``timeline`` the engine's
+    ``Timeline``, whose region stamps the steps then carry, or None."""
 
     def __init__(self, step: Callable, state: tuple, inputs: dict, device: torch.device,
-                 comms: Optional[dict] = None):
+                 comms: Optional[dict] = None, timeline=None):
         self._step = step
         self._state = state
         self._inputs = inputs
@@ -167,6 +177,7 @@ class RingGraphs:
         # and the body's (the steps that run). Replays are not in the
         # Comms' own counts.
         self.step_collectives: dict = {}
+        self._timeline = timeline
         self._warm = False
 
     def _tallies(self) -> dict:
@@ -214,7 +225,7 @@ class RingGraphs:
         saved = [t.clone() for t in fixed]
         toks = torch.empty((1, self.num_slots), dtype=torch.int32, device=self.device)
         body_stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(body_stream):
+        with torch.cuda.stream(body_stream), recording(self._new_stamps(1)):
             self._predicate()
             self._body(toks[0])
         torch.cuda.current_stream(self.device).wait_stream(body_stream)
@@ -222,6 +233,10 @@ class RingGraphs:
             t.copy_(v)
         torch.cuda.synchronize(self.device)
         self._warm = True
+
+    def _new_stamps(self, k: int):
+        """A fresh stamp buffer of ``k`` steps, or None without the timeline."""
+        return None if self._timeline is None else self._timeline.stamps_for(k)
 
     def capture(self, k: int) -> None:
         """Capture (again) the chunk of ``k`` steps."""
@@ -235,6 +250,7 @@ class RingGraphs:
         toks = torch.empty((k, self.num_slots), dtype=torch.int32, device=self.device)
         tokens = self._state[0]
         flags = []   # the predicates' buffers, held while the graph lives
+        stamps = self._new_stamps(k)
         # An engine freed by the cycle collector mid-capture would free
         # device memory, which a capturing thread may not: collect now and
         # hold the collector off until the capture ends. The capture
@@ -248,7 +264,9 @@ class RingGraphs:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=cap,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), recording(stamps):
+                if stamps is not None:
+                    stamps.data.zero_()
                 for i in range(k):
                     toks[i].copy_(tokens)
                     before = self._tallies()
@@ -271,7 +289,13 @@ class RingGraphs:
         torch.cuda.synchronize(self.device)
         self.capture_s[k] = time.monotonic() - t0
         self.pool_bytes[k] = torch.cuda.memory_reserved(self.device) - reserved
-        self._graphs[k] = (graph, toks, decode_attention.scratch_buffer(self.device), flags)
+        self._graphs[k] = (graph, toks, decode_attention.scratch_buffer(self.device), flags,
+                           stamps)
+
+    def stamps(self, k: int):
+        """The chunk of ``k`` steps' stamp buffer (``Stamps``), which each
+        replay writes; None without the timeline."""
+        return self._graphs[k][4]
 
     def replay(self, k: int, dl_steps: np.ndarray) -> torch.Tensor:
         """Enqueue the chunk of ``k`` steps with the deadline-step budget

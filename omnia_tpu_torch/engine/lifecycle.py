@@ -32,6 +32,8 @@ class _LifecycleMixin:
             return
         with self._lock:
             self._draining = False
+        if self._timeline is not None:
+            self._timeline.anchor()
         self._stop_event.clear()
         self._thread = threading.Thread(
             target=self._loop, name="omnia-torch-engine", daemon=True
@@ -112,6 +114,8 @@ class _LifecycleMixin:
         # the caching host allocator records an event for each
         # non-blocking copy and reuses no block before it completes.
         self._inflight.clear()
+        if self._timeline is not None:
+            self._timeline.reset()
         # Device-resident session rows die with the caches; host-paged
         # sessions keep theirs.
         for sess in self._sessions.values():

@@ -48,6 +48,24 @@ class _PlacementMixin:
             return make_slot_key_data(sp.seed, self.device)
         return self._key_data[self._dp.local(slot_idx)]
 
+    def _program_start(self):
+        """A mark on the device's timeline before a prefill, extend or
+        insert program is enqueued (``utils/timeline.py``); None with the
+        flight recorder off."""
+        return self._timeline.mark() if self._timeline is not None else None
+
+    def _note_piece(self, rid: str, take: int, bucket: int, t0: float, start) -> None:
+        """A placement program enqueued since ``t0`` (host) and ``start``
+        (its mark, None where this shard ran none): its flight event, and
+        its event pair, which the timeline resolves once it has run."""
+        if self._flight is None:
+            return
+        event = None
+        if rid:
+            event = self._flight.note_prefill_piece(rid, take, bucket, time.monotonic() - t0)
+        if start is not None:
+            self._timeline.program(start, event)
+
     def _scalar(self, value, dtype) -> torch.Tensor:
         return torch.tensor([value], dtype=dtype, device=self.device)
 
@@ -286,15 +304,14 @@ class _PlacementMixin:
             last, k_chunk, v_chunk = self._prefill_ring_fn(self.params, toks_d, pos_d, n - 1)
             first_tok = self._run_insert(k_chunk, v_chunk, slot_idx, last, sp, request)
             return self._first_token(first_tok, slot_idx)
-        t0 = time.monotonic()
+        t0, start = time.monotonic(), self._program_start()
         first_tok, new_kd = self._prefill_insert_fn(
             self.params, self._ck, self._cv, toks_d, pos_d,
             li, n - 1, *self._sampler_args(slot_idx, sp),
             *self._grammar_args(request, sp),
         )
-        if self._flight is not None and request is not None:
-            self._flight.note_prefill_piece(request.request_id, n, bucket,
-                                            time.monotonic() - t0)
+        self._note_piece(request.request_id if request is not None else "", n, bucket, t0,
+                         start)
         self._key_data[li] = new_kd
         return self._first_token(first_tok, slot_idx)
 
@@ -352,21 +369,21 @@ class _PlacementMixin:
         li = self._dp.local(slot_idx)
         for off, take, b in pieces[:-1]:
             args = self._piece_args(slot_idx, prompt, off, take, b)
-            t0 = time.monotonic()
+            t0, start = time.monotonic(), None
             if li is not None:
+                start = self._program_start()
                 self._extend_nosample_fn(*args)
-            if self._flight is not None and rid:
-                self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
+            self._note_piece(rid, take, b, t0, start)
         off, take, b = pieces[-1]
         args = self._piece_args(slot_idx, prompt, off, take, b)
-        t0 = time.monotonic()
+        t0, start = time.monotonic(), None
         first_tok = None
         if li is not None:
+            start = self._program_start()
             first_tok, new_kd = self._extend_fn(*args, take - 1,
                                                 *self._sampler_args(slot_idx, sp),
                                                 *self._grammar_args(request, sp))
             self._key_data[li] = new_kd
-        if self._flight is not None and rid:
-            self._flight.note_prefill_piece(rid, take, b, time.monotonic() - t0)
+        self._note_piece(rid, take, b, t0, start)
         self.metrics["extend_steps"] += len(pieces)
         return self._first_token(first_tok, slot_idx)

@@ -110,6 +110,7 @@ from omnia_tpu_torch.models import paged_kv as pkv
 from omnia_tpu_torch.models.paged_kv import PagedKV, gather_rows, put_chunk
 from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
 from omnia_tpu_torch.parallel.collectives import all_reduce_max
+from omnia_tpu_torch.utils.timeline import stamp
 
 
 def _grammar_rows(gtable, gstate):
@@ -160,6 +161,8 @@ def make_step(cfg: ModelConfig, max_seq: int, tp=None, dp=None) -> Callable:
             gstate = torch.where(gactive & active, nxt.clamp_min(0), gstate)
         else:
             tok, key_data = sample_tokens_per_slot(logits, key_data, temp, top_p, top_k)
+        # The head's region (utils/timeline.py) ends with the sampler.
+        stamp("end")
         # The row just written advances the position only for slots active
         # at the step's start; deactivation applies from the next step on,
         # as the host's finish bookkeeping does.

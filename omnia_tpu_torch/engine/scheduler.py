@@ -49,6 +49,7 @@ import torch
 from omnia_tpu_torch.engine.faults import WatchdogTimeout
 from omnia_tpu_torch.engine.graphs import NO_DEADLINE
 from omnia_tpu_torch.engine.types import FinishReason, SamplingParams, StreamEvent
+from omnia_tpu_torch.utils.timeline import recording
 
 
 class _InflightChunk:
@@ -58,22 +59,28 @@ class _InflightChunk:
     ``dispatch_s`` the host's enqueue wall. Ring extras: ``dl_steps``
     mirrors the deadline-step budget the chunk was given (the host must
     finish a slot at the step the device masked it) and ``entry`` the
-    drainer's handle when the read started at dispatch."""
+    drainer's handle when the read started at dispatch. ``timing`` is the
+    decode chunk's event pair and stamps with the flight recorder on
+    (``utils/timeline.py``): its stamps' copy rides the tokens' event."""
 
-    __slots__ = ("toks", "host", "event", "active", "dispatch_s", "dl_steps", "entry")
+    __slots__ = ("toks", "host", "event", "active", "dispatch_s", "dl_steps", "entry",
+                 "timing")
 
     def __init__(self, toks: torch.Tensor, active: list, dispatch_s: float,
-                 dl_steps: Optional[np.ndarray] = None):
+                 dl_steps: Optional[np.ndarray] = None, timing=None):
         self.toks = toks
         self.active = active
         self.dispatch_s = dispatch_s
         self.dl_steps = dl_steps
+        self.timing = timing
         self.entry = None
         self.host: Optional[torch.Tensor] = None
         self.event = None
         if toks.is_cuda:
             self.host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
             self.host.copy_(toks, non_blocking=True)
+            if timing is not None:
+                timing.copy_out()
             self.event = torch.cuda.Event()
             self.event.record()
 
@@ -373,6 +380,12 @@ class _SchedulerMixin:
         graphs = self._ring()
         if dl_steps is not None:
             dl_steps = dl_steps[self._dp.lo:self._dp.hi]    # this shard's slots
+        tl, timing = self._timeline, None
+        if tl is not None:
+            # The stamps land in the graph's own buffer, or in a fresh one
+            # for the eager chunk.
+            timing = tl.begin_chunk(graphs.stamps(chunk) if graphs is not None
+                                    else tl.stamps_for(chunk))
         if graphs is not None:
             toks = self._dp.gather(graphs.replay(chunk, dl_steps), dim=1)
         else:
@@ -380,17 +393,20 @@ class _SchedulerMixin:
             if self.cfg.decode_ring > 0:
                 ring_args = (((self._geos,) if self._gr_on else ())
                              + (torch.from_numpy(dl_steps).to(self.device),))
-            out = self._decode_fns[chunk](
-                self.params, self._ck, self._cv, self._tokens, self._positions,
-                self._active, self._budget, self._stop_ids, self._key_data,
-                self._temp, self._top_p, self._top_k,
-                *((self._gstate, self._gtable, self._gactive) if self._gr_on else ()),
-                *ring_args,
-            )
+            with recording(timing.stamps if timing is not None else None):
+                out = self._decode_fns[chunk](
+                    self.params, self._ck, self._cv, self._tokens, self._positions,
+                    self._active, self._budget, self._stop_ids, self._key_data,
+                    self._temp, self._top_p, self._top_k,
+                    *((self._gstate, self._gtable, self._gactive) if self._gr_on else ()),
+                    *ring_args,
+                )
             # The ring's deadline carry (before toks) is dropped: the next
             # dispatch computes the budget afresh.
             self._adopt_decode_state(out)
             toks = self._dp.gather(out[-1], dim=1)
+        if timing is not None:
+            tl.end_chunk(timing, toks)
         self.metrics["decode_dispatch_s"] += time.monotonic() - t_dispatch
         self.metrics["decode_steps"] += int(toks.shape[0])
         return toks
@@ -462,7 +478,8 @@ class _SchedulerMixin:
         drain engaged the read starts now on the drainer thread, and a
         ring already holding ``capacity`` unread chunks processes its
         oldest first (ring_full_stalls)."""
-        ch = _InflightChunk(toks, active, dispatch_s, dl_steps)
+        timing = self._timeline.take(toks) if self._timeline is not None else None
+        ch = _InflightChunk(toks, active, dispatch_s, dl_steps, timing)
         dv = self._devloop
         if dv is not None and dv.async_engaged(self.clock is time.monotonic):
             if len(self._inflight) >= dv.capacity:
@@ -494,8 +511,11 @@ class _SchedulerMixin:
             # The realized per-step wall feeds the deadline-step EMA.
             dv.observe_step_time((ch.dispatch_s + sync_s) / K)
         if self._flight is not None:
+            timeline = None
+            if ch.timing is not None:
+                timeline = self._timeline.resolve(ch.timing, self.metrics)
             self._flight.note_decode_chunk(K, ch.dispatch_s, sync_s, len(ch.active),
-                                           drained=drained)
+                                           drained=drained, timeline=timeline)
         for k in range(K):
             stepped = False
             for i, rid in ch.active:
@@ -519,6 +539,9 @@ class _SchedulerMixin:
                 if ch.dl_steps is not None:
                     self.metrics["early_exit_steps"] += K - k
                 break
+        if (self._timeline is not None and not self._inflight
+                and not any(s.active for s in self._slots)):
+            self._timeline.idle()
         if dv is not None and dv.gate is not None and self.clock is time.monotonic:
             # One gate tick per processed chunk; skipped under an injected
             # clock, where a wall-clock decision could diverge replicas.

@@ -368,6 +368,8 @@ class _WarmupMixin:
         # The ring's graphs pointed at the state just freed: capture them
         # again on the new one, so that no request pays for it.
         self._ring()
+        if self._timeline is not None:
+            self._timeline.anchor()
         self.metrics.update(metrics_before)
         restore_s = cs.end_phase("warmup_restore")
         cs.mark_ready()

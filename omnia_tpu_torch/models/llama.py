@@ -78,6 +78,7 @@ from omnia_tpu_torch.ops.norms import rms_norm
 from omnia_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from omnia_tpu_torch.parallel.collectives import Comm, all_gather, all_reduce_sum, copy_in
 from omnia_tpu_torch.parallel.sharding import P, shard_leaf
+from omnia_tpu_torch.utils.timeline import stamp
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +329,10 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
     The head counts are the local weights' (this rank's heads under tp).
     ``attn_fn(q, k, v, q_positions)`` replaces the attention op (the sp
     ring attention's prefill). ``dp``: x is one dp shard's rows (the MoE
-    layer's whole-batch dispatch)."""
+    layer's whole-batch dispatch). The decode step's timeline
+    (``utils/timeline.py``) stamps the start of its two regions here."""
     B, T, _ = x.shape
+    stamp("attn")
     h = copy_in(rms_norm(x, p["ln1"], cfg.rms_norm_eps), tp)
     q = qdot(h, p["attn"]["wq"]).reshape(B, T, -1, cfg.head_dim)
     k = qdot(h, p["attn"]["wk"]).reshape(B, T, -1, cfg.head_dim)
@@ -344,6 +347,7 @@ def _layer(x, p, cfg: ModelConfig, cos, sin, q_positions, ck, cv, write_index,
         ck_eff, cv_eff = ck, cv
     attn = (attn_fn or gqa_attention)(q, ck_eff, cv_eff, q_positions)
     x = x + qdot(attn.reshape(B, T, -1), p["attn"]["wo"], tp)
+    stamp("ffn")
     h2 = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     if cfg.is_moe:
         x = x + _moe_mlp(h2, p["mlp"], cfg, tp, dp)
@@ -485,6 +489,7 @@ def forward(params, cfg: ModelConfig, tokens, q_positions, cache_k, cache_v,
         x, _, _ = _layer(x, p, cfg, cos, sin, q_positions,
                          _layer_cache(cache_k, i), _layer_cache(cache_v, i), index, tp,
                          dp=dp)
+    stamp("head")
     return _logits(params, cfg, x, tp), cache_k, cache_v
 
 

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from omnia_tpu_torch.parallel.collectives import Comm, all_reduce_sum, batch_rows, copy_in
+from omnia_tpu_torch.utils.timeline import stamp
 
 
 def route_sparse(h: torch.Tensor, router_w: torch.Tensor, num_experts_per_tok: int):
@@ -80,10 +81,14 @@ def route_topk(h: torch.Tensor, router_w: torch.Tensor, num_experts_per_tok: int
 
 
 def _experts(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Each expert's SwiGLU MLP on its own rows: x [E or 1, M, d] → [E, M, d]."""
+    """Each expert's SwiGLU MLP on its own rows: x [E or 1, M, d] → [E, M, d].
+    The decode step's timeline (``utils/timeline.py``) stamps its region."""
+    stamp("experts")
     gate = torch.matmul(x, p["wg"])
     up = torch.matmul(x, p["wu"])
-    return torch.matmul(F.silu(gate) * up, p["wd"])
+    out = torch.matmul(F.silu(gate) * up, p["wd"])
+    stamp("route")
+    return out
 
 
 def _local_experts(p: dict, comm: Optional[Comm]) -> tuple[int, int]:

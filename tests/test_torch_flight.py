@@ -38,6 +38,7 @@ from omnia_tpu_torch.engine import flight as tflight
 from omnia_tpu_torch.models import get_config
 from omnia_tpu_torch.models.convert import params_from_jax
 from omnia_tpu_torch.utils import metrics as tmetrics
+from omnia_tpu_torch.utils import timeline
 
 # Engine fields of the workload: 4 slots, so the burst leaves decoders
 # live when the interleaved arrival lands; pieces of 4 tokens; a verify
@@ -60,6 +61,9 @@ STOP = (0,)   # byte 0 is never admissible in the grammar: it plays EOS
 JAX_ONLY_KINDS = {"ring_drain"}
 # Attributes that are times (or carry them); everything else must match.
 TIMED = {"dispatch_s", "sync_s", "prefill_s", "seconds"}
+# The port's device timeline on decode chunks and prefill pieces
+# (utils/timeline.py), which the JAX engine does not keep.
+DEVICE_TIMELINE = {"dev_t0_ns", "dev_t1_ns", "steps_ran"} | {f"{r}_ns" for r in timeline.REGIONS}
 # The stages tile the wall within 5%, plus 20 ms for the host's
 # bookkeeping between stage boundaries (the JAX package's own bound).
 TILE_REL, TILE_ABS = 0.05, 0.02
@@ -237,7 +241,7 @@ def _workload(engine, sp_cls, grammar) -> dict:
 
 
 def _time_free(attrs: dict) -> dict:
-    out = {k: v for k, v in attrs.items() if k not in TIMED}
+    out = {k: v for k, v in attrs.items() if k not in TIMED | DEVICE_TIMELINE}
     if "breakdown" in out:
         bd = out.pop("breakdown")
         out["tokens"], out["stall_steps"] = bd["tokens"], bd["stall_steps"]
@@ -334,11 +338,18 @@ def test_engine_span_joins_the_callers_trace(tparams):
     root.end()
 
 
-def test_flight_off_is_a_true_noop(tparams):
+def test_flight_off_is_a_true_noop(tparams, monkeypatch):
     """flight_events=0: no recorder, flight_enabled 0, no thread, the
     same greedy tokens as a recorder-on engine, and a trace_ctx is taken
-    and opens no span."""
+    and opens no span. No device timeline either: no stamp is made, no
+    timing event, and every timeline counter stays 0, where the
+    recorder-on engine's count its decode steps."""
     fields = dict(num_slots=2, max_seq=64, prefill_buckets=(8, 16), dtype="float32")
+    made = []
+    stamp, mark = timeline.Stamps.stamp, timeline.Timeline.mark
+    monkeypatch.setattr(timeline.Stamps, "stamp",
+                        lambda self, label: made.append(label) or stamp(self, label))
+    monkeypatch.setattr(timeline.Timeline, "mark", lambda self: made.append("mark") or mark(self))
     threads = set(threading.enumerate())
     off = InferenceEngine(get_config("test-tiny"), EngineConfig(**fields), params=tparams,
                           seed=0, device="cpu")
@@ -349,8 +360,12 @@ def test_flight_off_is_a_true_noop(tparams):
     tracer = tr.Tracer("off")
     off.tracer = tracer
     sp = SamplingParams(temperature=0.0, max_tokens=6)
+    built = len(made)      # the recorder-on engine's anchor
     h = off.submit([4, 5, 6], sp, trace_ctx=tr.Tracer("up").start_span("llm").traceparent())
     _drain(off)
+    assert off._timeline is None and len(made) == built
+    assert all(off.metrics[k] == 0 for k in timeline.TIMELINE_KEYS)
     assert h.collect_tokens(timeout=30)[0] == on.generate([4, 5, 6], sp)[0]
+    assert len(made) > built and on.metrics["decode_timed_steps"] == on.metrics["decode_steps"] > 0
     assert tracer.spans(tr.SPAN_ENGINE) == []
     assert set(threading.enumerate()) == threads

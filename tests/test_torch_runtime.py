@@ -45,6 +45,7 @@ from omnia_tpu_torch.engine.coldstart import PHASE_CODES
 from omnia_tpu_torch.models import get_config
 from omnia_tpu_torch.models.convert import params_from_jax
 from omnia_tpu_torch.runtime.providers import build_engine
+from omnia_tpu_torch.utils.timeline import TIMELINE_KEYS
 
 VOCAB = 259   # ByteTokenizer: 256 bytes, BOS, EOS, PAD
 TOK = ByteTokenizer()
@@ -389,5 +390,5 @@ def test_bind_engine_metrics_exposes_the_port_histograms(tparams):
 def test_metric_keys_equal_jax_but_the_ring(jparams, tparams, fields):
     jkeys = set(_jax_engine(jparams, **fields).metrics)
     tkeys = set(_port_engine(tparams, **fields).metrics)
-    assert tkeys == jkeys
+    assert tkeys == jkeys | TIMELINE_KEYS
     assert RING_KEYS <= tkeys
