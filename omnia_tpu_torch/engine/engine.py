@@ -95,6 +95,7 @@ from omnia_tpu_torch.engine.paged import (
 from omnia_tpu_torch.engine.grammar import stats as grammar_cache_stats
 from omnia_tpu_torch.engine.graphs import RingGraphs
 from omnia_tpu_torch.engine.placement import _PlacementMixin
+from omnia_tpu_torch.engine.prefill_graphs import PrefillGraphs
 from omnia_tpu_torch.engine.prefix_cache import PrefixPool, _PrefixCacheMixin
 from omnia_tpu_torch.engine.programs import build_programs, make_step
 from omnia_tpu_torch.engine.scheduler import _SchedulerMixin
@@ -263,7 +264,10 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         self._fault_plan: Optional[FaultPlan] = None
 
         progs = build_programs(model_cfg, engine_cfg, self._tp, self._sp, dp_comm)
-        self._prefill_insert_fn = progs.prefill_insert
+        # The fresh prefill; placement and warmup call it through
+        # _prefill_insert_fn, which replays its captured graph where one
+        # serves (prefill_graphs.py).
+        self._prefill_program = progs.prefill_insert
         # The ring prefill and its insert (sp > 1, else None).
         self._prefill_ring_fn = progs.prefill_ring
         self._insert_fn = progs.insert
@@ -274,6 +278,9 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         # on, made by _ring where first needed on the current state; None
         # otherwise, and again whenever _init_device_state frees that state.
         self._ring_graphs: Optional[RingGraphs] = None
+        # The captured fresh prefills, one per bucket (prefill_graphs.py):
+        # made by _prefill_graphs where they engage, freed with the ring's.
+        self._fresh_graphs: Optional[PrefillGraphs] = None
         self._extend_fn = progs.extend
         self._extend_nosample_fn = progs.extend_nosample
         self._offload_fn = progs.offload
@@ -352,6 +359,9 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             "decode_dispatch_s": 0.0,
             "decode_sync_s": 0.0,
             "prefill_dispatch_s": 0.0,
+            # Fresh prefills served by replaying a captured graph
+            # (prefill_graphs.py); this package's own.
+            "prefill_graph_replays": 0,
             # The decode step's device timeline (utils/timeline.py), added
             # at each chunk's read; 0 with the flight recorder off.
             **dict.fromkeys(sorted(TIMELINE_KEYS), 0),
@@ -491,11 +501,11 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
         """(Re)allocate the KV caches (and the page books) and per-slot
         device state, at this dp shard's slots (all of them at dp = 1)."""
         B, dev = self._dp.per, self.device
-        if self._ring_graphs is not None:
+        if self._ring_graphs is not None or self._fresh_graphs is not None:
             # The old graphs point at the state about to be freed: let
             # their last replay finish, then drop them.
             torch.cuda.synchronize(dev)
-            self._ring_graphs = None
+            self._ring_graphs = self._fresh_graphs = None
         # Free the old caches and tables before allocating.
         self._ck = self._cv = self._pk = self._pv = self._gtable = None
         if self.cfg.kv_pages > 0:
@@ -582,6 +592,31 @@ class InferenceEngine(_SchedulerMixin, _InterleaveMixin, _SpecDecodeMixin, _Sess
             graphs.capture(chunk)
         self._ring_graphs = graphs
         return graphs
+
+    def _prefill_graphs_engage(self) -> bool:
+        """Whether fresh prefills replay captured graphs: on the card with
+        the ring on, on one rank (no tp, dp or sp communicator), over a
+        contiguous cache."""
+        return (self.cfg.decode_ring > 0 and self.device.type == "cuda"
+                and self._mesh is None and self.cfg.kv_pages == 0)
+
+    def _prefill_graphs(self) -> Optional[PrefillGraphs]:
+        """The card's captured fresh prefills over the current state
+        (prefill_graphs.py), every usable bucket captured at first need;
+        None where they do not engage. No fallback: a failed capture
+        raises."""
+        if not self._prefill_graphs_engage():
+            return None
+        if self._fresh_graphs is None:
+            sp = SamplingParams()
+            graphs = PrefillGraphs(
+                self._prefill_program, self.params, self._ck, self._cv, self.device,
+                self._sampler_args(0, sp) + self._grammar_args(None, sp))
+            graphs.capture(self.cfg.usable_buckets(), lambda rows: llama.init_kv_cache(
+                self.model_cfg, 1, rows, self.device, dtype=self._dtype,
+                kv_quant=self._kv_quant))
+            self._fresh_graphs = graphs
+        return self._fresh_graphs
 
     def _kernel_edition(self) -> str:
         """The decode-attention edition of this engine's cache."""

@@ -9,7 +9,9 @@ The engine captures them all at once, on its current state, where it
 first needs them (``_ring``): at warmup's first decode task and again at
 the end of its restore, at a recovery, or at the first dispatch of an
 engine that was never warmed. There is no eager fallback: a capture that
-fails raises.
+fails raises. The engine's other capture site is the fresh prefill's
+(``prefill_graphs.py``, ``_prefill_graphs``), whose graphs live and die
+beside these, in a memory pool of their own.
 
 - **Fixed buffers.** A graph reads and writes the engine's own state
   tensors in place: tokens, positions, active, budget, key_data and

@@ -124,11 +124,12 @@ class _LifecycleMixin:
                 sess.slot = None
                 sess.token_ids = []
         try:
-            # On the card with the ring on the captured chunks die with the
-            # state and are captured again on the new one; a poisoned
-            # drainer is replaced at the next read (devloop.py).
+            # On the card with the ring on the captured chunks and prefills
+            # die with the state and are captured again on the new one; a
+            # poisoned drainer is replaced at the next read (devloop.py).
             self._init_device_state()
             self._ring()
+            self._prefill_graphs()
             self.metrics["recoveries"] += 1
             self._healthy = self._stream_ran_recovery()
         except Exception:

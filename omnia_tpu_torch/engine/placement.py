@@ -13,6 +13,13 @@ broadcast over dp (``dataparallel.py``). A fresh prompt whose bucket
 reaches ``long_prefill_threshold`` (and splits over sp) prefills as the
 ring (``prefill_ring`` then ``insert``).
 
+A fresh prefill goes through ``_prefill_insert_fn``, which replays the
+bucket's captured graph where the engine's prefill graphs engage (on the
+card with the decode ring on, one rank, a contiguous cache:
+``prefill_graphs.py``) and runs the eager ``prefill_insert`` elsewhere.
+An engine never warmed captures them at its first fresh prefill, before
+the program's mark on the timeline. Extend pieces stay eager.
+
 Grammars are duck-typed: one compiled by this package or by the JAX
 package serves alike, since placement reads only ``view``, ``key`` and
 ``eos_id`` and a view's ``table``, ``start``, ``advance`` and
@@ -65,6 +72,20 @@ class _PlacementMixin:
             event = self._flight.note_prefill_piece(rid, take, bucket, time.monotonic() - t0)
         if start is not None:
             self._timeline.program(start, event)
+
+    def _prefill_insert_fn(self, params, ck, cv, tokens, positions, slot: int, last_idx: int,
+                           *sampler):
+        """``programs.prefill_insert`` (its signature and result): a replay
+        of the bucket's captured graph where the engine's prefill graphs
+        serve this call's bucket and state (``prefill_graphs.py``), else
+        the eager program: on any other state (warmup's tasks run before
+        the capture), and on engines where the graphs do not engage."""
+        graphs = self._fresh_graphs
+        if graphs is not None and graphs.serves(params, ck, cv, tokens.shape[1]):
+            self.metrics["prefill_graph_replays"] += 1
+            return graphs.replay(tokens, positions, slot, last_idx, *sampler)
+        return self._prefill_program(params, ck, cv, tokens, positions, slot, last_idx,
+                                     *sampler)
 
     def _scalar(self, value, dtype) -> torch.Tensor:
         return torch.tensor([value], dtype=dtype, device=self.device)
@@ -304,6 +325,9 @@ class _PlacementMixin:
             last, k_chunk, v_chunk = self._prefill_ring_fn(self.params, toks_d, pos_d, n - 1)
             first_tok = self._run_insert(k_chunk, v_chunk, slot_idx, last, sp, request)
             return self._first_token(first_tok, slot_idx)
+        # An engine never warmed captures its prefill graphs here, before
+        # the program's mark.
+        self._prefill_graphs()
         t0, start = time.monotonic(), self._program_start()
         first_tok, new_kd = self._prefill_insert_fn(
             self.params, self._ck, self._cv, toks_d, pos_d,

@@ -7,7 +7,9 @@
   them), then the first token sampled from the last real position. An
   int8 cache quantizes the chunk as it is written; a paged cache writes
   it through the slot's table row, which placement has made cover the
-  bucket.
+  bucket. On the card with the decode ring on, one rank and a contiguous
+  cache, the engine replays it as one captured CUDA graph per bucket,
+  whose slot and last row are device indices (``prefill_graphs.py``).
 - ``decode_fns[k]``: ``k`` decode steps enqueued back to back. JAX's
   ``lax.scan`` becomes a Python loop over device tensors: no host sync
   inside a chunk, and stop-token / budget finishes are masked on the
@@ -105,7 +107,7 @@ import torch
 
 from omnia_tpu_torch.engine.types import EngineConfig
 from omnia_tpu_torch.models import ModelConfig, llama
-from omnia_tpu_torch.models.kv_quant import cache_put, cache_take, kv_map
+from omnia_tpu_torch.models.kv_quant import cache_put, cache_put_slot, cache_take, kv_map
 from omnia_tpu_torch.models import paged_kv as pkv
 from omnia_tpu_torch.models.paged_kv import PagedKV, gather_rows, put_chunk
 from omnia_tpu_torch.ops.sampling import _NEG_INF, sample_tokens_per_slot
@@ -252,15 +254,24 @@ def build_programs(cfg: ModelConfig, ecfg: EngineConfig, tp=None, sp=None,
                                              mask_bias=g[0][None] if g else None)
         return tok[0], new_kd[0]
 
-    def prefill_insert(params, ck, cv, tokens, positions, slot: int,
-                       last_idx: int, key_data, temp, top_p, top_k, *g):
+    def prefill_insert(params, ck, cv, tokens, positions, slot, last_idx, key_data, temp,
+                       top_p, top_k, *g):
         """tokens, positions [1, bucket]; key_data [2]; temp, top_p,
         top_k [1]; g the grammar bias, if any → (first token 0-d int32,
-        new key_data [2])."""
+        new key_data [2]). ``slot`` and ``last_idx`` are ints, or on a
+        contiguous cache device indices (int64 [1]), which the captured
+        prefill reads at each replay (``prefill_graphs.py``): the same
+        rows written, the same row's logits sampled."""
         logits, k_chunk, v_chunk = llama.forward_prefill(params, cfg, tokens, positions, tp)
-        _put(ck, k_chunk, slot, 0)
-        _put(cv, v_chunk, slot, 0)
-        return _sample_one(logits[:, last_idx], key_data, temp, top_p, top_k, g)
+        if torch.is_tensor(slot):
+            cache_put_slot(ck, k_chunk, slot)
+            cache_put_slot(cv, v_chunk, slot)
+            last = logits.index_select(1, last_idx)[:, 0]
+        else:
+            _put(ck, k_chunk, slot, 0)
+            _put(cv, v_chunk, slot, 0)
+            last = logits[:, last_idx]
+        return _sample_one(last, key_data, temp, top_p, top_k, g)
 
     def prefill_ring(params, tokens, positions, last_idx: int):
         """tokens, positions [1, bucket], the whole prompt on every sp rank

@@ -365,9 +365,11 @@ class _WarmupMixin:
         cs.begin_phase("warmup_restore")
         self.metrics["warmup_phase"] = PHASE_CODES["warmup_restore"]
         self._init_device_state()
-        # The ring's graphs pointed at the state just freed: capture them
-        # again on the new one, so that no request pays for it.
+        # The ring's and the prefill's graphs pointed at the state just
+        # freed: capture them again on the new one, so that no request pays
+        # for it.
         self._ring()
+        self._prefill_graphs()
         if self._timeline is not None:
             self._timeline.anchor()
         self.metrics.update(metrics_before)

@@ -155,6 +155,18 @@ def cache_put(cache: Any, chunk: Any, starts: Sequence[int]) -> Any:
     return cache
 
 
+def cache_put_slot(cache: Any, chunk: Any, slot: torch.Tensor) -> Any:
+    """``cache_put`` of a slot-row chunk ``[L, 1, T, ...]`` at rows [0, T)
+    of the slot that the device index ``slot`` (int64 [1]) names, read on
+    the device: a captured graph replays it for any slot. Same values as
+    ``cache_put(cache, chunk, (0, slot, 0))``."""
+    if is_quant_kv(cache) and not is_quant_kv(chunk):
+        chunk = quantize_rows(chunk)
+    kv_map(lambda a, c: a.narrow(2, 0, c.shape[2]).index_copy_(1, slot, c.to(a.dtype)),
+           cache, chunk)
+    return cache
+
+
 def cache_take(cache: Any, starts: Sequence[int], lead_sizes: Sequence[int]) -> Any:
     """Rows of a cache over its leading axes (starts clamped as in
     ``dynamic_slice``; head/feature axes whole). A view of the cache,

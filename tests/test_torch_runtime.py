@@ -390,5 +390,5 @@ def test_bind_engine_metrics_exposes_the_port_histograms(tparams):
 def test_metric_keys_equal_jax_but_the_ring(jparams, tparams, fields):
     jkeys = set(_jax_engine(jparams, **fields).metrics)
     tkeys = set(_port_engine(tparams, **fields).metrics)
-    assert tkeys == jkeys | TIMELINE_KEYS
+    assert tkeys == jkeys | TIMELINE_KEYS | {"prefill_graph_replays"}
     assert RING_KEYS <= tkeys
