@@ -4,8 +4,9 @@ Once the window has closed and the program is freed, a sample drawn
 from the seed of the requests that finished goes to the plain reference
 (``portbench/reference``): up to ``check_requests`` greedy requests and
 as many sampled ones, the longest of each kind always among them. One
-causal float32 pass runs over each prompt and its served tokens, the
-weights drawn again from the seed layer by layer. The numbers that a
+causal float32 pass of the configuration's family's reference
+(``reference_logits``) runs over each prompt and its served tokens, the
+weights drawn again from the seed block by block. The numbers that a
 configuration may compare (its file names them and their limits under
 ``check``, set from sound runs and from the control or a planted fault):
 
@@ -47,7 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench import weights
+from portbench import families
 from portbench.reference import model as ref
 
 # Samplers with one part left out, for the sampled share's upper reading:
@@ -93,12 +94,12 @@ def gaps(cfg: dict, seed: int, greedy: list, sampled: list, prompts: dict, sampl
     seqs = [list(prompts[r.index]) + r.tokens[:-1] for r in picked]
     wanted = [list(range(len(prompts[r.index]) - 1, len(prompts[r.index]) - 1 + len(r.tokens)))
               for r in picked]
-    top = weights.globals_(cfg, seed, device, dtype)
+    family = families.of(cfg)
 
-    def layer(i):
-        return weights.layer(cfg, seed, i, device, dtype)
+    def logits(seqs, wanted, precision):
+        return family.reference_logits(cfg, seed, seqs, wanted, precision, device, dtype)
 
-    f32 = ref.logits_at(layer, top, cfg, seqs, wanted, "f32", device)
+    f32 = logits(seqs, wanted, "f32")
     served = [torch.tensor(r.tokens, device=device) for r in picked]
     g_f32, s_f32 = f32[:len(greedy)], f32[len(greedy):]
     stats = spread([ref.gaps(lg, t) for lg, t in zip(g_f32, served)])
@@ -106,8 +107,7 @@ def gaps(cfg: dict, seed: int, greedy: list, sampled: list, prompts: dict, sampl
     out = {"tokens_compared": sum(len(r.tokens) for r in picked), "served": stats}
     if control:
         for name, precision in (("control", "fp8"), ("witness_bf16", "bf16")):
-            low = ref.logits_at(layer, top, cfg, seqs[:len(greedy)], wanted[:len(greedy)],
-                                precision, device)
+            low = logits(seqs[:len(greedy)], wanted[:len(greedy)], precision)
             out[name] = spread([ref.gaps(lg, lo.argmax(-1)) for lg, lo in zip(g_f32, low)])
         t, p, k = sampling["temperature"], sampling["top_p"], sampling["top_k"]
         out["sampler_faults"] = {name: fault_share(s_f32, sampling, *f(t, p, k))

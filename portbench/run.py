@@ -239,7 +239,7 @@ def run_one(cell, seed: int, seconds: float, trace: bool, device, control: bool 
     dtype = getattr(torch, cell.config["torch_dtype"])
     cut = None
     if spec.world(cell.mix) > 1:
-        cut = _rank_cut(mcfg, ecfg)
+        cut = _rank_cut(cell.config, mcfg, ecfg)
     phases = {"start": time.monotonic() - T_START}
     params = weights.draw(cell.config, seed, device, dtype, cut)
     if cuda:
@@ -325,20 +325,21 @@ def kv_rows(run: Run, every_s: float = 0.5) -> list:
     return out
 
 
-def _rank_cut(mcfg, ecfg):
-    """This rank's slice of each drawn block, by the port's spec tree."""
-    from omnia_tpu_torch.models import llama
+def _rank_cut(cfg, mcfg, ecfg):
+    """This rank's slice of each drawn block, by the family's spec tree."""
     from omnia_tpu_torch.parallel.mesh import make_mesh
     from omnia_tpu_torch.parallel.sharding import P, shard_leaf
+    from portbench import families, weights
 
     mesh = make_mesh(dp=ecfg.dp, sp=ecfg.sp, tp=ecfg.tp)
-    specs = llama.mesh_param_specs(mcfg, mesh)
+    specs = families.of(cfg).mesh_param_specs(mcfg, mesh)
+    stacked = {path for path, (depth, _, _) in weights.leaves(cfg).items() if depth is not None}
 
     def cut(path, block):
         node = specs
         for key in path.split("."):
             node = node[key]
-        if path.startswith("layers."):
+        if path in stacked:
             node = P(*tuple(node)[1:])
         return shard_leaf(block, node, mesh)
 

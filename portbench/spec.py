@@ -2,14 +2,15 @@
 
 - a configuration: the ``file`` its ``configs`` entry names (Hugging Face
   keys at the top level, the dtype it is served in, the comparison's
-  limits under ``check``);
+  limits under ``check``), and its architecture's family,
+  ``portbench/families/<model_type>.py``;
 - a traffic mix: ``portbench/traffic/<traffic>.json`` (lengths, load,
   the engine it runs on, the window's lead-in, the check's sample);
 - a metric: ``portbench/metrics/<name>.py``, whose ``read(run)`` returns
   the number or None where it finds nothing to read.
 
-Adding a cell, a configuration, a mix or a metric is adding files and
-entries: nothing here names one.
+Adding a cell, a configuration, an architecture, a mix or a metric is
+adding files and entries: nothing here names one.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+
+from portbench import families
 
 
 @dataclass
@@ -44,6 +47,13 @@ def load_cell(root: Path, name: str) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     config = json.loads((root / configs[w["config"]]["file"]).read_text())
     mix = json.loads((root / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
+    family = families.path(config.get("model_type"))
+    if not family.is_file():
+        raise SystemExit(f"{w['config']}: no family for model_type "
+                         f"{config.get('model_type')!r}: {family} is missing")
+    if world(mix) > 1 and not hasattr(families.of(config), "mesh_param_specs"):
+        raise SystemExit(f"{name} asks for {world(mix)} ranks, but the {config['model_type']} "
+                         f"family gives no mesh_param_specs to cut a rank's slice by")
     return Cell(name, w["chips"], config, mix,
                 [m for m in bench["end_to_end"] if _covers(m, name)],
                 [m for m in bench["per_layer"] if _covers(m, name)], root)
@@ -60,18 +70,7 @@ def reader(root: Path, name: str):
 
 def model_config(cfg: dict):
     """The port's ``ModelConfig`` for a configuration file."""
-    from omnia_tpu_torch.models.config import ModelConfig
-
-    D, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    return ModelConfig(
-        name=cfg["name"], vocab_size=cfg["vocab_size"], hidden_size=D,
-        num_layers=cfg["num_hidden_layers"], num_heads=H,
-        num_kv_heads=cfg["num_key_value_heads"], head_dim=cfg.get("head_dim") or D // H,
-        ffn_hidden_size=cfg["intermediate_size"], rope_theta=float(cfg["rope_theta"]),
-        rms_norm_eps=cfg["rms_norm_eps"], tie_embeddings=bool(cfg.get("tie_word_embeddings")),
-        num_experts=cfg.get("num_local_experts", 0),
-        num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
-        max_seq_len=cfg["max_position_embeddings"])
+    return families.of(cfg).model_config(cfg)
 
 
 def engine_config(mix: dict, flight_events: int = 0):

@@ -19,7 +19,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 DENSE = {
-    "name": "tiny-dense", "source": "test widths of mistral-7b-v0.3",
+    "name": "tiny-dense", "source": "test widths of mistral-7b-v0.3", "model_type": "mistral",
     "hidden_size": 64, "intermediate_size": 128, "max_position_embeddings": 512,
     "num_attention_heads": 4, "num_hidden_layers": 2, "num_key_value_heads": 2,
     "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "tie_word_embeddings": False,
@@ -33,7 +33,8 @@ DENSE = {
 # widest gap read up to 1.16, its request medians 0 and its mean gap at
 # most 0.039; that decode step's at least 0.33), so it compares each
 # request's lower-quartile gap and the mean gap, as the Mixtral cell does.
-MOE = dict(DENSE, name="tiny-moe", num_local_experts=8, num_experts_per_tok=2,
+MOE = dict(DENSE, name="tiny-moe", model_type="mixtral", num_local_experts=8,
+           num_experts_per_tok=2,
            initializer_range=0.1,
            check={"request_p25_gap": 0.1, "mean_gap": 0.1, "sampled_outside_share": 0.25})
 

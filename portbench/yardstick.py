@@ -1,5 +1,6 @@
-"""The benchmark's arithmetic: exact quantiles, the H100's peaks, model
-FLOPs from real lengths, and the bytes one decode-attention call needs.
+"""The benchmark's arithmetic: exact quantiles, the H100's peaks, and
+the counts of the cell's family (``portbench/families``): model FLOPs
+from real lengths, and the bytes one decode-attention call needs.
 
 Nothing here reads the program: the counts come from the configuration
 file and from the traffic's own lengths and positions.
@@ -8,6 +9,8 @@ file and from the traffic's own lengths and positions.
 from __future__ import annotations
 
 import math
+
+from portbench import families
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity, at 700 W.
 PEAK_BF16_FLOPS = 989e12
@@ -28,59 +31,34 @@ def quantile(values, q: float) -> float:
 
 
 def dims(cfg: dict) -> dict:
-    """The sizes the counts need, from a configuration file's keys."""
-    D, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    return dict(L=cfg["num_hidden_layers"], D=D, H=H, Hkv=cfg["num_key_value_heads"],
-                Dh=cfg.get("head_dim") or D // H, F=cfg["intermediate_size"],
-                V=cfg["vocab_size"], E=cfg.get("num_local_experts", 0),
-                K=cfg.get("num_experts_per_tok", 0))
+    """The sizes the family's counts read, where it names them."""
+    return families.of(cfg).dims(cfg)
 
 
 def matmul_params_per_token(cfg: dict) -> int:
-    """Weights one token multiplies through the layers: attention's four
-    projections and, dense, the three MLP matrices; MoE, the router and
-    the three matrices of each of its top-k experts. The output head is
-    counted apart (``head_params``): only a token whose logits are used
-    needs it."""
-    d = dims(cfg)
-    attn = d["D"] * (d["H"] + 2 * d["Hkv"]) * d["Dh"] + d["H"] * d["Dh"] * d["D"]
-    mlp = 3 * d["D"] * d["F"]
-    if d["E"]:
-        mlp = d["K"] * mlp + d["D"] * d["E"]
-    return d["L"] * (attn + mlp)
+    """Weights one token multiplies through the layers, the head apart."""
+    return families.of(cfg).matmul_params_per_token(cfg)
 
 
 def head_params(cfg: dict) -> int:
-    d = dims(cfg)
-    return d["D"] * d["V"]
-
-
-def attention_flops(cfg: dict, context: int) -> float:
-    """Attention FLOPs of one query row over ``context`` keys, all layers:
-    q·k and p·v, two FLOPs a multiply-add."""
-    d = dims(cfg)
-    return 4.0 * d["L"] * d["H"] * d["Dh"] * context
+    return families.of(cfg).head_params(cfg)
 
 
 def prefill_flops(cfg: dict, n: int) -> float:
-    """A fresh prompt of n tokens: the projections for each row, causal
-    attention (row i sees i + 1 keys) and one row through the head."""
-    causal = 4.0 * dims(cfg)["L"] * dims(cfg)["H"] * dims(cfg)["Dh"] * n * (n + 1) / 2
-    return 2.0 * matmul_params_per_token(cfg) * n + causal + 2.0 * head_params(cfg)
+    """A fresh prompt of n tokens."""
+    return families.of(cfg).prefill_flops(cfg, n)
 
 
 def decode_flops(cfg: dict, position: int) -> float:
-    """One decode token fed at ``position``: the projections, attention
-    over positions 0..position, and the head."""
-    return (2.0 * (matmul_params_per_token(cfg) + head_params(cfg))
-            + attention_flops(cfg, position + 1))
+    """One decode token fed at ``position``."""
+    return families.of(cfg).decode_flops(cfg, position)
 
 
-def k1_bytes(cfg: dict, position: int, itemsize: int = 2) -> int:
-    """Bytes that the decode-attention kernel needs for one active slot at
-    ``position`` over all layers: its q row, its K and V rows 0..position
-    and its output row, each read or written once."""
-    d = dims(cfg)
-    kv = 2 * (position + 1) * d["Hkv"] * d["Dh"]
-    q_out = 2 * d["H"] * d["Dh"]
-    return d["L"] * (kv + q_out) * itemsize
+def decode_attention_bytes(cfg: dict, position: int, itemsize: int = 2) -> int:
+    """Bytes that decode attention needs for one active slot at
+    ``position``, over all layers."""
+    return families.of(cfg).decode_attention_bytes(cfg, position, itemsize)
+
+
+# K1 is the port's decode-attention kernel; ``k1_roofline`` reads its bytes so.
+k1_bytes = decode_attention_bytes
